@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+
+The sources under ``csrc/`` are compiled at first use, on the machine with the
+GPU, into one shared library under ``sei_tpu_torch/_build/`` (listed in
+``.gitignore``): one ``nvcc -c`` per ``.cu`` file, all started together, then
+one link.  The library name carries a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  Importing
+this module compiles nothing; only :func:`library` does, and only a CUDA
+tensor reaches it.
+
+Each C entry point takes the CUDA device index first and the stream last,
+launches on that stream, and returns ``cudaGetLastError()``; :func:`check`
+turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "sei_ln_rows": [_I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
+    "sei_gemm_bias_epilogue": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _P],
+    "sei_window_attn_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                            *[_L] * 12, _F, _P],
+}
+
+
+class Built(NamedTuple):
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # wall time of this process's build (0.0 when loaded as built)
+    log: str        # nvcc / ptxas output of the build ("" when loaded as built)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("sei_tpu_torch: nvcc not found; the CUDA kernels "
+                           "are built on the machine with the GPU")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path, sources: list[Path]) -> str:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
+    try:
+        objs = [tmp / (s.stem + ".o") for s in sources]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s),
+                              "-o", str(o)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(sources, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name}:\n{log}")
+        so = tmp / out.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(so, out)
+        return "".join(f"== {s.name}\n{log}" for s, log in zip(sources, logs))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> Built:
+    """Build (if needed) and load the kernel library; cached per process."""
+    sources = sorted(CSRC.glob("*.cu"))
+    out = BUILD_DIR / f"libsei_kernels_{_digest()}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        t0 = time.perf_counter()
+        log = _compile(out, sources)
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sei_error_string.argtypes = [ctypes.c_int]
+    lib.sei_error_string.restype = ctypes.c_char_p
+    return Built(lib, out, seconds, log)
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = library().lib.sei_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()

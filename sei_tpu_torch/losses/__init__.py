@@ -1,0 +1,195 @@
+"""Training losses (counterpart of ``sei_tpu/losses/__init__.py``).
+
+  supervised / css / noise2inverse -> MSE on the (x, y) pair;
+  sure       -> MC-SURE in measurement space;
+  proposed   -> SURE + EI under the padded scaling transform, with optional
+                stop-gradient on the transformed branch.
+
+A loss is ``loss(x, y, model, rng=None, draws=None) -> scalar``: ``model``
+maps a measurement batch to an estimate, ``rng`` holds the trainer's
+generators (:class:`sei_tpu_torch.rng.Streams`: ``crop``, ``probe``,
+``transform``), and ``draws`` (:class:`LossDraws`) can pass any random input
+explicitly instead (the golden tests hand both packages the same draws).
+The pre-loss aligned 48-px crop of the reference is applied first.  The R2R
+alternative, the ``normal`` scaling kind, the SR crop ratio and rate hotfix
+and the supervised L1 variant are not ported yet (ROADMAP, Queue 1 items 14,
+18 and 20).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..transforms import crop_pair_batch, get_ei_transform
+from .sure import (  # noqa: F401
+    mc_divergence,
+    sample_probe,
+    sure_gaussian_loss,
+    sure_gaussian_loss_from_outputs,
+)
+
+METHOD_ALIASES = {
+    "sup": "supervised",
+    "ei-shift": ("proposed", "Shifts"),
+    "ei-rotate": ("proposed", "Rotations"),
+}
+METHODS = ("supervised", "css", "noise2inverse", "sure", "proposed")
+TAU = 1e-2
+
+
+def normalize_method(method: str, transforms: str) -> tuple[str, str]:
+    """Resolve README aliases to (method, ProposedLoss__transforms)."""
+    if method in METHOD_ALIASES:
+        v = METHOD_ALIASES[method]
+        return v if isinstance(v, tuple) else (v, transforms)
+    if method not in METHODS:
+        raise ValueError(f"Unknown method: {method}")
+    return method, transforms
+
+
+def _mse(a, b):
+    d = a - b
+    return torch.mean(d * d)
+
+
+@dataclasses.dataclass
+class LossDraws:
+    """The random inputs of one loss evaluation; a field left None is drawn
+    from the matching generator of ``rng``."""
+
+    crop: Optional[torch.Tensor] = None     # (B, 2) int offsets of the loss crop
+    probe: Optional[torch.Tensor] = None    # SURE probe b, the cropped y's shape
+    rates: Optional[torch.Tensor] = None    # (B,) scaling rates
+    centers: Optional[torch.Tensor] = None  # (B, 2) scaling centers (cx, cy)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Everything ``get_loss`` derives from flags."""
+
+    method: str = "proposed"
+    noise_level: float = 5.0
+    sure_cropped_div: bool = True
+    sure_averaged_cst: bool = False
+    sure_margin: int = 0
+    stop_gradient: bool = True
+    sure_alternative: Optional[str] = None
+    alpha_tradeoff: float = 1.0
+    transforms: str = "Scaling_Transforms"
+    scaling_kind: str = "padded"
+    scaling_antialias: bool = False
+    crop_training_pairs: bool = True
+    crop_size: int = 48
+
+    @property
+    def sigma(self) -> float:
+        return self.noise_level / 255.0
+
+    def _sure(self, y, model, A, rng, draws: LossDraws):
+        """SURE with f(y) and f(y + tau b) as one 2B forward -> (loss, x_net)."""
+        b = draws.probe
+        if b is None:
+            b = sample_probe(rng.probe, y, self.sure_margin if self.sure_cropped_div else 0)
+        x_net, x_tau = model(torch.cat([y, y + b * TAU])).chunk(2)
+        loss = sure_gaussian_loss_from_outputs(
+            y, x_net, x_tau, b, A, sigma=self.sigma, tau=TAU,
+            margin=self.sure_margin, cropped_div=self.sure_cropped_div,
+            averaged_cst=self.sure_averaged_cst)
+        return loss, x_net
+
+    def build(self, A: Callable) -> Callable:
+        """Return ``loss(x, y, model, rng=None, draws=None) -> scalar``."""
+        method = self.method
+        if self.sure_alternative is not None:
+            raise NotImplementedError(
+                f"sure_alternative={self.sure_alternative!r}: not ported yet "
+                "(ROADMAP, Queue 1 item 20: R2R)")
+
+        if method in ("supervised", "css", "noise2inverse"):
+
+            def fn(x, y, model, rng, draws):
+                return _mse(model(y), x)
+
+        elif method == "sure":
+
+            def fn(x, y, model, rng, draws):
+                return self._sure(y, model, A, rng, draws)[0]
+
+        elif method == "proposed":
+            transform = get_ei_transform(self.transforms, kind=self.scaling_kind,
+                                         antialias=self.scaling_antialias)
+
+            def fn(x, y, model, rng, draws):
+                loss, x_net = self._sure(y, model, A, rng, draws)
+                # EI term: x2 = T(x_net) (stop-grad optional), x3 = f(A(x2)).
+                # This forward cannot join the 2B one: its input depends on
+                # x_net's value.
+                x2 = transform(x_net, None if rng is None else rng.transform,
+                               rates=draws.rates, centers=draws.centers)
+                if self.stop_gradient:
+                    x2 = x2.detach()
+                x3 = model(A(x2))
+                return loss + self.alpha_tradeoff * _mse(x3, x2)
+
+        else:
+            raise ValueError(f"Unknown method: {method}")
+
+        def loss(x, y, model, rng=None, draws: Optional[LossDraws] = None):
+            draws = draws or LossDraws()
+            if self.crop_training_pairs:
+                x, y = crop_pair_batch(x, y, size=self.crop_size, offsets=draws.crop,
+                                       generator=None if rng is None else rng.crop)
+            return fn(x, y, model, rng, draws)
+
+        return loss
+
+
+def compute_sure_margin(*, partial_sure: bool, sure_margin: Optional[int], task: str,
+                        kernel_shape: Optional[tuple] = None,
+                        partial_sure_sr: bool = False) -> int:
+    """The SURE margin: explicit, or half the blur kernel for deblurring."""
+    if not partial_sure:
+        if sure_margin is not None:
+            raise ValueError("sure_margin needs partial_sure")
+        return 0
+    if sure_margin is not None:
+        return sure_margin
+    if task == "deblurring":
+        if kernel_shape is None:
+            raise ValueError("deblurring needs the kernel shape for the SURE margin")
+        return (max(kernel_shape[-2], kernel_shape[-1]) - 1) // 2
+    if task == "sr":
+        return 2 if partial_sure_sr else 0
+    return 0
+
+
+def get_loss(*, method: str, physics, noise_level: float = 5.0,
+             partial_sure: bool = True, partial_sure_sr: bool = False,
+             sure_margin: Optional[int] = None, sure_cropped_div: bool = True,
+             sure_averaged_cst: Optional[bool] = None, stop_gradient: bool = True,
+             sure_alternative: Optional[str] = None, alpha_tradeoff: float = 1.0,
+             transforms: str = "Scaling_Transforms", scaling_kind: str = "padded",
+             scaling_antialias: bool = False, crop_training_pairs: bool = True,
+             crop_size: int = 48) -> Callable:
+    """Factory mirroring ``sei_tpu.losses.get_loss`` for the ported methods."""
+    method, transforms = normalize_method(method, transforms)
+    margin = compute_sure_margin(
+        partial_sure=partial_sure, sure_margin=sure_margin, task=physics.task,
+        kernel_shape=None if physics.kernel is None else tuple(physics.kernel.shape),
+        partial_sure_sr=partial_sure_sr)
+    cfg = LossConfig(
+        method=method, noise_level=noise_level, sure_cropped_div=sure_cropped_div,
+        sure_averaged_cst=bool(sure_averaged_cst), sure_margin=margin,
+        stop_gradient=stop_gradient, sure_alternative=sure_alternative,
+        alpha_tradeoff=alpha_tradeoff, transforms=transforms, scaling_kind=scaling_kind,
+        scaling_antialias=scaling_antialias, crop_training_pairs=crop_training_pairs,
+        crop_size=crop_size)
+    return cfg.build(physics.A)
+
+
+__all__ = ["LossConfig", "LossDraws", "METHODS", "compute_sure_margin", "get_loss",
+           "mc_divergence", "normalize_method", "sample_probe", "sure_gaussian_loss",
+           "sure_gaussian_loss_from_outputs"]

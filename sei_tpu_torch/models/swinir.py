@@ -20,7 +20,13 @@ budget, which does not apply here, so the port has no size gate.  With
 ``fused_trunk=False`` the blocks run as modules (LayerNorm/Linear plus the
 ``window_attention`` kernel).  ``forward(x, plain=True)`` runs the plain
 PyTorch version of every kernel on any device (the reference the kernel path
-is held against on the card).  The SR pixelshuffle head is not ported yet.
+is held against on the card); it is differentiable, by torch autograd
+through the plain ops, as the kernel path is through the kernels' backward.
+
+In training mode (``module.train()``) stochastic depth draws its keep masks
+from the ``generator`` handed to ``forward`` (the trainer owns one dropout
+stream); a training forward with a drop-path rate above 0 and no generator
+raises.  The SR pixelshuffle head is not ported yet.
 """
 
 from __future__ import annotations
@@ -143,6 +149,18 @@ class WindowAttention(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(b_, n, c))
 
 
+def _need_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("drop-path in training mode draws from a torch.Generator: "
+                         "pass generator=... to forward")
+    return generator
+
+
+def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """U[0, 1) draws from ``generator`` (on its own device), moved to ``device``."""
+    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth on a residual branch (identity in eval)."""
 
@@ -150,12 +168,12 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = _uniform(shape, _need_generator(generator), x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -170,7 +188,8 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, mask: Optional[torch.Tensor], plain: bool = False):
+    def forward(self, x, mask: Optional[torch.Tensor], plain: bool = False,
+                generator: Optional[torch.Generator] = None):
         # x: (B, H, W, C) with H, W multiples of the window
         b, h, w, c = x.shape
         ws = self.window_size
@@ -182,8 +201,8 @@ class SwinBlock(nn.Module):
         y = window_reverse(win, ws, h, w)
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x = x + self.drop_path(y)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = x + self.drop_path(y, generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 
 class _ResidualGroup(nn.Module):
@@ -227,25 +246,29 @@ class RSTB(nn.Module):
         }
         return params, st(lambda b: b.attn.relative_bias())
 
-    def _drop_path_masks(self, b: int, device) -> torch.Tensor:
-        """(D, 2, B) keep factors, (attention, MLP) branch drawn independently."""
+    def _drop_path_masks(self, b: int, device,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(D, 2, B) keep factors, (attention, MLP) branch drawn independently
+        (the JAX trunk's one bernoulli draw of that shape)."""
         d = len(self.drop_paths)
         if not self.training or max(self.drop_paths) == 0.0:
             return torch.ones((d, 2, b), device=device)
         keep = (1.0 - torch.tensor(self.drop_paths, device=device))[:, None, None]
-        return (torch.rand((d, 2, b), device=device) < keep).float() / keep
+        u = _uniform((d, 2, b), _need_generator(generator), device)
+        return (u < keep).float() / keep
 
-    def forward(self, x, mask: Optional[torch.Tensor], plain: bool = False):
+    def forward(self, x, mask: Optional[torch.Tensor], plain: bool = False,
+                generator: Optional[torch.Generator] = None):
         res = x
         if self.fused_trunk:
             params, rpb = self.stacked_params()
             trunk = trunk_reference if plain else swin_trunk
             x = trunk(x.contiguous(), params, rpb, mask,
-                      self._drop_path_masks(x.shape[0], x.device),
+                      self._drop_path_masks(x.shape[0], x.device, generator),
                       num_heads=self.num_heads, window_size=self.window_size)
         else:
             for blk in self.residual_group.blocks:
-                x = blk(x, mask, plain)
+                x = blk(x, mask, plain, generator)
         x = self.conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return x + res
 
@@ -313,8 +336,9 @@ class SwinIR(nn.Module):
             self._mask = (key, torch.from_numpy(shift_attn_mask(h, w, ws, ws // 2)).to(device))
         return self._mask[1]
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        # x: (B, C, H, W) in [0, 1]
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        # x: (B, C, H, W) in [0, 1]; ``generator`` feeds drop-path in training
         h_in, w_in = x.shape[-2:]
         ws = self.window_size
         x = reflect_pad(x, (-h_in) % ws, (-w_in) % ws)
@@ -323,7 +347,7 @@ class SwinIR(nn.Module):
         f = self.patch_embed.norm(feat.permute(0, 2, 3, 1)).contiguous()
         mask = self._shift_mask(f.shape[1], f.shape[2], f.device)
         for layer in self.layers:
-            f = layer(f, mask, plain)
+            f = layer(f, mask, plain, generator)
         f = self.norm(f).permute(0, 3, 1, 2)
         res = self.conv_after_body(f) + feat
         out = x + self.conv_last(res)

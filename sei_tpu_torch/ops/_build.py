@@ -38,10 +38,13 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "sei_ln_rows": [_I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
-    "sei_gemm_bias_epilogue": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P],
+    "sei_gemm_bias_epilogue": [_I, *[_P] * 7, *[_I] * 10, _P],
     "sei_window_attn_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                             *[_L] * 12, _F, _P],
+    "sei_window_attn_bwd": [_I, *[_P] * 10, _L, *[_I] * 5, *[_L] * 21, _F, _P],
+    "sei_ln_rows_bwd": [_I, *[_P] * 7, _L, _I, _F, *[_I] * 6, _P],
+    "sei_gemm_dgrad": [_I, *[_P] * 5, *[_I] * 9, _P],
+    "sei_gemm_wgrad": [_I, *[_P] * 5, *[_I] * 10, _P],
 }
 
 
@@ -130,3 +133,11 @@ def stream_of(t: torch.Tensor) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def partial_count(work_items: int, blocks_per_partial: int = 1, per_sm: int = 2) -> int:
+    """How many partials a reduction kernel should write: enough blocks
+    (``blocks_per_partial`` per partial) for ``per_sm`` on each of the card's
+    SMs, never more partials than there are work items to split."""
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return max(1, min(work_items, per_sm * sms // blocks_per_partial))

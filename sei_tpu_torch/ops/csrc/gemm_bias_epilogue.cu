@@ -5,6 +5,9 @@
 // fc1 :539, fc2 :544-547) together with what follows each of them there:
 //   EPI_NONE      qkv:  out = A.W + b
 //   EPI_GELU      fc1:  out = gelu(A.W + b), exact GELU with erff
+//   EPI_GELU_PRE  fc1 in the training backward's recompute: as EPI_GELU,
+//                 and the pre-activation A.W + b stored beside it in `pre`
+//                 (the GELU' factor of the fc2 data-grad reads it)
 //   EPI_RESIDUAL  proj, fc2: out[p] = res[p] + dpm[img] * (A.W + b), where
 //                 p = row_to_pixel(row) folds window reverse and the +shift
 //                 roll into the store (:508-510) and dpm is the per-image
@@ -26,14 +29,15 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int kThreads = 256;
 
-enum { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+enum { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_GELU_PRE = 3 };
 
 template <int EPI>
 __global__ void __launch_bounds__(kThreads)
 gemm_bias_epilogue_kernel(const float* __restrict__ A,
                           const float* __restrict__ Wt,
                           const float* __restrict__ bias, float* out,
-                          const float* res, const float* __restrict__ dpm,
+                          float* __restrict__ pre, const float* res,
+                          const float* __restrict__ dpm,
                           int M, int K, int N, int rows_per_img, WinMap map) {
   __shared__ __align__(16) float As[BK][BM + 4];  // As[k][m]
   __shared__ __align__(16) float Bs[BK][BN];      // Bs[k][n]
@@ -95,7 +99,8 @@ gemm_bias_epilogue_kernel(const float* __restrict__ A,
       const int gn = n0 + tx * 4 + j;
       if (gn >= N) continue;
       float v = acc[i][j] + bias[gn];
-      if (EPI == EPI_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      if (EPI == EPI_GELU_PRE) pre[orow + gn] = v;
+      if (EPI == EPI_GELU || EPI == EPI_GELU_PRE) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
       if (EPI == EPI_RESIDUAL) v = res[orow + gn] + keep * v;
       out[orow + gn] = v;
     }
@@ -106,8 +111,9 @@ gemm_bias_epilogue_kernel(const float* __restrict__ A,
 
 extern "C" int sei_gemm_bias_epilogue(int device, const float* A, const float* Wt,
                                       const float* bias, float* out,
-                                      const float* res, const float* dpm, int M,
-                                      int K, int N, int epilogue,
+                                      float* pre, const float* res,
+                                      const float* dpm, int M, int K, int N,
+                                      int epilogue,
                                       int rows_per_img, int windowed, int H,
                                       int W, int ws, int shift, void* stream) {
   if (M < 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
@@ -116,6 +122,7 @@ extern "C" int sei_gemm_bias_epilogue(int device, const float* A, const float* W
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   if (epilogue == EPI_RESIDUAL && (res == nullptr || dpm == nullptr || rows_per_img <= 0))
     return (int)cudaErrorInvalidValue;
+  if (epilogue == EPI_GELU_PRE && pre == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const WinMap map{windowed, H, W, ws, shift};
@@ -123,15 +130,19 @@ extern "C" int sei_gemm_bias_epilogue(int device, const float* A, const float* W
   switch (epilogue) {
     case EPI_NONE:
       gemm_bias_epilogue_kernel<EPI_NONE><<<grid, kThreads, 0, s>>>(
-          A, Wt, bias, out, res, dpm, M, K, N, rows_per_img, map);
+          A, Wt, bias, out, pre, res, dpm, M, K, N, rows_per_img, map);
       break;
     case EPI_GELU:
       gemm_bias_epilogue_kernel<EPI_GELU><<<grid, kThreads, 0, s>>>(
-          A, Wt, bias, out, res, dpm, M, K, N, rows_per_img, map);
+          A, Wt, bias, out, pre, res, dpm, M, K, N, rows_per_img, map);
       break;
     case EPI_RESIDUAL:
       gemm_bias_epilogue_kernel<EPI_RESIDUAL><<<grid, kThreads, 0, s>>>(
-          A, Wt, bias, out, res, dpm, M, K, N, rows_per_img, map);
+          A, Wt, bias, out, pre, res, dpm, M, K, N, rows_per_img, map);
+      break;
+    case EPI_GELU_PRE:
+      gemm_bias_epilogue_kernel<EPI_GELU_PRE><<<grid, kThreads, 0, s>>>(
+          A, Wt, bias, out, pre, res, dpm, M, K, N, rows_per_img, map);
       break;
     default:
       return (int)cudaErrorInvalidValue;

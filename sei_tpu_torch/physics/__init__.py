@@ -32,6 +32,7 @@ class Physics:
 
     kernel: torch.Tensor
     sigma: float = 5.0 / 255.0
+    task = "deblurring"  # the only ported task (not a field)
 
     def A(self, x: torch.Tensor) -> torch.Tensor:
         return blur_circular(x, self.kernel)

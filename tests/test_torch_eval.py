@@ -118,7 +118,8 @@ def test_port_imports_no_jax():
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sei_tpu'))\n"
         "assert not bad, bad\n"
-        "assert 'sei_tpu_torch.ops.swin_trunk' in new\n"
+        "assert {'sei_tpu_torch.ops.swin_trunk', 'sei_tpu_torch.losses', 'sei_tpu_torch.data',\n"
+        "        'sei_tpu_torch.transforms', 'sei_tpu_torch.train.trainer'} <= new, new\n"
         "print('ok', len(new))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

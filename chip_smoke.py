@@ -42,8 +42,10 @@ import sys
 import time
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): FP32 on the CUDA
-# cores (TF32 is off for this f32 eval) and HBM3 bandwidth.
+# cores (TF32 is off for the f32 paths), dense bf16 on the tensor cores (the
+# bf16 training step's bound), and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # flagship eval shapes: one 256x320 image through SwinIR (embed 180, 6 heads,
@@ -71,6 +73,30 @@ PER_BLOCK_TRAIN = {"ln_rows": 2 + 2, "gemm_bias_epilogue": 4 + 2, "window_attn_f
 # 36 blocks of forward and backward; SURE's divergence divides the
 # difference of two forwards by tau = 1e-2)
 GRAD_RTOL = 1e-3
+# the bf16 step (SwinIR(dtype=bfloat16), the JAX package's training recipe):
+# the trunk's forward keeps gelu, gelu', p and att per block (mode "full")
+# and the backward recomputes only LN1, the qkv GEMM and LN2
+PER_BLOCK_TRAIN_BF16 = {"ln_rows": 2 + 2, "gemm_bias_epilogue": 4 + 1, "window_attn_fwd": 1,
+                        "gemm_dgrad": 4, "gemm_wgrad": 4, "window_attn_bwd": 1,
+                        "ln_rows_bwd": 2}
+# a bf16 kernel against its plain version (which rounds where it rounds):
+# |d| <= BF16_RTOL * (|plain| + max |plain|) on bf16 outputs -- an f32 sum in
+# another order can flip a rounding of the output, or of an intermediate
+# that is rounded before a further product (ds before dq, dk), by one bf16
+# ulp (2^-8 relative) of the largest such value
+BF16_RTOL = 1e-2
+# the bf16 trunk's gradients on an MSE loss, kernel path vs autograd through
+# the plain trunk: within 3e-2 of each tensor's largest entry, the JAX
+# package's bound for its bf16 kernel (tests/test_swin_trunk.py:172-176)
+TRUNK_GRAD_FRAC = 3e-2
+# one proposed step's loss, the bf16 model against the f32 model on the same
+# weights and draws: rtol 5e-2, the JAX package's bound for its bf16 model's
+# loss against f32 (tests/test_swin_trunk.py:458).  bf16 rounds each
+# activation to 2^-9 relative through 36 blocks, and SURE's divergence
+# (f(y + tau b) - f(y)) / tau with tau = 1e-2 multiplies the rounding noise
+# of the two forwards by 100 per pixel before the batch mean (55296 values)
+# averages it down; its 2 sigma^2 weight (sigma = 5/255) keeps it small
+LOSS_RTOL_BF16 = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -101,8 +127,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -124,6 +150,19 @@ def compare(name: str, got, want, atol: float, rtol: float) -> float:
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return max_abs
+
+
+def compare_bf16(name: str, got, want, f32_tol: tuple) -> float:
+    """A bf16 kernel's output: bf16 tensors to BF16_RTOL (relative and of the
+    largest entry), its f32 outputs to ``f32_tol`` (atol, rtol)."""
+    import torch
+
+    if got.dtype != want.dtype:
+        fail(f"{name}: dtype {got.dtype} vs plain {want.dtype}")
+    if want.dtype == torch.bfloat16:
+        got, want = got.float(), want.float()
+        return compare(name, got, want, BF16_RTOL * float(want.abs().max()), BF16_RTOL)
+    return compare(name, got, want, *f32_tol)
 
 
 def check_kernels(timed: bool) -> dict:
@@ -254,16 +293,16 @@ def check_train_kernels(timed: bool) -> dict:
         dpm = (torch.rand(b, generator=g, device=dev) < 0.9).float() / 0.9
         x4 = rnd(b, CROP, CROP, C)
 
-        # fc1 with the pre-activation stored beside gelu(h) (the recompute)
+        # fc1 with gelu'(h) stored beside gelu(h) (the recompute)
         z, w1, b1 = rnd(t, C), rnd(C, CH, s=0.05), rnd(CH, s=0.05)
-        pre, pre_p = torch.empty(t, CH, device=dev), torch.empty(t, CH, device=dev)
-        errs = cmp_all(f"gemm_bias_epilogue[fc1_gelu_pre T={t}]",
-                       (st.gemm_bias_epilogue(z, w1, b1, "gelu", pre=pre), pre),
-                       (st._torch_gemm_bias_epilogue(z, w1, b1, "gelu", pre=pre_p), pre_p),
+        gp, gp_p = torch.empty(t, CH, device=dev), torch.empty(t, CH, device=dev)
+        errs = cmp_all(f"gemm_bias_epilogue[fc1_gelu_pair T={t}]",
+                       (st.gemm_bias_epilogue(z, w1, b1, "gelu_pair", gp=gp), gp),
+                       (st._torch_gemm_bias_epilogue(z, w1, b1, "gelu_pair", gp=gp_p), gp_p),
                        [(1e-4, 1e-4)] * 2)
-        record("gemm_bias_epilogue", f"fc1_gelu_pre T={t}", errs,
-               lambda: st.gemm_bias_epilogue(z, w1, b1, "gelu", pre=pre),
-               lambda: st._torch_gemm_bias_epilogue(z, w1, b1, "gelu", pre=pre_p),
+        record("gemm_bias_epilogue", f"fc1_gelu_pair T={t}", errs,
+               lambda: st.gemm_bias_epilogue(z, w1, b1, "gelu_pair", gp=gp),
+               lambda: st._torch_gemm_bias_epilogue(z, w1, b1, "gelu_pair", gp=gp_p),
                lambda: torch.addmm(b1, z, w1), 2.0 * t * C * CH,
                4.0 * (t * C + C * CH + CH + 2 * t * CH), False)
 
@@ -273,17 +312,17 @@ def check_train_kernels(timed: bool) -> dict:
                 ("proj_window_dpm", C, C, dpm, wm, False), ("qkv", C, 3 * C, None, None, False)):
             dy = x4[..., :nn].contiguous() if wmap else rnd(t, nn)
             w = rnd(kk, nn, s=0.05)
-            pre = rnd(t, kk) if gelu else None
+            gp = rnd(t, kk) if gelu else None
             dy2 = dy.reshape(t, nn)
             errs = [compare(f"gemm_dgrad[{variant} T={t}]",
-                            st.gemm_dgrad(dy, w, scale=scale, window=wmap, pre=pre),
-                            st._torch_gemm_dgrad(dy, w, scale, wmap, pre), 1e-4, 1e-4)]
+                            st.gemm_dgrad(dy, w, scale=scale, window=wmap, gp=gp),
+                            st._torch_gemm_dgrad(dy, w, scale, wmap, gp), 1e-4, 1e-4)]
             record("gemm_dgrad", f"{variant} T={t}", errs,
-                   lambda: st.gemm_dgrad(dy, w, scale=scale, window=wmap, pre=pre),
-                   lambda: st._torch_gemm_dgrad(dy, w, scale, wmap, pre),
+                   lambda: st.gemm_dgrad(dy, w, scale=scale, window=wmap, gp=gp),
+                   lambda: st._torch_gemm_dgrad(dy, w, scale, wmap, gp),
                    lambda: torch.mm(dy2, w.t()), 2.0 * t * nn * kk,
                    4.0 * (t * nn + kk * nn + t * kk * (2 if gelu else 1)), main)
-            del dy, w, pre, dy2
+            del dy, w, gp, dy2
 
         # weight-grad products (sums over T tokens in another order: 1e-3)
         for variant, kk, nn, scale, wmap in (
@@ -346,6 +385,199 @@ def check_train_kernels(timed: bool) -> dict:
     return rows
 
 
+def check_bf16_kernels(timed: bool) -> dict:
+    """Every kernel's bf16 instantiation and the save behaviours of the bf16
+    step (the gelu_pair epilogue, the p store, the saved-p attention
+    backward, dgrad's saved-gelu' epilogue) against their plain versions in
+    bf16, at the training shapes of both graphs, in the order one block of
+    the bf16 step runs them; bounds at the bf16 peak, library calls in bf16.
+    ``per_block`` is how often one block of the 2B graph runs the variant."""
+    import torch
+    import torch.nn.functional as F
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import attention as at
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dev, bf, f32 = "cuda", torch.bfloat16, torch.float32
+
+    def rnd(*shape, s=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(dtype)
+
+    rows = {}
+
+    def record(kernel, variant, errs, fn_k, fn_p, fn_lib, flops, nbytes, per_block):
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        r = {"variant": variant, "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by,
+             "flops": flops, "bytes": nbytes, "per_block": per_block}
+        if timed:
+            r["ms"] = time_ms(fn_k)
+            r["plain_ms"] = time_ms(fn_p)
+            r["library_ms"] = time_ms(fn_lib) if fn_lib is not None else None
+            lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"    {kernel}[bf16 {variant}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+        rows.setdefault(kernel, []).append(r)
+
+    def cmp_all(name, got, want, f32_tol=(1e-4, 1e-4)):
+        return [compare_bf16(f"{name}[{i}]", a, b, f32_tol)
+                for i, (a, b) in enumerate(zip(got, want))]
+
+    def nb(*tensors):  # bytes of tensors read or written once
+        return float(sum(t.numel() * t.element_size() for t in tensors))
+
+    for b in TRAIN_GRAPHS:
+        t = b * CROP * CROP
+        b_ = t // N
+        main = b == TRAIN_GRAPHS[0]  # the 2B graph: the per-block sums
+        print(f"bf16 kernel checks: {b} images {CROP}x{CROP}, T={t}, {b_} windows "
+              f"(tolerance on bf16 outputs |d| <= {BF16_RTOL:g}*(|plain| + max|plain|))")
+        wm = st.WindowMap(CROP, CROP, WS, WS // 2)
+        dpm = (torch.rand(b, generator=g, device=dev) < 0.9).float() / 0.9
+        x4 = rnd(b, CROP, CROP, C)
+        gamma, beta = 1.0 + rnd(C, s=0.1, dtype=f32), rnd(C, s=0.1, dtype=f32)
+
+        # forward: LN1 (window gather) and LN2, bf16 out
+        for variant, inp, wmap in (("ln1_shift_window", x4, wm), ("ln2", x4.view(t, C), None)):
+            errs = cmp_all(f"ln_rows[bf16 {variant} T={t}]",
+                           [st.ln_rows(inp, gamma, beta, window=wmap)],
+                           [st._torch_ln_rows(inp, gamma, beta, wmap)])
+            x2d, gb, bb = x4.view(t, C), gamma.to(bf), beta.to(bf)
+            record("ln_rows", f"{variant} T={t}", errs,
+                   lambda: st.ln_rows(inp, gamma, beta, window=wmap),
+                   lambda: st._torch_ln_rows(inp, gamma, beta, wmap),
+                   lambda: F.layer_norm(x2d, (C,), gb, bb, 1e-5),
+                   8.0 * t * C, 2.0 * nb(x4) + nb(gamma, beta), 2 if main else 0)
+
+        # forward GEMMs: qkv (run twice per block: forward and the backward's
+        # recompute), proj + window store + double rounding, fc1 + gelu pair
+        # (the save), fc2 + residual
+        for variant, k, n, epi, wmap, reps in (
+                ("qkv", C, 3 * C, "none", None, 2), ("proj_residual_window", C, C, "residual", wm, 1),
+                ("fc1_gelu_pair", C, CH, "gelu_pair", None, 1),
+                ("fc2_residual", CH, C, "residual", None, 1)):
+            a, w, bias = rnd(t, k), rnd(k, n, s=0.05), rnd(n, s=0.05, dtype=f32)
+            res = x4 if epi == "residual" else None
+            d = dpm if epi == "residual" else None
+            gp, gp_p = ((torch.empty(t, n, device=dev, dtype=bf) for _ in range(2))
+                        if epi == "gelu_pair" else (None, None))
+            got = st.gemm_bias_epilogue(a, w, bias, epi, res=res, dpm=d, window=wmap, gp=gp)
+            want = st._torch_gemm_bias_epilogue(a, w, bias, epi, res, d, wmap, gp_p)
+            errs = cmp_all(f"gemm_bias_epilogue[bf16 {variant} T={t}]",
+                           [got] + ([gp] if gp is not None else []),
+                           [want] + ([gp_p] if gp_p is not None else []))
+            bias_bf = bias.to(bf)
+            record("gemm_bias_epilogue", f"{variant} T={t}", errs,
+                   lambda: st.gemm_bias_epilogue(a, w, bias, epi, res=res, dpm=d, window=wmap, gp=gp),
+                   lambda: st._torch_gemm_bias_epilogue(a, w, bias, epi, res, d, wmap, gp_p),
+                   lambda: torch.addmm(bias_bf, a, w), 2.0 * t * k * n,
+                   nb(a, w, got, bias) + (nb(res) if res is not None else 0.0)
+                   + (nb(gp) if gp is not None else 0.0), reps if main else 0)
+            del a, w, got, want, gp, gp_p
+
+        # attention forward with the p store
+        q = rnd(b_, NH, N, HD, s=HD ** -0.5)
+        kt, v, do = rnd(b_, NH, N, HD), rnd(b_, NH, N, HD), rnd(b_, NH, N, HD, s=0.1)
+        bias = rnd(NH, N, N, s=0.1, dtype=f32)
+        mask = torch.from_numpy(shift_attn_mask(CROP, CROP, WS, WS // 2)).to(dev)
+        saved = {}
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            p, p_p = (torch.empty(b_, NH, N, N, device=dev, dtype=bf) for _ in range(2))
+            got = at.window_attn_fwd(q, kt, v, bias, m, p_out=p)
+            errs = cmp_all(f"window_attn_fwd[bf16 {variant} p_store T={t}]", [got, p],
+                           [at._torch_attention(q, kt, v, bias, m, 1.0, p_p), p_p])
+            full = (bias[None] if m is None else
+                    (bias[None] + m[:, None]).repeat(b_ // m.shape[0], 1, 1, 1)).expand(
+                        b_, NH, N, N).to(bf)
+            record("window_attn_fwd", f"{variant} p_store T={t}", errs,
+                   lambda: at.window_attn_fwd(q, kt, v, bias, m, p_out=p),
+                   lambda: at._torch_attention(q, kt, v, bias, m, 1.0, p_p),
+                   lambda: F.scaled_dot_product_attention(q, kt, v, attn_mask=full, scale=1.0),
+                   4.0 * b_ * NH * N * N * HD,
+                   nb(q, kt, v, got, p, bias) + (nb(m) if m is not None else 0.0), 1 if main else 0)
+            saved[variant] = p
+            del got, p_p, full
+
+        # data-grad products, in the order one block's backward runs them
+        for variant, kk, nn, dy_dtype, out_dtype, scale, wmap, with_gp in (
+                ("fc2_saved_gelu_grad", CH, C, bf, f32, dpm, None, True),
+                ("fc1", C, CH, f32, f32, None, None, False),
+                ("proj_window_dpm", C, C, f32, bf, dpm, wm, False),
+                ("qkv", C, 3 * C, bf, bf, None, None, False)):
+            dy = (rnd(b, CROP, CROP, nn, dtype=dy_dtype) if wmap else rnd(t, nn, dtype=dy_dtype))
+            w = rnd(kk, nn, s=0.05)
+            gp = rnd(t, kk) if with_gp else None
+            got = st.gemm_dgrad(dy, w, scale=scale, window=wmap, gp=gp, out_dtype=out_dtype)
+            errs = cmp_all(f"gemm_dgrad[bf16 {variant} T={t}]", [got],
+                           [st._torch_gemm_dgrad(dy, w, scale, wmap, gp, out_dtype)])
+            dy2 = dy.reshape(t, nn).to(bf)
+            record("gemm_dgrad", f"{variant} T={t}", errs,
+                   lambda: st.gemm_dgrad(dy, w, scale=scale, window=wmap, gp=gp, out_dtype=out_dtype),
+                   lambda: st._torch_gemm_dgrad(dy, w, scale, wmap, gp, out_dtype),
+                   lambda: torch.mm(dy2, w.t()), 2.0 * t * nn * kk,
+                   nb(dy, w, got) + (nb(gp) if gp is not None else 0.0), 1 if main else 0)
+            del dy, w, gp, got, dy2
+
+        # weight-grad products (f32 sums over T tokens in another order: 1e-3)
+        for variant, kk, nn, dy_dtype, scale, wmap, db_rounded in (
+                ("fc2_dpm", CH, C, bf, dpm, None, False), ("fc1", C, CH, f32, None, None, False),
+                ("proj_window_dpm", C, C, f32, dpm, wm, True), ("qkv", C, 3 * C, bf, None, None, True)):
+            a = rnd(t, kk)
+            dy = (rnd(b, CROP, CROP, nn, dtype=dy_dtype) if wmap else rnd(t, nn, dtype=dy_dtype))
+            dy2 = dy.reshape(t, nn).to(bf)
+            errs = cmp_all(f"gemm_wgrad[bf16 {variant} T={t}]",
+                           st.gemm_wgrad(a, dy, scale=scale, window=wmap, db_rounded=db_rounded),
+                           st._torch_gemm_wgrad(a, dy, scale, wmap, db_rounded), (1e-3, 1e-4))
+            record("gemm_wgrad", f"{variant} T={t}", errs,
+                   lambda: st.gemm_wgrad(a, dy, scale=scale, window=wmap, db_rounded=db_rounded),
+                   lambda: st._torch_gemm_wgrad(a, dy, scale, wmap, db_rounded),
+                   lambda: torch.mm(a.t(), dy2), 2.0 * t * kk * nn + t * nn,
+                   nb(a, dy) + 4.0 * (kk * nn + nn), 1 if main else 0)
+            del a, dy, dy2
+
+        # attention backward from the saved p (no q k^T, no softmax)
+        scale = HD ** -0.5
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            p = saved[variant]
+            outs = at.window_attn_bwd(q, kt, v, bias, m, do, scale=scale, p=p)
+            errs = cmp_all(f"window_attn_bwd[bf16 {variant} saved_p T={t}]", outs,
+                           at._torch_attention_bwd(q, kt, v, bias, m, do, scale, p))
+            full = (bias[None] if m is None else
+                    (bias[None] + m[:, None]).repeat(b_ // m.shape[0], 1, 1, 1)).expand(
+                        b_, NH, N, N).to(bf)
+            ql, kl, vl = (u.detach().clone().requires_grad_() for u in (q, kt, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=full, scale=scale)
+            record("window_attn_bwd", f"{variant} saved_p T={t}", errs,
+                   lambda: at.window_attn_bwd(q, kt, v, bias, m, do, scale=scale, p=p),
+                   lambda: at._torch_attention_bwd(q, kt, v, bias, m, do, scale, p),
+                   lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
+                   8.0 * b_ * NH * N * N * HD, nb(q, kt, v, do, p, *outs), 1 if main else 0)
+            del outs, ql, kl, vl, out, full
+        del q, kt, v, do, saved
+
+        # LayerNorm backward: LN2 (f32 dz + bf16 block gradient -> f32 dx2),
+        # LN1 (window scatter, bf16 da + f32 dx2 -> bf16 dx)
+        for variant, x, wmap, dz_dtype, res_dtype, out_dtype in (
+                ("ln2", x4.view(t, C), None, f32, bf, f32),
+                ("ln1_window", x4, wm, bf, f32, bf)):
+            dz, dres = rnd(t, C, dtype=dz_dtype), rnd(*x.shape, dtype=res_dtype)
+            outs = st.ln_rows_bwd(x, gamma, dz, window=wmap, dres=dres, out_dtype=out_dtype)
+            errs = cmp_all(f"ln_rows_bwd[bf16 {variant} T={t}]", outs,
+                           st._torch_ln_rows_bwd(x, gamma, dz, wmap, dres, out_dtype), (1e-3, 1e-4))
+            x2d, gb, dzb = x4.view(t, C), gamma.to(bf), dz.to(bf)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x2d, [C], gb, None, 1e-5)
+            record("ln_rows_bwd", f"{variant} T={t}", errs,
+                   lambda: st.ln_rows_bwd(x, gamma, dz, window=wmap, dres=dres, out_dtype=out_dtype),
+                   lambda: st._torch_ln_rows_bwd(x, gamma, dz, wmap, dres, out_dtype),
+                   lambda: torch.ops.aten.native_layer_norm_backward(
+                       dzb, x2d, [C], mean, rstd, gb, None, [True, True, False]),
+                   12.0 * t * C, nb(x, dz, dres, outs[0], gamma) + 8.0 * C, 1 if main else 0)
+            del dz, dres, outs
+    return rows
+
+
 def make_images(n: int, h: int, w: int, seed: int):
     """Dead-leaves-like test images: coloured discs over a flat background."""
     import numpy as np
@@ -361,6 +593,16 @@ def make_images(n: int, h: int, w: int, seed: int):
             img[:, (yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.random((3, 1))
         images.append(img)
     return images
+
+
+def device_events(prof) -> list:
+    """The profile's device activity by name: kernels, copies and fills, but
+    not the GPU ranges of user annotations (``Optimizer.step#Adam.step``),
+    which span kernels that are counted already."""
+    import torch
+
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def profile_forward(model, y) -> None:
@@ -379,7 +621,7 @@ def profile_forward(model, y) -> None:
     with torch.no_grad(), profile(activities=acts, acc_events=True) as prof:
         model(y)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     total = sum(e.self_device_time_total for e in events) / 1e3
     if total <= 0.0:
         fail("profiler recorded no device time")
@@ -405,7 +647,7 @@ def profile_step(step_fn, label: str) -> None:
     with profile(activities=acts, acc_events=True) as prof:
         step_fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     total = sum(e.self_device_time_total for e in events) / 1e3
     if total <= 0.0:
         fail("profiler recorded no device time")
@@ -415,25 +657,50 @@ def profile_step(step_fn, label: str) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def train_path() -> dict:
-    """The proposed training path on the card; returns the kernels' launch
-    counts over the run."""
+def proposed_draws(trainer, physics, seed: int):
+    """One step's batch and explicit loss draws (crop offsets, SURE probe,
+    scaling parameters) from ``seed``, as the gradient and loss checks feed
+    both sides of a comparison."""
+    import torch
+
+    from sei_tpu_torch.losses import LossDraws, compute_sure_margin, sample_probe
+    from sei_tpu_torch.transforms import ScalingTransform, crop_offsets, crop_pair_batch
+
+    x, y = trainer.batch(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    offsets = crop_offsets(torch.Generator().manual_seed(seed), [DATA_CROP] * BATCH,
+                           [DATA_CROP] * BATCH, CROP)
+    _, y_crop = crop_pair_batch(x, y, size=CROP, offsets=offsets)
+    rates, _, centers = ScalingTransform().sample_params(g, BATCH)
+    margin = compute_sure_margin(partial_sure=True, sure_margin=None, task="deblurring",
+                                 kernel_shape=tuple(physics.kernel.shape))
+    draws = LossDraws(crop=offsets, probe=sample_probe(g, y_crop, margin), rates=rates,
+                      centers=centers)
+    return x, y, draws
+
+
+def train_path(dtype=None) -> tuple[dict, object]:
+    """The proposed training path on the card, with SwinIR's compute dtype
+    ``dtype`` (None: f32; bfloat16: the JAX package's training recipe);
+    returns the kernels' launch counts over the run and the trainer."""
     import numpy as np
     import torch
 
     from sei_tpu_torch.data import build_device_cache
-    from sei_tpu_torch.losses import LossDraws, compute_sure_margin, get_loss, sample_probe
+    from sei_tpu_torch.losses import get_loss
     from sei_tpu_torch.models import get_model
     from sei_tpu_torch.ops import swin_trunk as st
     from sei_tpu_torch.physics import get_physics
     from sei_tpu_torch.train import Trainer
-    from sei_tpu_torch.transforms import ScalingTransform, crop_offsets, crop_pair_batch
 
-    print(f"training path: build_device_cache -> get_loss(proposed) -> Trainer "
-          f"({TRAIN_IMAGES} images {H}x{W}, flagship SwinIR, batch {BATCH}, {CROP} px crops, "
-          f"{TRAIN_EPOCHS} epochs)")
+    label = "bf16" if dtype is not None else "f32"
+    per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
+    print(f"training path ({label}): build_device_cache -> get_loss(proposed) -> Trainer "
+          f"({TRAIN_IMAGES} images {H}x{W}, flagship SwinIR, compute dtype {label}, batch "
+          f"{BATCH}, {CROP} px crops, {TRAIN_EPOCHS} epochs)")
     t0 = time.perf_counter()
-    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0)
+    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0,
+                      dtype=dtype)
     physics = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
     cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
     loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP)
@@ -460,53 +727,128 @@ def train_path() -> dict:
     counts = st.launch_counts()
     print(f"  launch counts {counts}")
     steps = stats["steps"]
-    for name, per in PER_BLOCK_TRAIN.items():
+    for name, per in per_block.items():
         want = per * BLOCKS * len(TRAIN_GRAPHS) * steps
         if counts[name] != want:  # 0 included: every kernel must run on this path
-            fail(f"{name}: {counts[name]} launches over {steps} training steps, expected {want}")
+            fail(f"{label} {name}: {counts[name]} launches over {steps} training steps, "
+                 f"expected {want}")
     if not all(np.isfinite(losses)):
-        fail(f"non-finite training loss: {losses}")
+        fail(f"non-finite {label} training loss: {losses}")
     after = model.module.state_dict()
     moved = sum(not torch.equal(before[k], after[k]) for k in before)
     if moved != len(before):
-        fail(f"only {moved} of {len(before)} parameter tensors changed")
+        fail(f"{label}: only {moved} of {len(before)} parameter tensors changed")
+    f32_state = all(t.dtype == torch.float32 for t in after.values()) and all(
+        v.dtype == torch.float32 for s_ in trainer.opt.state.values() for v in s_.values()
+        if torch.is_tensor(v) and v.dim())
+    if not f32_state:
+        fail(f"{label}: parameters or Adam state left f32")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     print(f"  {steps} steps in {stats['wall_time_s']:.2f} s ({stats['images_per_sec']:.3f} img/s "
           f"over the run, first step included); steady step {steady:.2f} ms "
           f"(median of steps 1..{steps - 1}) = {BATCH * 1e3 / steady:.3f} img/s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-          f"all {moved} parameter tensors moved; epoch losses {stats['epoch_losses']}")
+          f"all {moved} parameter tensors moved; params and Adam state f32; "
+          f"epoch losses {stats['epoch_losses']}")
 
-    # one step's gradients: kernel path against the plain path, same draws
-    x, y = trainer.batch(0)
-    g = torch.Generator(device="cuda").manual_seed(7)
-    offsets = crop_offsets(torch.Generator().manual_seed(7), [DATA_CROP] * BATCH,
-                           [DATA_CROP] * BATCH, CROP)
-    _, y_crop = crop_pair_batch(x, y, size=CROP, offsets=offsets)
-    rates, _, centers = ScalingTransform().sample_params(g, BATCH)
-    margin = compute_sure_margin(partial_sure=True, sure_margin=None, task="deblurring",
-                                 kernel_shape=tuple(physics.kernel.shape))
-    draws = LossDraws(crop=offsets, probe=sample_probe(g, y_crop, margin), rates=rates,
-                      centers=centers)
-    grads = {}
-    model.module.train()
-    for plain in (False, True):
-        drop = torch.Generator(device="cuda").manual_seed(11)
-        model.module.zero_grad(set_to_none=True)
-        loss = loss_fn(x, y, lambda im: model.module(im, plain=plain, generator=drop), None, draws)
-        loss.backward()
-        grads[plain] = (float(loss.detach()), {n: p.grad.clone() for n, p in model.module.named_parameters()})
-    worst = max(((grads[False][1][n] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
-                for n, gp in grads[True][1].items())
-    print(f"  one step, kernel path vs plain path: loss {grads[False][0]!r} vs {grads[True][0]!r}; "
-          f"worst max|diff|/max|plain grad| over {len(grads[True][1])} tensors {worst:.3e} "
-          f"(tolerance {GRAD_RTOL:g})")
-    if not worst <= GRAD_RTOL:
-        fail("kernel-path gradients disagree with the plain path")
-    del grads
+    if dtype is None:
+        # one step's gradients: kernel path against the plain path, same draws
+        x, y, draws = proposed_draws(trainer, physics, 7)
+        grads = {}
+        model.module.train()
+        for plain in (False, True):
+            drop = torch.Generator(device="cuda").manual_seed(11)
+            model.module.zero_grad(set_to_none=True)
+            loss = loss_fn(x, y, lambda im: model.module(im, plain=plain, generator=drop), None,
+                           draws)
+            loss.backward()
+            grads[plain] = (float(loss.detach()),
+                            {n: p.grad.clone() for n, p in model.module.named_parameters()})
+        worst = max(((grads[False][1][n] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+                    for n, gp in grads[True][1].items())
+        print(f"  one step, kernel path vs plain path: loss {grads[False][0]!r} vs {grads[True][0]!r}; "
+              f"worst max|diff|/max|plain grad| over {len(grads[True][1])} tensors {worst:.3e} "
+              f"(tolerance {GRAD_RTOL:g})")
+        if not worst <= GRAD_RTOL:
+            fail("kernel-path gradients disagree with the plain path")
+        del grads
     model.module.zero_grad(set_to_none=True)
-    profile_step(trainer.step, "one training step")
-    return counts
+    profile_step(trainer.step, f"one {label} training step")
+    return counts, trainer
+
+
+def bf16_trunk_grads() -> None:
+    """The bf16 trunk (saves on: K5 forward, K7 backward) at flagship width
+    (C 180, 6 heads, window 8, one RSTB of 6 blocks with the seed-0 model's
+    weights) on the 2B graph's shape, MSE loss: every gradient of the kernel
+    path against autograd through the plain trunk in bf16."""
+    import torch
+
+    from sei_tpu_torch.models import get_model
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    b = TRAIN_GRAPHS[0]
+    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0)
+    params, rpb = model.module.layers[0].stacked_params()
+    params = {k: v.detach().clone() for k, v in params.items()}
+    rpb = rpb.detach().clone()
+    del model
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((b, CROP, CROP, C), generator=g, device="cuda").to(torch.bfloat16)
+    tgt = torch.randn((b, CROP, CROP, C), generator=g, device="cuda")
+    d = params["ln1_s"].shape[0]
+    dpm = (torch.rand((d, 2, b), generator=g, device="cuda") < 0.9).float() / 0.9
+    mask = torch.from_numpy(shift_attn_mask(CROP, CROP, WS, WS // 2)).cuda()
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, rpb, *params.values())]
+        y = fn(leaves[0], dict(zip(params, leaves[2:])), leaves[1], mask, dpm,
+               num_heads=NH, window_size=WS)
+        loss = ((y.float() - tgt) ** 2).mean()
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    st.reset_launch_counts()
+    loss_k, gk = grads(st.swin_trunk)
+    if st.launch_counts()["window_attn_bwd"] != d or st.launch_counts()["window_attn_fwd"] != d:
+        fail(f"bf16 trunk: launches {st.launch_counts()} are not the saves mode's")
+    loss_p, gp = grads(st.trunk_reference)
+    names = ["x", "rpb", *params]
+    fracs = {n: float((a.float() - p_.float()).abs().max() / p_.float().abs().max().clamp_min(1e-30))
+             for n, a, p_ in zip(names, gk, gp)}
+    worst = max(fracs, key=fracs.get)
+    print(f"bf16 trunk gradients (D={d}, {b} images {CROP}x{CROP}, C={C}, MSE loss), kernel path "
+          f"vs plain path: loss {loss_k!r} vs {loss_p!r}; max|diff|/max|plain grad| per tensor "
+          + ", ".join(f"{n} {v:.2e}" for n, v in fracs.items())
+          + f"; worst {worst} {fracs[worst]:.3e} (tolerance {TRUNK_GRAD_FRAC:g})")
+    if not fracs[worst] <= TRUNK_GRAD_FRAC:
+        fail("bf16 trunk gradients disagree with the plain path")
+
+
+def bf16_loss_vs_f32(trainer) -> None:
+    """One proposed step's loss with the bf16 model against the f32 model:
+    the same seed-0 weights, batch, loss draws and drop-path draws."""
+    import torch
+
+    from sei_tpu_torch.models import get_model
+
+    x, y, draws = proposed_draws(trainer, trainer.physics, 9)
+    losses = {}
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0,
+                          dtype=dtype)
+        module = model.module.train()
+        drop = torch.Generator(device="cuda").manual_seed(13)
+        with torch.no_grad():
+            losses[label] = float(trainer.loss_fn(
+                x, y, lambda im: module(im, generator=drop), None, draws))
+        del model, module
+    rel = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
+    print(f"one proposed step's loss, bf16 model vs f32 model (same weights and draws): "
+          f"{losses['bf16']!r} vs {losses['f32']!r}, relative difference {rel:.3e} "
+          f"(tolerance {LOSS_RTOL_BF16:g})")
+    if not rel <= LOSS_RTOL_BF16:
+        fail("the bf16 step's loss disagrees with the f32 step's")
 
 
 def main_path() -> dict:
@@ -576,31 +918,51 @@ SOURCES = {
     "gemm_dgrad": ("sei_tpu_torch/ops/csrc/gemm_bwd.cu", "sei_tpu/ops/swin_trunk.py:979"),
     "gemm_wgrad": ("sei_tpu_torch/ops/csrc/gemm_bwd.cu", "sei_tpu/ops/swin_trunk.py:979"),
 }
+# the bf16 instantiations replace the trunk kernel's mode "full" forward (K5)
+# and saved-tensor backward (K7), attention included
+SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
+    "window_attn_bwd", "ln_rows_bwd", "gemm_dgrad", "gemm_wgrad") else "sei_tpu/ops/swin_trunk.py:931")
+    for name, (src, _) in SOURCES.items()}
 
 
-def kernel_line(rows: dict, eval_counts: dict, train_counts: dict) -> dict:
+def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
+                   extra: dict) -> list:
     """One entry per kernel: times and bounds summed over the variants one
-    SwinBlock runs (eval shapes for the forward kernels, the 2B training
-    graph for the backward kernels; attention as the mean of its unmasked
-    and masked variants, since blocks alternate); launches over both paths."""
+    SwinBlock runs (weighted by ``per_block``), attention as the mean of its
+    unmasked and masked variants, since blocks alternate; every variant
+    listed with its own numbers."""
     out = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces) in sources.items():
         variants = [r for r in rows[name] if r["per_block"]]
         scale = 0.5 if name.startswith("window_attn") else 1.0
 
         def total(key):
-            vals = [r[key] for r in variants]
+            vals = [r[key] * r["per_block"] if r.get(key) is not None else None for r in variants]
             return None if any(v is None for v in vals) else scale * sum(vals)
 
-        flops, nbytes = total("flops"), total("bytes")
-        b_ms, b_by = bound_ms(flops, nbytes)
-        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": eval_counts[name] + train_counts[name],
-                    "launches_eval": eval_counts[name], "launches_train": train_counts[name],
+        b_ms, b_by = bound_ms(total("flops"), total("bytes"), peak)
+        out.append({"name": name + suffix, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches[name], **{k: v[name] for k, v in extra.items()},
                     "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
                     "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": total("library_ms")})
-    return {"kernels": out}
+                    "bound_by": b_by, "library_ms": total("library_ms"),
+                    "variants": [{k: r.get(k) for k in ("variant", "per_block", "max_abs_err", "ms",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms")} for r in rows[name]]})
+    return out
+
+
+def kernel_line(rows: dict, rows_bf16: dict, eval_counts: dict, train_counts: dict,
+                bf16_counts: dict) -> dict:
+    """The f32 kernels (eval shapes for the forward kernels, the 2B training
+    graph for the backward kernels; launches over the eval and f32 training
+    paths) and their bf16 instantiations (the 2B graph; launches over the
+    bf16 training path), bounds at the FP32 and the bf16 peak."""
+    f32 = kernel_entries(rows, SOURCES, {k: eval_counts[k] + train_counts[k] for k in SOURCES},
+                         "", PEAK_FP32_FLOPS,
+                         {"launches_eval": eval_counts, "launches_train": train_counts})
+    bf16 = kernel_entries(rows_bf16, SOURCES_BF16, bf16_counts, "[bf16]", PEAK_BF16_FLOPS, {})
+    return {"kernels": f32 + bf16}
 
 
 def main(argv: list[str]) -> int:
@@ -627,12 +989,17 @@ def main(argv: list[str]) -> int:
     rows = check_kernels(timed=not quick)
     for name, variants in check_train_kernels(timed=not quick).items():
         rows.setdefault(name, []).extend(variants)
+    rows_bf16 = check_bf16_kernels(timed=not quick)
     if quick:
         print("quick: kernel checks passed")
         return 0
     eval_counts = main_path()
-    train_counts = train_path()
-    print(json.dumps(kernel_line(rows, eval_counts, train_counts)))
+    train_counts, _ = train_path()
+    bf16_counts, trainer = train_path(torch.bfloat16)
+    bf16_trunk_grads()
+    bf16_loss_vs_f32(trainer)
+    del trainer
+    print(json.dumps(kernel_line(rows, rows_bf16, eval_counts, train_counts, bf16_counts)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,12 @@
 CUDA is asked for and absent, the call raises.  The evaluation is full f32
 (the JAX reference runs it at HIGHEST precision), so TF32 is switched off for
 both cuBLAS matmuls and cuDNN convolutions whenever a CUDA device is chosen.
+:func:`require_cuda` is the kernel wrappers' check of what they launch on.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -36,19 +37,29 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def require_cuda_f32(name: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Raise unless every given tensor is a float32 CUDA tensor on one device
-    whose last dimension is unit-stride (what the kernels index)."""
+DtypeSpec = Union[torch.dtype, Tuple[torch.dtype, ...]]
+
+# the storage types the kernels are instantiated for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def require_cuda(name: str, **args: Tuple[Optional[torch.Tensor], DtypeSpec]) -> None:
+    """Raise unless every given tensor (``arg=(tensor, dtype or dtypes)``;
+    ``None`` tensors are skipped) is a CUDA tensor of an allowed dtype, all
+    on one device, with a unit-stride last dimension (what the kernels
+    index).  A tensor of another dtype raises: the kernels cast nothing."""
     dev = None
-    for t in tensors:
+    for arg, (t, allowed) in args.items():
         if t is None:
             continue
         if t.device.type != "cuda":
-            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor, got {t.device}")
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         dev = t.device
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        allowed = allowed if isinstance(allowed, tuple) else (allowed,)
+        if t.dtype not in allowed:
+            raise ValueError(f"{name}: {arg} must be {' or '.join(map(str, allowed))}, "
+                             f"got {t.dtype}")
         if t.dim() and t.stride(-1) != 1:
-            raise ValueError(f"{name}: last dimension must be unit-stride")
+            raise ValueError(f"{name}: {arg}'s last dimension must be unit-stride")

@@ -68,16 +68,19 @@ class Model:
 def get_model(*, kind: str = "Proposed", architecture: str = "Transformer",
               task: str = "deblurring", sr_factor: Optional[int] = None,
               device: DeviceLike = None, seed: int = 0,
-              swinir_overrides: Optional[dict] = None) -> Model:
+              swinir_overrides: Optional[dict] = None,
+              dtype: Optional[torch.dtype] = None) -> Model:
     """Build a model with weights initialised from ``seed`` on ``device``
-    (default the GPU; raises without one unless ``device="cpu"``)."""
+    (default the GPU; raises without one unless ``device="cpu"``).
+    ``dtype`` is SwinIR's compute dtype: None (f32) or ``torch.bfloat16``,
+    as ``demo/train.py --bf16`` sets it (:111-112); params stay f32."""
     dev = resolve_device(device)
     if kind != "Proposed" or architecture != "Transformer":
         raise NotImplementedError(
             f"{kind}/{architecture}: not ported yet (ROADMAP, Queue 1: baselines "
             "and the rest of the model registry)")
     module = SwinIR(**swinir_config(task=task, sr_factor=sr_factor,
-                                    overrides=swinir_overrides))
+                                    overrides=swinir_overrides), dtype=dtype)
     module.reset_parameters(torch.Generator().manual_seed(seed))
     return Model(module=module.to(dev).eval(), device=dev)
 

@@ -13,6 +13,12 @@ Parameter names are the reference torch ``state_dict`` names that
 published checkpoint loads with ``load_state_dict``; the attention mask and
 relative position index are recomputed, not stored.
 
+``dtype`` is the compute dtype, as the flax module's field: None (f32), or
+``torch.bfloat16``, the JAX package's training recipe (``demo/train.py
+--bf16``).  The parameters stay f32 either way; in bf16 the convolutions,
+the LayerNorms (f32 statistics, bf16 output) and the trunk run in bf16, and
+the output is f32 again (``x + conv_last(...)``, the input residual in f32).
+
 ``fused_trunk`` (default on) runs the blocks of each RSTB through
 ``sei_tpu_torch.ops.swin_trunk.swin_trunk``, the chain of CUDA kernels; the
 TPU package turned its fused trunk off above 64x64 tokens for its VMEM
@@ -26,7 +32,8 @@ through the plain ops, as the kernel path is through the kernels' backward.
 In training mode (``module.train()``) stochastic depth draws its keep masks
 from the ``generator`` handed to ``forward`` (the trainer owns one dropout
 stream); a training forward with a drop-path rate above 0 and no generator
-raises.  The SR pixelshuffle head is not ported yet.
+raises.  The SR pixelshuffle head is not ported yet, nor the module path
+(``fused_trunk=False``) in bf16.
 """
 
 from __future__ import annotations
@@ -102,6 +109,15 @@ def reflect_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     h, w = x.shape[-2:]
     x = x.index_select(-2, _reflect_index(h, pad_h, x.device))
     return x.index_select(-1, _reflect_index(w, pad_w, x.device))
+
+
+def _norm_in(norm: nn.LayerNorm, x: torch.Tensor, cdt: Optional[torch.dtype]) -> torch.Tensor:
+    """LayerNorm ``norm`` with its output in the compute dtype ``cdt``: the
+    statistics in f32 as flax's ``nn.LayerNorm(dtype=...)`` keeps them."""
+    if cdt is None:
+        return norm(x)
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(cdt)
 
 
 def _trunc02(t: torch.Tensor, g: torch.Generator) -> None:
@@ -215,7 +231,8 @@ class RSTB(nn.Module):
     """Residual Swin Transformer Block: the blocks, a 3x3 conv, a residual."""
 
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio,
-                 drop_paths: Sequence[float], fused_trunk: bool = True):
+                 drop_paths: Sequence[float], fused_trunk: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
@@ -226,7 +243,7 @@ class RSTB(nn.Module):
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
                       drop_paths[i])
             for i in range(depth))
-        self.conv = Conv3x3(dim, dim)
+        self.conv = Conv3x3(dim, dim, dtype)
 
     def stacked_params(self):
         """The blocks' weights in the trunk layout: ``PARAM_LEAVES`` stacked
@@ -288,26 +305,34 @@ class SwinIR(nn.Module):
                  num_heads: Sequence[int] = (6,) * 6, window_size: int = 8,
                  mlp_ratio: float = 2.0, drop_path_rate: float = 0.1,
                  upsampler: Optional[str] = None,
-                 fused_trunk: bool = True):
+                 fused_trunk: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if upsampler is not None:
             raise NotImplementedError(
                 "SwinIR pixelshuffle (SR) head: not ported yet (ROADMAP, Queue 1: SR)")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"SwinIR: compute dtype {dtype} (float32 or bfloat16)")
+        dtype = None if dtype == torch.float32 else dtype
+        if dtype is not None and not fused_trunk:
+            raise NotImplementedError(
+                "SwinIR module path (fused_trunk=False) in bf16: not ported "
+                "(ROADMAP, Queue 1 item 16)")
+        self.compute_dtype = dtype
         self.window_size = window_size
         self.register_buffer("mean", torch.tensor(RGB_MEAN).view(1, 3, 1, 1),
                              persistent=False)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
-        self.conv_first = Conv3x3(3, embed_dim)
+        self.conv_first = Conv3x3(3, embed_dim, dtype)
         self.patch_embed = _PatchEmbed(embed_dim)
         layers, d0 = [], 0
         for depth, nh in zip(depths, num_heads):
             layers.append(RSTB(embed_dim, depth, nh, window_size, mlp_ratio,
-                               dpr[d0:d0 + depth], fused_trunk))
+                               dpr[d0:d0 + depth], fused_trunk, dtype))
             d0 += depth
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
-        self.conv_after_body = Conv3x3(embed_dim, embed_dim)
-        self.conv_last = Conv3x3(embed_dim, 3)
+        self.conv_after_body = Conv3x3(embed_dim, embed_dim, dtype)
+        self.conv_last = Conv3x3(embed_dim, 3, dtype)
         self._mask = (None, None)  # (key, tensor) of the last image size
 
     @torch.no_grad()
@@ -343,13 +368,14 @@ class SwinIR(nn.Module):
         ws = self.window_size
         x = reflect_pad(x, (-h_in) % ws, (-w_in) % ws)
         x = x - self.mean
+        cdt = self.compute_dtype
         feat = self.conv_first(x)
-        f = self.patch_embed.norm(feat.permute(0, 2, 3, 1)).contiguous()
+        f = _norm_in(self.patch_embed.norm, feat.permute(0, 2, 3, 1), cdt).contiguous()
         mask = self._shift_mask(f.shape[1], f.shape[2], f.device)
         for layer in self.layers:
             f = layer(f, mask, plain, generator)
-        f = self.norm(f).permute(0, 3, 1, 2)
+        f = _norm_in(self.norm, f, cdt).permute(0, 3, 1, 2)
         res = self.conv_after_body(f) + feat
-        out = x + self.conv_last(res)
+        out = x + self.conv_last(res)  # f32: the input residual promotes
         out = out + self.mean
         return out[..., :h_in, :w_in]

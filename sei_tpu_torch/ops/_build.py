@@ -8,9 +8,11 @@ edited source is rebuilt and an unchanged one is loaded as it is.  Importing
 this module compiles nothing; only :func:`library` does, and only a CUDA
 tensor reaches it.
 
-Each C entry point takes the CUDA device index first and the stream last,
-launches on that stream, and returns ``cudaGetLastError()``; :func:`check`
-turns a non-zero code into an exception.
+Each C entry point takes the CUDA device index first, then whether its
+storage type is bf16 (1) or f32 (0), and the stream last; it launches on that
+stream and returns ``cudaGetLastError()``; :func:`check` turns a non-zero
+code into an exception.  The f32 and bf16 instantiations of every kernel are
+templates of one source, built together.
 """
 
 from __future__ import annotations
@@ -37,14 +39,14 @@ NVCC_FLAGS = (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "sei_ln_rows": [_I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
-    "sei_gemm_bias_epilogue": [_I, *[_P] * 7, *[_I] * 10, _P],
-    "sei_window_attn_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                            *[_L] * 12, _F, _P],
-    "sei_window_attn_bwd": [_I, *[_P] * 10, _L, *[_I] * 5, *[_L] * 21, _F, _P],
-    "sei_ln_rows_bwd": [_I, *[_P] * 7, _L, _I, _F, *[_I] * 6, _P],
-    "sei_gemm_dgrad": [_I, *[_P] * 5, *[_I] * 9, _P],
-    "sei_gemm_wgrad": [_I, *[_P] * 5, *[_I] * 10, _P],
+    "sei_ln_rows": [_I, _I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
+    "sei_gemm_bias_epilogue": [_I, _I, *[_P] * 5, _I, _P, _P, *[_I] * 10, _P],
+    "sei_window_attn_fwd": [_I, _I, *[_P] * 7, _L, _I, _I, _I, _I, *[_L] * 12, _F, _P],
+    "sei_window_attn_bwd": [_I, _I, *[_P] * 11, _L, *[_I] * 5, *[_L] * 21, _F, _P],
+    "sei_ln_rows_bwd": [_I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _L, _I, _F,
+                        *[_I] * 6, _P],
+    "sei_gemm_dgrad": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _I, *[_I] * 9, _P],
+    "sei_gemm_wgrad": [_I, _I, _P, _P, _I, _P, _P, _P, *[_I] * 11, _P],
 }
 
 

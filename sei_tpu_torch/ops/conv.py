@@ -2,20 +2,37 @@
 
 The JAX package computes this outside any Pallas kernel (XLA's convolution),
 so the port uses cuDNN through ``nn.Conv2d``; TF32 is off
-(``sei_tpu_torch.device.resolve_device``), matching the f32 reference.
+(``sei_tpu_torch.device.resolve_device``), matching the f32 reference.  With
+a ``compute_dtype`` (bf16, the model's compute dtype) it casts as the flax
+module with ``dtype`` does (``conv_mm.py`` :139-150, :172-173): the input and
+the f32 weight are cast, the convolution's output is in that dtype, and the
+bias, cast too, is added in it.  The parameters stay f32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class Conv3x3(nn.Conv2d):
-    """``nn.Conv2d(cin, cout, 3, padding=1)`` on NCHW tensors."""
+    """``nn.Conv2d(cin, cout, 3, padding=1)`` on NCHW tensors, computed in
+    ``compute_dtype`` when one is given."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, out_channels, kernel_size=3, padding=1)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        if cdt is None:
+            return super().forward(x)
+        y = F.conv2d(x.to(cdt), self.weight.to(cdt), None, padding=1)
+        return y + self.bias.to(cdt)[:, None, None]
 
     @torch.no_grad()
     def reset_from(self, generator: torch.Generator) -> None:

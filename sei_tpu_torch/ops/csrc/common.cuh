@@ -1,7 +1,50 @@
-// Shared device helpers for the Swin trunk kernels (sm_90a, f32).
+// Shared device helpers for the Swin trunk kernels (sm_90a).
+//
+// Storage types: every kernel is a template on the storage type T of its
+// activations, weights and saves (float, or __nv_bfloat16 for the bf16
+// training recipe); arithmetic is f32 throughout, and a value is rounded to
+// T exactly where the JAX trunk casts to its compute dtype (round_as<T>).
+// Buffers that are f32 in one call and T in another get a template
+// parameter of their own where the hot loop touches them (dy of the backward
+// GEMMs, dz/dres/dx of the LN backward); gelu'(h), read or written once per
+// element in an epilogue, is a Buf, whose element type is chosen at run
+// time on a branch that is uniform across the grid.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// v rounded to T (round to nearest even, as astype / .to(bfloat16))
+template <typename T>
+__device__ __forceinline__ float round_as(float v) { return to_f(from_f<T>(v)); }
+
+// A buffer of float or bf16 elements, the type chosen at run time.
+struct Buf {
+  void* p;
+  int is_bf16;
+  __device__ __forceinline__ float ld(long long i) const {
+    return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
+                   : static_cast<const float*>(p)[i];
+  }
+  __device__ __forceinline__ void st(long long i, float v) const {
+    if (is_bf16)
+      static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(p)[i] = v;
+  }
+};
 
 // Row order of a (rows, C) token matrix against the (B, H, W, C) image it
 // came from.  windowed == 0: row r is pixel r.  windowed == 1: row r is token
@@ -46,3 +89,64 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// (gelu(x), gelu'(x)).  f32 storage: the exact GELU x Phi(x) with erff.
+// bf16 storage: the JAX trunk's polynomial pair (_gelu_pair_fast,
+// sei_tpu/ops/swin_trunk.py:188-230, used when the compute dtype is bf16):
+// Chebyshev-fitted odd polynomials on [-4, 4] for Phi and x*pdf, saturated
+// outside, evaluated by Horner in f32 with the same coefficients.
+__device__ __forceinline__ void gelu_pair_exact(float x, float& g, float& gp) {
+  const float phi = 0.5f * (1.f + erff(x * 0.70710678118654752f));
+  g = x * phi;
+  gp = phi + x * expf(-0.5f * x * x) * 0.39894228040143268f;
+}
+
+__device__ __forceinline__ void gelu_pair_fast(float x, float& g, float& gp) {
+  const float xc = fminf(fmaxf(x, -4.f), 4.f);
+  const float u = xc * xc;
+  float a = -3.969025307598051e-12f;  // _C_PHI, highest order first
+  a = a * u + 3.7875219898373147e-10f;
+  a = a * u + -1.6419572555948384e-08f;
+  a = a * u + 4.340088563312956e-07f;
+  a = a * u + -7.956239157270749e-06f;
+  a = a * u + 0.00010915483414148812f;
+  a = a * u + -0.0011709367759583488f;
+  a = a * u + 0.009949619744973907f;
+  a = a * u + -0.06647417597398475f;
+  a = a * u + 0.3989390292359633f;
+  float b = -5.154521748137964e-11f;  // _C_XPDF
+  b = b * u + 4.764393641533242e-09f;
+  b = b * u + -1.9705490399271182e-07f;
+  b = b * u + 4.854256860196168e-06f;
+  b = b * u + -8.006941709520028e-05f;
+  b = b * u + 0.0009400990867306437f;
+  b = b * u + -0.008056541327475311f;
+  b = b * u + 0.04949916878279405f;
+  b = b * u + -0.19922337402921744f;
+  b = b * u + 0.3988928463183661f;
+  const bool inr = fabsf(x) <= 4.f;
+  const float phi = inr ? 0.5f + xc * a : (x > 0.f ? 1.f : 0.f);
+  g = x * phi;
+  gp = phi + (inr ? xc * b : 0.f);
+}
+
+template <typename T>
+__device__ __forceinline__ void gelu_pair(float x, float& g, float& gp) {
+  gelu_pair_exact(x, g, gp);
+}
+template <>
+__device__ __forceinline__ void gelu_pair<bf16>(float x, float& g, float& gp) {
+  gelu_pair_fast(x, g, gp);
+}
+
+// host side: an entry point's storage-type switch
+#define SEI_DISPATCH_T(is_bf16, ...) \
+  do {                               \
+    if (is_bf16) {                   \
+      typedef bf16 T;                \
+      __VA_ARGS__;                   \
+    } else {                         \
+      typedef float T;               \
+      __VA_ARGS__;                   \
+    }                                \
+  } while (0)

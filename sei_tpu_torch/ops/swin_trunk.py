@@ -1,61 +1,74 @@
 """Swin trunk on Hopper: forward and backward as chains of hand-written CUDA
-kernels per block.
+kernels per block, in f32 or bf16.
 
 Counterpart of ``sei_tpu/ops/swin_trunk.py``: the eval primal
 (``_fwd_pallas`` -> ``_fwd_kernel`` at :1035 / :931, ``mode="none"``), the
-training forward (mode ``xs``, :1082-1085) and the recompute backward
-(``_bwd_pallas`` -> ``_bwd_kernel`` at :1110 / :979 with
-``with_saved=False``), tied together by the custom VJP ``_trunk_pallas``
-(:1212-1243).  The TPU kernel keeps a whole image group resident in VMEM
-across all D blocks of an RSTB.  On Hopper one 256x320x180 f32 image is
-59 MB against 227 KB of shared memory per block, so each SwinBlock is a
-chain of launches instead.  Forward, seven launches of three kernels:
+training forwards (mode ``xs``, :1082-1085, and the save-carrying mode
+``full``, :1077-1081) and the backwards (``_bwd_pallas`` -> ``_bwd_kernel``
+at :1110 / :979, ``with_saved=False`` and ``True``), tied together by the
+custom VJP ``_trunk_pallas`` (:1212-1243).  The TPU kernel keeps a whole
+image group resident in VMEM across all D blocks of an RSTB.  On Hopper one
+256x320x180 f32 image is 59 MB against 227 KB of shared memory per block, so
+each SwinBlock is a chain of launches instead.  Forward, seven launches of
+three kernels:
 
     ln_rows(LN1, shift + window partition on the load)   -> a    (T, C)
     gemm_bias_epilogue(a, qkv_w, qkv_b, "none")          -> qkv  (T, 3C)
     window_attn_fwd(q, k, v strided from qkv, rpb, mask) -> att  (T, C)
+                                                 [+ p (B_, nh, N, N)]
     gemm_bias_epilogue(att, proj_w, proj_b, "residual",
                        window reverse + unshift on the store) -> x2 (B,H,W,C)
     ln_rows(LN2)                                          -> z    (T, C)
     gemm_bias_epilogue(z, fc1_w, fc1_b, "gelu")           -> h    (T, 2C)
+                       ("gelu_pair" with saves: + gelu'(h) (T, 2C))
     gemm_bias_epilogue(h, fc2_w, fc2_b, "residual")       -> out  (B,H,W,C)
 
-Backward (:class:`_TrunkFn`), per block in reverse, from the block input x
-and the mid-block residual x2 that the forward kept (mode ``xs``):
-recompute a, qkv, att, z and (gelu(h), h) with the forward kernels (five
-launches), then
+Backward (:class:`_TrunkFn`), per block in reverse.  With saves (mode
+``full``, the default for bf16 as ``saves_on`` :1283) the forward kept x,
+x2, gelu(h), gelu'(h), p and att per block, and the backward recomputes only
+a (LN1), qkv and z (LN2) -- three launches, the recompute of
+``_block_bwd_image`` with saves (:638, :649-653, :735).  Without saves (mode
+``xs``, the f32 default) it kept x and x2 and recomputes a, qkv, att, z and
+(gelu(h), gelu'(h)) with the forward kernels (five launches).  Then
 
-    gemm_dgrad(dout * dpm_mlp, fc2_w, GELU'(h))      -> dh   (T, 2C)
+    gemm_dgrad(dout * dpm_mlp, fc2_w) * gelu'(h)      -> dh   (T, 2C)  f32
     gemm_wgrad(gelu(h), dout * dpm_mlp)               -> d fc2_w, fc2_b
     gemm_wgrad(z, dh)                                 -> d fc1_w, fc1_b
-    gemm_dgrad(dh, fc1_w)                             -> dz   (T, C)
-    ln_rows_bwd(x2, dz, + dout)                       -> dx2, d ln2
+    gemm_dgrad(dh, fc1_w)                             -> dz   (T, C)   f32
+    ln_rows_bwd(x2, dz, + dout)                       -> dx2, d ln2    f32
     gemm_dgrad(dx2[window rows] * dpm_attn, proj_w)   -> datt (T, C)
     gemm_wgrad(att, dx2[window rows] * dpm_attn)      -> d proj_w, proj_b
-    window_attn_bwd(q, k, v, rpb, mask, datt)         -> dq, dk, dv, drpb
+    window_attn_bwd(q, k, v, datt, saved p or rpb + mask) -> dq, dk, dv, drpb
     gemm_wgrad(a, dqkv)                               -> d qkv_w, qkv_b
     gemm_dgrad(dqkv, qkv_w)                           -> da   (T, C)
     ln_rows_bwd(x[window rows], da, + dx2)            -> dx, d ln1
 
 T = B*H*W tokens.  Numerics follow the reference: LN eps 1e-5 with f32
 statistics, scores scaled by hd**-0.5 then rpb (+ the -100/0 shift mask)
-added in f32 before an f32 softmax, exact GELU, and per-image drop-path keep
-factors ``dpm (D, 2, B)`` on the (attention, MLP) residual branches.
+added in f32 before an f32 softmax, per-image drop-path keep factors
+``dpm (D, 2, B)`` on the (attention, MLP) residual branches, f32
+accumulation in every product, f32 parameter gradients.  The compute
+dtype is x's: in f32 the GELU is exact; in bf16 (the JAX package's
+production training recipe, ``SwinIR(dtype=bfloat16)``) the activations,
+the saves and the GEMM weights (cast once per trunk call) are bf16, the GELU
+is the polynomial pair ``_gelu_fast`` / ``_gelu_pair_fast`` (``_use_fast_gelu``
+:233), and every value is rounded to bf16 exactly where the JAX trunk casts
+(the LN outputs, qkv, p, att, the proj and fc2 outputs before the f32
+residual add, the residual sums; in the backward dm, dh, the proj gradient,
+ds, dq/dk/dv and da; the block gradient dx), so the kernels' plain versions
+below repeat the JAX trunk's arithmetic.
 
 What the TPU kernel needed and this design does not: head packing into
 128-lane tiles (``pack_attn_params``, ``_head_tiling``), group/VMEM sizing
-(``_pick_group``), the SMEM one-hot drop-path vector (``_dpm_group``), the
-bf16 polynomial GELU (``_gelu_fast``; this path is f32) and the profiling
-skip knob.  The mask stays f32 (0 and -100 are exact either way).  Mode
-``full`` (gelu, gelu', p and tfull saved) and its backward are bf16-only in
-the JAX package and wait for the port's bf16 work.
+(``_pick_group``), the SMEM one-hot drop-path vector (``_dpm_group``) and the
+profiling skip knob.  The mask stays f32 (0 and -100 are exact either way).
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors, and
 launches its kernel (or raises) for CUDA tensors; each counts its launches
 in a plain ``.launches`` int.  :func:`trunk_reference` is an independent
 plain version of the whole trunk (the mirror of the JAX ``trunk_reference``
-:871-887), differentiable by torch autograd, which the kernel chain and its
-backward are held against.
+:871-887, with its bf16 rounding points), differentiable by torch autograd,
+which the kernel chain and its backward are held against.
 """
 
 from __future__ import annotations
@@ -65,20 +78,76 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..device import require_cuda_f32
+from ..device import KERNEL_DTYPES, require_cuda
 from . import _build
-from .attention import _as_mask, _torch_attention, window_attn_bwd, window_attn_fwd
+from .attention import _as_mask, _probs, _round, window_attn_bwd, window_attn_fwd
 
 PARAM_LEAVES = (
     "ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
     "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
 )
+GEMM_WEIGHTS = ("qkv_w", "proj_w", "fc1_w", "fc2_w")  # cast to the compute dtype
 
+F32 = torch.float32
+BF16 = torch.bfloat16
 _EPS = 1e-5
-_EPILOGUES = {"none": 0, "gelu": 1, "residual": 2}
-_GELU_PRE = 3  # the "gelu" epilogue that also stores the pre-activation
+_EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
+
+
+def _is_bf16(t) -> int:
+    return int(t is not None and t.dtype == BF16)
+
+
+# -- GELU ----------------------------------------------------------------------
+# The port's copy of the JAX trunk's bf16 GELU (sei_tpu/ops/swin_trunk.py
+# :188-230): Chebyshev-fitted odd polynomials on [-4, 4], Phi(x) = 0.5 +
+# x*Q1(x^2) and x*pdf(x) = x*Q2(x^2), saturated outside; used only when the
+# compute dtype is bf16 (as _use_fast_gelu).  f32 keeps the exact GELU.
+
+_GELU_XC = 4.0
+_C_PHI = (0.3989390292359633, -0.06647417597398475, 0.009949619744973907,
+          -0.0011709367759583488, 0.00010915483414148812,
+          -7.956239157270749e-06, 4.340088563312956e-07,
+          -1.6419572555948384e-08, 3.7875219898373147e-10,
+          -3.969025307598051e-12)
+_C_XPDF = (0.3988928463183661, -0.19922337402921744, 0.04949916878279405,
+           -0.008056541327475311, 0.0009400990867306437,
+           -8.006941709520028e-05, 4.854256860196168e-06,
+           -1.9705490399271182e-07, 4.764393641533242e-09,
+           -5.154521748137964e-11)
+
+
+def _horner(coefs, u):
+    acc = torch.full_like(u, coefs[-1])
+    for c in coefs[-2::-1]:
+        acc = acc * u + c
+    return acc
+
+
+def _gelu_fast(x32):
+    xc = x32.clamp(-_GELU_XC, _GELU_XC)
+    u = xc * xc
+    phi = 0.5 + xc * _horner(_C_PHI, u)
+    phi = torch.where(x32 > _GELU_XC, 1.0, torch.where(x32 < -_GELU_XC, 0.0, phi))
+    return x32 * phi
+
+
+def _gelu_pair_fast(x32):
+    """(gelu(x), gelu'(x)) of the polynomial GELU, one evaluation."""
+    xc = x32.clamp(-_GELU_XC, _GELU_XC)
+    u = xc * xc
+    inr = x32.abs() <= _GELU_XC
+    phi = torch.where(inr, 0.5 + xc * _horner(_C_PHI, u), (x32 > 0).to(x32.dtype))
+    xpdf = torch.where(inr, xc * _horner(_C_XPDF, u), 0.0)
+    return x32 * phi, phi + xpdf
+
+
+def _gelu_pair(x32):
+    """(gelu(x), gelu'(x)) of the exact GELU x * Phi(x)."""
+    phi = 0.5 * (1.0 + torch.erf(x32 * _SQRT_HALF))
+    return x32 * phi, phi + x32 * torch.exp(-0.5 * x32 * x32) * _INV_SQRT_2PI
 
 
 class WindowMap(NamedTuple):
@@ -110,14 +179,16 @@ def _torch_ln_rows(x, gamma, beta, window: Optional[WindowMap] = None):
     rows = x.reshape(-1, c)
     if window is not None:
         rows = rows[window_rows(x.shape[0], window, x.device)]
+    rows = rows.float()
     mu = rows.mean(-1, keepdim=True)
     xc = rows - mu
     var = (xc * xc).mean(-1, keepdim=True)
-    return xc * torch.rsqrt(var + _EPS) * gamma + beta
+    return (xc * torch.rsqrt(var + _EPS) * gamma + beta).to(x.dtype)
 
 
 def ln_rows(x, gamma, beta, window: Optional[WindowMap] = None):
-    """LayerNorm over the last axis -> (rows, C).
+    """LayerNorm over the last axis -> (rows, C) in x's dtype (f32
+    statistics, f32 gamma/beta, the output rounded once).
 
     ``x``: (B, h, w, C), or (rows, C) when ``window`` is None.  With a
     ``window``, output row r is the LN of the pixel the window map names
@@ -125,8 +196,9 @@ def ln_rows(x, gamma, beta, window: Optional[WindowMap] = None):
 
     Kernel ``ln_rows`` (``csrc/ln_rows.cu``) replaces the LN stages of
     ``sei_tpu/ops/swin_trunk.py`` ``_fwd_kernel`` (``_ln_fwd`` :242, roll and
-    ``_window_tokens`` :263, :432).  Bound by bytes (one read, one write of
-    each row); one warp per row, the row in registers, f32 two-pass stats.
+    ``_window_tokens`` :263, :432, the bf16 cast :430, :539).  Bound by bytes
+    (one read, one write of each row); one warp per row, the row in
+    registers, f32 two-pass stats.
     """
     c = x.shape[-1]
     if window is not None and (x.dim() != 4 or x.shape[1:3] != (window.h, window.w)):
@@ -134,14 +206,14 @@ def ln_rows(x, gamma, beta, window: Optional[WindowMap] = None):
     if x.device.type == "cpu":
         return _torch_ln_rows(x, gamma, beta, window)
     x = x.contiguous()
-    require_cuda_f32("ln_rows", x, gamma, beta)
+    require_cuda("ln_rows", x=(x, KERNEL_DTYPES), gamma=(gamma, F32), beta=(beta, F32))
     if c > 256 or gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"ln_rows: kernel takes C <= 256 and (C,) params; got C={c}")
     rows = x.numel() // c
     out = torch.empty((rows, c), device=x.device, dtype=x.dtype)
     wm = window or WindowMap(0, 0, 0, 0)
     code = _build.library().lib.sei_ln_rows(
-        x.device.index, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        x.device.index, _is_bf16(x), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         out.data_ptr(), rows, c, _EPS, int(window is not None),
         wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(x))
     _build.check(code, "ln_rows")
@@ -156,43 +228,49 @@ ln_rows.launches = 0
 
 
 def _torch_gemm_bias_epilogue(a, w, b, epilogue="none", res=None, dpm=None,
-                              window: Optional[WindowMap] = None, pre=None):
-    y = torch.addmm(b, a, w)
+                              window: Optional[WindowMap] = None, gp=None):
+    cdt = w.dtype
+    y = torch.addmm(b, a.float(), w.float())
     if epilogue == "gelu":
-        if pre is not None:
-            pre.copy_(y)
-        return F.gelu(y)
+        return (_gelu_fast(y) if cdt == BF16 else F.gelu(y)).to(cdt)
+    if epilogue == "gelu_pair":
+        g, d = (_gelu_pair_fast if cdt == BF16 else _gelu_pair)(y)
+        gp.copy_(d)
+        return g.to(cdt)
     if epilogue == "none":
-        return y
+        return y.to(cdt)
     m, n = y.shape
-    res2 = res.reshape(m, n)
+    res2 = res.reshape(m, n).float()
     rows = (torch.arange(m, device=a.device) if window is None
             else window_rows(dpm.shape[0], window, a.device))
     img = torch.arange(m, device=a.device) // (m // dpm.shape[0])
     out = res2.clone()
-    out[rows] = res2[rows] + dpm[img, None] * y
-    return out.view(res.shape)
+    out[rows] = res2[rows] + dpm[img, None] * _round(y, cdt)
+    return out.to(cdt).view(res.shape)
 
 
 def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
-                       window: Optional[WindowMap] = None, pre=None):
-    """``epilogue(a @ w + b)`` with f32 accumulation.
+                       window: Optional[WindowMap] = None, gp=None):
+    """``epilogue(a @ w + b)`` with f32 accumulation, in w's dtype (the
+    compute dtype: f32, or bf16 with a, res and the output bf16 too).
 
-    a: (M, K); w: (K, N) (the JAX kernel layout, in x out); b: (N,).
-    epilogue "none" / "gelu" (exact) -> (M, N).  "residual" ->
-    ``res + dpm[img] * (a @ w + b)`` in ``res``'s shape, where ``dpm`` (B,)
-    holds per-image keep factors (img = row // (M // B)) and, with a
-    ``window``, row r of the product lands on the pixel the window map names
-    (window reverse + unshift folded into the store).  With "gelu", a given
-    ``pre`` (M, N) buffer also receives the pre-activation ``a @ w + b`` (the
-    training backward's recompute: the GELU' factor of the fc2 data-grad
-    reads it).
+    a: (M, K); w: (K, N) (the JAX kernel layout, in x out); b: (N,) f32.
+    epilogue "none" / "gelu" -> (M, N); the GELU is exact in f32 and the
+    polynomial ``_gelu_fast`` in bf16.  "gelu_pair": as "gelu", and the
+    given ``gp`` (M, N) buffer (the compute dtype: the training forward's
+    save; or f32: the recompute's) receives gelu'(a @ w + b).  "residual"
+    -> ``res + dpm[img] * round(a @ w + b)`` in ``res``'s shape, summed in
+    f32 and rounded again (the JAX trunk's double rounding in bf16), where
+    ``dpm`` (B,) f32 holds per-image keep factors (img = row // (M // B))
+    and, with a ``window``, row r of the product lands on the pixel the
+    window map names (window reverse + unshift folded into the store).
 
     Kernel ``gemm_bias_epilogue`` (``csrc/gemm_bias_epilogue.cu``) replaces
     the qkv / proj / fc1 / fc2 products inside the TPU trunk kernel
-    (``sei_tpu/ops/swin_trunk.py`` :448, :474, :539, :544-547).  Bound by
-    FP32 operations (TF32 off); 64x64 tiles with 4x4 register tiles and the
-    epilogue applied in registers.
+    (``sei_tpu/ops/swin_trunk.py`` :448, :474, :539-547; the gelu/gelu'
+    saves of mode ``full`` :541-545, :556-559).  Bound by FP32 operations in
+    f32 (TF32 off), by bytes in bf16; 64x64 tiles with 4x4 register tiles of
+    CUDA-core FMAs and the epilogue applied in registers.
     """
     if epilogue not in _EPILOGUES:
         raise ValueError(f"gemm_bias_epilogue: unknown epilogue {epilogue!r}")
@@ -208,26 +286,27 @@ def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
             raise ValueError(f"gemm_bias_epilogue: res {tuple(res.shape)} does not match {window}")
     elif window is not None:
         raise ValueError("gemm_bias_epilogue: a window map needs the residual epilogue")
-    if pre is not None and (epilogue != "gelu" or pre.shape != (m, n)):
-        raise ValueError("gemm_bias_epilogue: pre takes the gelu epilogue and an (M, N) buffer")
+    if (gp is not None) != (epilogue == "gelu_pair") or (gp is not None and gp.shape != (m, n)):
+        raise ValueError("gemm_bias_epilogue: the gelu_pair epilogue takes an (M, N) gp buffer")
     if a.device.type == "cpu":
-        return _torch_gemm_bias_epilogue(a, w, b, epilogue, res, dpm, window, pre)
+        return _torch_gemm_bias_epilogue(a, w, b, epilogue, res, dpm, window, gp)
 
     a, w, b = a.contiguous(), w.contiguous(), b.contiguous()
     if residual:
         res, dpm = res.contiguous(), dpm.contiguous()
-    require_cuda_f32("gemm_bias_epilogue", a, w, b, res, dpm, pre)
-    if pre is not None and not pre.is_contiguous():
-        raise ValueError("gemm_bias_epilogue: pre must be contiguous")
+    cdt = w.dtype
+    require_cuda("gemm_bias_epilogue", w=(w, KERNEL_DTYPES), a=(a, cdt), res=(res, cdt),
+                 gp=(gp, (cdt, F32)), b=(b, F32), dpm=(dpm, F32))
+    if gp is not None and not gp.is_contiguous():
+        raise ValueError("gemm_bias_epilogue: gp must be contiguous")
     if m > 65535 * 64:
         raise ValueError(f"gemm_bias_epilogue: M={m} exceeds the kernel's grid")
-    out = torch.empty(res.shape if residual else (m, n), device=a.device, dtype=a.dtype)
+    out = torch.empty(res.shape if residual else (m, n), device=a.device, dtype=cdt)
     wm = window or WindowMap(0, 0, 0, 0)
     code = _build.library().lib.sei_gemm_bias_epilogue(
-        a.device.index, a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _build.ptr(pre), _build.ptr(res), _build.ptr(dpm), m, k, n,
-        _GELU_PRE if pre is not None else _EPILOGUES[epilogue],
-        m // dpm.shape[0] if residual else 0, int(window is not None),
+        a.device.index, _is_bf16(w), a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        _build.ptr(gp), _is_bf16(gp), _build.ptr(res), _build.ptr(dpm), m, k, n,
+        _EPILOGUES[epilogue], m // dpm.shape[0] if residual else 0, int(window is not None),
         wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(a))
     _build.check(code, "gemm_bias_epilogue")
     gemm_bias_epilogue.launches += 1
@@ -240,17 +319,14 @@ gemm_bias_epilogue.launches = 0
 # -- backward kernels ----------------------------------------------------------
 
 
-def _gelu_grad(x):
-    """d/dx of the exact GELU x * Phi(x)."""
-    return 0.5 * (1.0 + torch.erf(x * _SQRT_HALF)) + x * torch.exp(-0.5 * x * x) * _INV_SQRT_2PI
-
-
 def _grad_operand(dy, n: int, scale, window: Optional[WindowMap]):
-    """The (M, N) matrix whose row m is ``scale[img(m)] * dy[p(m)]``: the
-    plain version of the gather + scale prologue of ``gemm_bwd.cu``."""
+    """The f32 (M, N) matrix whose row m is ``scale[img(m)] * dy[p(m)]``: the
+    plain version of the gather + scale prologue of ``gemm_bwd.cu`` (which
+    then rounds it to the compute dtype)."""
     rows = dy.reshape(-1, n)
     if window is not None:
         rows = rows[window_rows(dy.shape[0], window, dy.device)]
+    rows = rows.float()
     if scale is not None:
         rows = rows * scale.repeat_interleave(rows.shape[0] // scale.shape[0])[:, None]
     return rows
@@ -269,45 +345,59 @@ def _check_grad_operand(name, dy, scale, window):
     return m
 
 
-def _torch_gemm_dgrad(dy, w, scale=None, window: Optional[WindowMap] = None, pre=None):
-    out = _grad_operand(dy, w.shape[1], scale, window) @ w.t()
-    return out if pre is None else out * _gelu_grad(pre)
+def _torch_gemm_dgrad(dy, w, scale=None, window: Optional[WindowMap] = None, gp=None,
+                      out_dtype=None):
+    g = _round(_grad_operand(dy, w.shape[1], scale, window), w.dtype)
+    out = g @ w.float().t()
+    if gp is not None:
+        out = out * gp.float()
+    return out.to(out_dtype or w.dtype)
 
 
-def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, pre=None):
-    """``(scale[img] * dy[rows]) @ w^T`` (times ``gelu'(pre)`` when given)
-    -> (M, K).
+def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, gp=None,
+               out_dtype=None):
+    """``round(scale[img] * dy[rows]) @ w^T`` (times ``gp`` when given)
+    -> (M, K) in ``out_dtype`` (f32 or w's dtype, the default).
 
-    w: (K, N) in the JAX layout (in x out); dy: (M, N), or (B, h, w, N) with
-    a ``window``, whose row map gathers row m from the pixel it names;
-    scale: (B,) per-image factors (img = m // (M // B)); pre: (M, K).
+    w: (K, N) in the JAX layout (in x out), of the compute dtype; dy: (M, N),
+    or (B, h, w, N) with a ``window``, whose row map gathers row m from the
+    pixel it names, f32 or the compute dtype; the operand is rounded to the
+    compute dtype as it is loaded.  scale: (B,) per-image factors (img =
+    m // (M // B)); gp: (M, K), gelu'(h) of the fc1 pre-activation h (the
+    forward's save or the recompute's), f32 or the compute dtype.
 
     Kernel ``gemm_dgrad`` (``csrc/gemm_bwd.cu``) replaces the data-grad
     products of the TPU trunk's backward (``sei_tpu/ops/swin_trunk.py``
-    ``_block_bwd_image`` :665, :669, :740, :803; ``_gelu_grad`` :170).
-    Bound by FP32 operations; 64x64 tiles, 4x4 register tiles, the gather
-    and scale on the load and GELU' in the epilogue.
+    ``_block_bwd_image`` :665-666, :669, :740-741, :803).  Bound by FP32
+    operations in f32, by bytes in bf16; 64x64 tiles, 4x4 register tiles,
+    the gather, scale and rounding on the load and gp in the epilogue.
     """
     k, n = w.shape
     if dy.shape[-1] != n:
         raise ValueError(f"gemm_dgrad: dy {tuple(dy.shape)} w {tuple(w.shape)}")
     m = _check_grad_operand("gemm_dgrad", dy, scale, window)
-    if pre is not None and pre.shape != (m, k):
-        raise ValueError(f"gemm_dgrad: pre {tuple(pre.shape)}, expected {(m, k)}")
+    if gp is not None and gp.shape != (m, k):
+        raise ValueError(f"gemm_dgrad: gp {tuple(gp.shape)}, expected {(m, k)}")
     if dy.device.type == "cpu":
-        return _torch_gemm_dgrad(dy, w, scale, window, pre)
+        return _torch_gemm_dgrad(dy, w, scale, window, gp, out_dtype)
 
     dy, w = dy.contiguous(), w.contiguous()
     scale = None if scale is None else scale.contiguous()
-    pre = None if pre is None else pre.contiguous()
-    require_cuda_f32("gemm_dgrad", dy, w, scale, pre)
+    gp = None if gp is None else gp.contiguous()
+    cdt = w.dtype
+    out_dtype = out_dtype or cdt
+    require_cuda("gemm_dgrad", w=(w, KERNEL_DTYPES), dy=(dy, (cdt, F32)), gp=(gp, (cdt, F32)),
+                 scale=(scale, F32))
+    if out_dtype not in (cdt, F32):
+        raise ValueError(f"gemm_dgrad: out_dtype {out_dtype} with {cdt} weights")
     if m > 65535 * 64:
         raise ValueError(f"gemm_dgrad: M={m} exceeds the kernel's grid")
-    out = torch.empty((m, k), device=dy.device, dtype=dy.dtype)
+    out = torch.empty((m, k), device=dy.device, dtype=out_dtype)
     wm = window or WindowMap(0, 0, 0, 0)
     code = _build.library().lib.sei_gemm_dgrad(
-        dy.device.index, dy.data_ptr(), w.data_ptr(), _build.ptr(scale), _build.ptr(pre),
-        out.data_ptr(), m, n, k, m // scale.shape[0] if scale is not None else 0,
+        dy.device.index, _is_bf16(w), dy.data_ptr(), _is_bf16(dy), w.data_ptr(),
+        _build.ptr(scale), _build.ptr(gp), _is_bf16(gp), out.data_ptr(), _is_bf16(out),
+        m, n, k, m // scale.shape[0] if scale is not None else 0,
         int(window is not None), wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(dy))
     _build.check(code, "gemm_dgrad")
     gemm_dgrad.launches += 1
@@ -317,43 +407,51 @@ def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, pre=Non
 gemm_dgrad.launches = 0
 
 
-def _torch_gemm_wgrad(a, dy, scale=None, window: Optional[WindowMap] = None):
+def _torch_gemm_wgrad(a, dy, scale=None, window: Optional[WindowMap] = None,
+                      db_rounded: bool = False):
     g = _grad_operand(dy, dy.shape[-1], scale, window)
-    return a.t() @ g, g.sum(0)
+    gr = _round(g, a.dtype)
+    return a.float().t() @ gr, (gr if db_rounded else g).sum(0)
 
 
-def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None):
-    """``(a^T g, g.sum(0))`` with ``g = scale[img] * dy[rows]``: the weight
-    (K, N) and bias (N,) gradients of ``a @ w + b``.
+def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
+               db_rounded: bool = False):
+    """``(a^T g, sum_rows)`` with ``g = round(scale[img] * dy[rows])``: the
+    f32 weight (K, N) and bias (N,) gradients of ``a @ w + b``.  The bias
+    gradient sums g before its rounding to the compute dtype, or after it
+    with ``db_rounded`` (the JAX trunk sums the f32 dm and dh, :664, :668,
+    but the rounded proj gradient and dqkv, :792, :802).
 
-    a: (M, K); dy, scale and window as in :func:`gemm_dgrad`.
+    a: (M, K) of the compute dtype; dy, scale and window as in
+    :func:`gemm_dgrad`.
 
     Kernel ``gemm_wgrad`` (``csrc/gemm_bwd.cu``) replaces the weight-grad
     products of the TPU trunk's backward (``_block_bwd_image`` :663-668,
     :786-802) and its per-group partials (``_bwd_pallas`` :1153-1174,
-    summed at :1198-1203).  Bound by FP32 operations; 64x64 tiles over
-    (K, N), the token axis split over the grid into partials that are
-    summed here (no atomics), the bias column sums taken from the same
-    staged tiles.
+    summed at :1198-1203).  Bound by FP32 operations in f32, by bytes in
+    bf16; 64x64 tiles over (K, N), the token axis split over the grid into
+    partials that are summed here (no atomics), the bias column sums taken
+    from the same staged tiles.
     """
     m, k = a.shape
     n = dy.shape[-1]
     if _check_grad_operand("gemm_wgrad", dy, scale, window) != m:
         raise ValueError(f"gemm_wgrad: a {tuple(a.shape)} dy {tuple(dy.shape)}")
     if a.device.type == "cpu":
-        return _torch_gemm_wgrad(a, dy, scale, window)
+        return _torch_gemm_wgrad(a, dy, scale, window, db_rounded)
 
     a, dy = a.contiguous(), dy.contiguous()
     scale = None if scale is None else scale.contiguous()
-    require_cuda_f32("gemm_wgrad", a, dy, scale)
+    require_cuda("gemm_wgrad", a=(a, KERNEL_DTYPES), dy=(dy, (a.dtype, F32)), scale=(scale, F32))
     tiles = -(-k // 64) * -(-n // 64)
     splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
-    dw = torch.empty((splits, k, n), device=a.device, dtype=a.dtype)
-    db = torch.empty((splits, n), device=a.device, dtype=a.dtype)
+    dw = torch.empty((splits, k, n), device=a.device, dtype=F32)
+    db = torch.empty((splits, n), device=a.device, dtype=F32)
     wm = window or WindowMap(0, 0, 0, 0)
     code = _build.library().lib.sei_gemm_wgrad(
-        a.device.index, a.data_ptr(), dy.data_ptr(), _build.ptr(scale), dw.data_ptr(),
-        db.data_ptr(), m, k, n, splits, m // scale.shape[0] if scale is not None else 0,
+        a.device.index, _is_bf16(a), a.data_ptr(), dy.data_ptr(), _is_bf16(dy),
+        _build.ptr(scale), dw.data_ptr(), db.data_ptr(), m, k, n, splits,
+        m // scale.shape[0] if scale is not None else 0, int(db_rounded),
         int(window is not None), wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(a))
     _build.check(code, "gemm_wgrad")
     gemm_wgrad.launches += 1
@@ -363,11 +461,13 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None):
 gemm_wgrad.launches = 0
 
 
-def _torch_ln_rows_bwd(x, gamma, dz, window: Optional[WindowMap] = None, dres=None):
+def _torch_ln_rows_bwd(x, gamma, dz, window: Optional[WindowMap] = None, dres=None,
+                       out_dtype=None):
     c = x.shape[-1]
-    flat = x.reshape(-1, c)
+    flat = x.reshape(-1, c).float()
     idx = None if window is None else window_rows(x.shape[0], window, x.device)
     rows = flat if idx is None else flat[idx]
+    dz = dz.float()
     mu = rows.mean(-1, keepdim=True)
     xc = rows - mu
     inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + _EPS)
@@ -377,13 +477,18 @@ def _torch_ln_rows_bwd(x, gamma, dz, window: Optional[WindowMap] = None, dres=No
     if idx is not None:
         d = torch.empty_like(flat).index_copy_(0, idx, d)
     dx = d.view(x.shape)
-    return dx if dres is None else dx + dres, (dz * xhat).sum(0), dz.sum(0)
+    if dres is not None:
+        dx = dx + dres.float()
+    return dx.to(out_dtype or x.dtype), (dz * xhat).sum(0), dz.sum(0)
 
 
-def ln_rows_bwd(x, gamma, dz, *, window: Optional[WindowMap] = None, dres=None):
+def ln_rows_bwd(x, gamma, dz, *, window: Optional[WindowMap] = None, dres=None,
+                out_dtype=None):
     """Backward of :func:`ln_rows` given ``dz`` = dL/d(output rows):
     (dx in ``x``'s shape, dgamma, dbeta); ``dres`` (``x``'s shape) is added
-    to dx (the residual stream's gradient).
+    to dx (the residual stream's gradient).  x has the compute dtype; dz and
+    dres are f32 or the compute dtype; dx comes out in ``out_dtype`` (f32
+    or x's dtype, the default); dgamma and dbeta in f32.
 
     With a ``window``, row r of ``dz`` belongs to the pixel the window map
     names: x is read there and dx written there (the window reverse +
@@ -404,21 +509,27 @@ def ln_rows_bwd(x, gamma, dz, *, window: Optional[WindowMap] = None, dres=None):
     if dres is not None and dres.shape != x.shape:
         raise ValueError(f"ln_rows_bwd: dres {tuple(dres.shape)} vs x {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return _torch_ln_rows_bwd(x, gamma, dz, window, dres)
+        return _torch_ln_rows_bwd(x, gamma, dz, window, dres, out_dtype)
 
     x, gamma, dz = x.contiguous(), gamma.contiguous(), dz.contiguous()
     dres = None if dres is None else dres.contiguous()
-    require_cuda_f32("ln_rows_bwd", x, gamma, dz, dres)
+    cdt = x.dtype
+    out_dtype = out_dtype or cdt
+    require_cuda("ln_rows_bwd", x=(x, KERNEL_DTYPES), dz=(dz, (cdt, F32)),
+                 dres=(dres, (cdt, F32)), gamma=(gamma, F32))
+    if out_dtype not in (cdt, F32):
+        raise ValueError(f"ln_rows_bwd: out_dtype {out_dtype} with {cdt} x")
     if c > 256:
         raise ValueError(f"ln_rows_bwd: kernel takes C <= 256; got C={c}")
     blocks = _build.partial_count(-(-rows // 16), per_sm=3)
-    dx = torch.empty_like(x)
-    dg = torch.empty((blocks, c), device=x.device, dtype=x.dtype)
-    db = torch.empty((blocks, c), device=x.device, dtype=x.dtype)
+    dx = torch.empty(x.shape, device=x.device, dtype=out_dtype)
+    dg = torch.empty((blocks, c), device=x.device, dtype=F32)
+    db = torch.empty((blocks, c), device=x.device, dtype=F32)
     wm = window or WindowMap(0, 0, 0, 0)
     code = _build.library().lib.sei_ln_rows_bwd(
-        x.device.index, x.data_ptr(), gamma.data_ptr(), dz.data_ptr(), _build.ptr(dres),
-        dx.data_ptr(), dg.data_ptr(), db.data_ptr(), rows, c, _EPS, blocks,
+        x.device.index, _is_bf16(x), x.data_ptr(), gamma.data_ptr(), dz.data_ptr(),
+        _is_bf16(dz), _build.ptr(dres), _is_bf16(dres), dx.data_ptr(), _is_bf16(dx),
+        dg.data_ptr(), db.data_ptr(), rows, c, _EPS, blocks,
         int(window is not None), wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(x))
     _build.check(code, "ln_rows_bwd")
     ln_rows_bwd.launches += 1
@@ -448,6 +559,8 @@ def _check_trunk(x, params, rpb, dpm, num_heads, window_size):
     b, h, w, c = x.shape
     d = params["ln1_s"].shape[0]
     n = window_size * window_size
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"swin_trunk: x must be float32 or bfloat16, got {x.dtype}")
     if h % window_size or w % window_size:
         raise ValueError(f"swin_trunk: {h}x{w} is not a multiple of window {window_size}")
     if c % num_heads:
@@ -474,6 +587,10 @@ class _Dims(NamedTuple):
         return self.c // self.nh
 
     @property
+    def t(self) -> int:  # tokens over the batch
+        return self.b * self.h * self.w
+
+    @property
     def b_(self) -> int:  # windows over the batch
         return self.b * (self.h // self.ws) * (self.w // self.ws)
 
@@ -485,71 +602,105 @@ class _Dims(NamedTuple):
         return WindowMap(self.h, self.w, self.ws, shift)
 
 
+class _Saved(NamedTuple):
+    """What the training forward keeps of one block: its input x and
+    mid-block residual x2 (mode ``xs``), and with saves (mode ``full``)
+    gelu(h), gelu'(h), the probabilities p and the attention output att."""
+
+    x: torch.Tensor
+    x2: torch.Tensor
+    gelu: Optional[torch.Tensor] = None
+    gelu_grad: Optional[torch.Tensor] = None
+    p: Optional[torch.Tensor] = None
+    att: Optional[torch.Tensor] = None
+
+
+def _compute_params(params: dict, cdt: torch.dtype) -> dict:
+    """The stacked params as the kernels read them: the GEMM weights cast to
+    the compute dtype once per trunk call; biases and LN params stay f32."""
+    return {k: params[k].to(cdt) if k in GEMM_WEIGHTS else params[k] for k in PARAM_LEAVES}
+
+
 def _qkv_views(qkv, dm: _Dims):
     """q, k, v as (B_, nh, N, hd) strided views of a (T, 3C) buffer."""
     t = qkv.view(dm.b_, dm.n, 3, dm.nh, dm.hd)
     return tuple(t[:, :, i].transpose(1, 2) for i in range(3))
 
 
-def _attention(a, p, rpb_i, mask_i, dm: _Dims):
-    """qkv GEMM + window attention -> (qkv (T, 3C), att (T, C))."""
+def _attention(a, p, rpb_i, mask_i, dm: _Dims, p_out=None):
+    """qkv GEMM + window attention -> (qkv (T, 3C), att (T, C)); ``p_out``
+    receives the probabilities."""
     qkv = gemm_bias_epilogue(a, p["qkv_w"], p["qkv_b"])
     att = torch.empty((dm.b_, dm.n, dm.nh, dm.hd), device=a.device, dtype=a.dtype)
     window_attn_fwd(*_qkv_views(qkv, dm), rpb_i, mask_i, scale=dm.scale,
-                    out=att.transpose(1, 2))
+                    out=att.transpose(1, 2), p_out=p_out)
     return qkv, att.view(-1, dm.c)
 
 
-def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, saves=None):
-    """The forward chain; appends each block's (x, x2) to ``saves`` when
-    given (the TPU trunk's mode ``xs``)."""
+def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, saves=None, full=False):
+    """The forward chain over the compute-dtype ``params``; appends each
+    block's :class:`_Saved` to ``saves`` when given (mode ``xs``, or
+    ``full`` with ``full``)."""
     c = dm.c
     for i in range(params["ln1_s"].shape[0]):
         p = {k: params[k][i] for k in PARAM_LEAVES}
         shifted = i % 2 == 1 and shift > 0
         wm = dm.window(shift if shifted else 0)
         a = ln_rows(x, p["ln1_s"], p["ln1_b"], window=wm)
-        _, att = _attention(a, p, rpb[i], mask if shifted else None, dm)
+        probs = (torch.empty((dm.b_, dm.nh, dm.n, dm.n), device=x.device, dtype=x.dtype)
+                 if full else None)
+        _, att = _attention(a, p, rpb[i], mask if shifted else None, dm, probs)
         x2 = gemm_bias_epilogue(att, p["proj_w"], p["proj_b"], "residual",
                                 res=x, dpm=dpm[i, 0], window=wm)
         z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
-        hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu")
+        gp = None
+        if full:
+            gp = torch.empty((dm.t, p["fc1_w"].shape[1]), device=x.device, dtype=x.dtype)
+            hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu_pair", gp=gp)
+        else:
+            hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu")
         out = gemm_bias_epilogue(hid, p["fc2_w"], p["fc2_b"], "residual",
                                  res=x2, dpm=dpm[i, 1])
         if saves is not None:
-            saves.append((x, x2))
+            saves.append(_Saved(x, x2, hid, gp, probs, att) if full else _Saved(x, x2))
         x = out
     return x
 
 
-def _block_backward(dout, x, x2, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm: _Dims):
+def _block_backward(dout, s: _Saved, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm: _Dims):
     """One block's backward (the mirror of ``_block_bwd_image``) from its
-    input x and mid-block residual x2: (dx, {leaf: grad}, drpb)."""
-    c = dm.c
-    t = x.numel() // c
+    saves: (dx in the compute dtype, {leaf: f32 grad}, f32 drpb)."""
+    x, x2 = s.x, s.x2
+    c, t = dm.c, dm.t
     # recompute with the forward kernels
     a = ln_rows(x, p["ln1_s"], p["ln1_b"], window=wm)
-    qkv, att = _attention(a, p, rpb_i, mask_i, dm)
-    z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
-    pre = torch.empty((t, p["fc1_w"].shape[1]), device=x.device, dtype=x.dtype)
-    hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu", pre=pre)
+    if s.p is None:  # mode xs: attention and fc1 again, gelu' in f32
+        qkv, att = _attention(a, p, rpb_i, mask_i, dm)
+        z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
+        gp = torch.empty((t, p["fc1_w"].shape[1]), device=x.device, dtype=F32)
+        hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu_pair", gp=gp)
+    else:  # mode full: only the GEMM operands a, qkv and z
+        qkv = gemm_bias_epilogue(a, p["qkv_w"], p["qkv_b"])
+        z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
+        att, hid, gp = s.att, s.gelu, s.gelu_grad
     g = {}
     # MLP branch: out = x2 + dpm_mlp * fc2(gelu(fc1(LN2(x2))))
     dmlp = dout.view(t, c)
-    dh = gemm_dgrad(dmlp, p["fc2_w"], scale=dpm_i[1], pre=pre)
+    dh = gemm_dgrad(dmlp, p["fc2_w"], scale=dpm_i[1], gp=gp, out_dtype=F32)
     g["fc2_w"], g["fc2_b"] = gemm_wgrad(hid, dmlp, scale=dpm_i[1])
     g["fc1_w"], g["fc1_b"] = gemm_wgrad(z, dh)
-    dz = gemm_dgrad(dh, p["fc1_w"])
-    dx2, g["ln2_s"], g["ln2_b"] = ln_rows_bwd(x2.view(t, c), p["ln2_s"], dz, dres=dmlp)
+    dz = gemm_dgrad(dh, p["fc1_w"], out_dtype=F32)
+    dx2, g["ln2_s"], g["ln2_b"] = ln_rows_bwd(x2.view(t, c), p["ln2_s"], dz, dres=dmlp,
+                                              out_dtype=F32)
     dx2 = dx2.view(x.shape)
     # attention branch: x2 = x + dpm_attn * unwindow(proj(attention(LN1(x))))
     datt = gemm_dgrad(dx2, p["proj_w"], scale=dpm_i[0], window=wm)
-    g["proj_w"], g["proj_b"] = gemm_wgrad(att, dx2, scale=dpm_i[0], window=wm)
+    g["proj_w"], g["proj_b"] = gemm_wgrad(att, dx2, scale=dpm_i[0], window=wm, db_rounded=True)
     dqkv = torch.empty_like(qkv)
     *_, drpb = window_attn_bwd(
         *_qkv_views(qkv, dm), rpb_i, mask_i,
         datt.view(dm.b_, dm.n, dm.nh, dm.hd).transpose(1, 2), scale=dm.scale,
-        out=_qkv_views(dqkv, dm))
+        out=_qkv_views(dqkv, dm), p=s.p)
     g["qkv_w"], g["qkv_b"] = gemm_wgrad(a, dqkv)
     da = gemm_dgrad(dqkv, p["qkv_w"])
     dx, g["ln1_s"], g["ln1_b"] = ln_rows_bwd(x, p["ln1_s"], da, window=wm, dres=dx2)
@@ -558,62 +709,71 @@ def _block_backward(dout, x, x2, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm: _Di
 
 class _TrunkFn(torch.autograd.Function):
     """The trunk with its backward on the kernels (the counterpart of
-    ``_trunk_pallas``'s custom VJP): the forward keeps each block's x and x2,
-    the backward walks the blocks in reverse and recomputes the rest.
-    Returns dx, drpb and the 12 stacked parameter grads; dpm and the mask
-    take none."""
+    ``_trunk_pallas``'s custom VJP): the forward keeps each block's saves
+    (mode ``full`` when ``full``, else ``xs``), the backward walks the
+    blocks in reverse and recomputes the rest.  Returns dx (x's dtype),
+    drpb and the 12 stacked f32 parameter grads; dpm and the mask take
+    none."""
 
     @staticmethod
-    def forward(ctx, x, rpb, dpm, mask, num_heads, window_size, *leaves):
+    def forward(ctx, x, rpb, dpm, mask, num_heads, window_size, full, *leaves):
         params = dict(zip(PARAM_LEAVES, leaves))
         b, h, w, c, d, shift = _check_trunk(x, params, rpb, dpm, num_heads, window_size)
         dm = _Dims(b, h, w, c, num_heads, window_size)
+        cparams = _compute_params(params, x.dtype)
         saves = []
-        y = _chain_forward(x.contiguous(), params, rpb, mask, dpm, dm, shift, saves)
-        ctx.save_for_backward(rpb, dpm, *leaves)
-        ctx.saves, ctx.mask, ctx.dm, ctx.shift = saves, mask, dm, shift
+        y = _chain_forward(x.contiguous(), cparams, rpb, mask, dpm, dm, shift, saves, full)
+        ctx.save_for_backward(rpb, dpm)
+        ctx.saves, ctx.params, ctx.mask, ctx.dm, ctx.shift = saves, cparams, mask, dm, shift
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        rpb, dpm, *leaves = ctx.saved_tensors
-        params = dict(zip(PARAM_LEAVES, leaves))
-        dm, shift = ctx.dm, ctx.shift
+        rpb, dpm = ctx.saved_tensors
+        params, dm, shift = ctx.params, ctx.dm, ctx.shift
         d = len(ctx.saves)
         grads = {k: [None] * d for k in PARAM_LEAVES}
         drpb = [None] * d
         g = dy.contiguous()
         for i in reversed(range(d)):
-            x, x2 = ctx.saves[i]
             shifted = i % 2 == 1 and shift > 0
             wm = dm.window(shift if shifted else 0)
             p = {k: params[k][i] for k in PARAM_LEAVES}
-            g, gi, drpb[i] = _block_backward(g, x, x2, p, rpb[i],
+            g, gi, drpb[i] = _block_backward(g, ctx.saves[i], p, rpb[i],
                                              ctx.mask if shifted else None, dpm[i], wm, dm)
+            ctx.saves[i] = None  # free the block's saves as soon as they are used
             for k in PARAM_LEAVES:
                 grads[k][i] = gi[k]
-        ctx.saves = None
-        return (g, torch.stack(drpb), None, None, None, None,
+        ctx.saves = ctx.params = None
+        return (g, torch.stack(drpb), None, None, None, None, None,
                 *(torch.stack(grads[k]) for k in PARAM_LEAVES))
 
 
-def swin_trunk(x, params: dict, rpb, mask, dpm, *, num_heads: int, window_size: int):
-    """D SwinBlocks on x (B, H, W, C) through the kernel chain.
+def swin_trunk(x, params: dict, rpb, mask, dpm, *, num_heads: int, window_size: int,
+               saves: Optional[bool] = None):
+    """D SwinBlocks on x (B, H, W, C) through the kernel chain, in x's dtype
+    (float32, or bfloat16 with f32 params, rpb, mask and dpm).
 
     params: the stacked ``PARAM_LEAVES`` (D, ...) in the JAX layout (weights
     in x out); rpb (D, nh, N, N); mask (nW, N, N) or None; dpm (D, 2, B).
     Blocks alternate no-shift / shift (shift ws//2 unless min(H, W) <= ws).
     Differentiable in x, rpb and params: when autograd needs a gradient the
-    call goes through :class:`_TrunkFn` (forward kernels that keep x and x2
-    per block, backward kernels); otherwise only the forward chain runs.
+    call goes through :class:`_TrunkFn`; otherwise only the forward chain
+    runs.  ``saves`` picks the training forward's mode: True keeps gelu(h),
+    gelu'(h), p and att per block for the saved-tensor backward (mode
+    ``full``), False keeps x and x2 only for the recompute backward (mode
+    ``xs``); None means on for bf16 and off for f32, the JAX package's
+    default (``saves_on``, overridden there by ``SEI_TRUNK_SAVES``).
     """
     mask = _as_mask(mask, x)
+    full = x.dtype == BF16 if saves is None else bool(saves)
     leaves = [params[k] for k in PARAM_LEAVES]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, rpb, *leaves)):
-        return _TrunkFn.apply(x, rpb, dpm, mask, num_heads, window_size, *leaves)
+        return _TrunkFn.apply(x, rpb, dpm, mask, num_heads, window_size, full, *leaves)
     b, h, w, c, d, shift = _check_trunk(x, params, rpb, dpm, num_heads, window_size)
-    return _chain_forward(x.contiguous(), params, rpb, mask, dpm,
+    return _chain_forward(x.contiguous(), _compute_params(params, x.dtype), rpb, mask, dpm,
                           _Dims(b, h, w, c, num_heads, window_size), shift)
+
 
 def _window_tokens(y, ws):
     b, h, w, c = y.shape
@@ -637,35 +797,45 @@ def trunk_reference(x, params: dict, rpb, mask, dpm, *, num_heads: int,
                     window_size: int):
     """Plain PyTorch trunk: the same function as :func:`swin_trunk`, written
     the straightforward way (roll, window partition, per-head attention,
-    window reverse), independent of the kernels' row maps."""
+    window reverse), independent of the kernels' row maps.  In bf16 it
+    rounds where the JAX ``trunk_reference`` rounds (the products in f32 from
+    bf16-rounded operands, never a torch bf16 matmul) and uses the
+    polynomial GELU; in f32 every rounding is a no-op."""
     b, h, w, c, d, shift = _check_trunk(x, params, rpb, dpm, num_heads, window_size)
     mask = _as_mask(mask, x)
+    cdt = x.dtype
     ws, nh = window_size, num_heads
     n, hd = ws * ws, c // nh
+
+    def r(t):
+        return _round(t, cdt)
+
+    x = x.float()
     for i in range(d):
         p = {k: params[k][i] for k in PARAM_LEAVES}
         shifted = i % 2 == 1 and shift > 0
-        a = _ln(x, p["ln1_s"], p["ln1_b"])
+        a = r(_ln(x, p["ln1_s"], p["ln1_b"]))
         if shifted:
             a = torch.roll(a, (-shift, -shift), dims=(1, 2))
         tok = _window_tokens(a, ws)
-        qkv = (tok @ p["qkv_w"] + p["qkv_b"]).reshape(-1, n, 3, nh, hd)
+        qkv = r(tok @ r(p["qkv_w"]) + p["qkv_b"]).reshape(-1, n, 3, nh, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        att = _torch_attention(q, k, v, rpb[i], mask if shifted else None,
-                               hd ** -0.5)
-        o = att.transpose(1, 2).reshape(-1, n, c) @ p["proj_w"] + p["proj_b"]
+        probs = r(_probs(q, k, rpb[i], mask if shifted else None, hd ** -0.5))
+        att = r(probs @ v)
+        o = r(att.transpose(1, 2).reshape(-1, n, c) @ r(p["proj_w"]) + p["proj_b"])
         y = _unwindow_tokens(o, b, h, w, ws)
         if shifted:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x2 = x + dpm[i, 0][:, None, None, None] * y
-        m = F.gelu(_ln(x2, p["ln2_s"], p["ln2_b"]) @ p["fc1_w"] + p["fc1_b"])
-        m = m @ p["fc2_w"] + p["fc2_b"]
-        x = x2 + dpm[i, 1][:, None, None, None] * m
-    return x
+        x2 = r(x + dpm[i, 0][:, None, None, None] * y)
+        hid = r(_ln(x2, p["ln2_s"], p["ln2_b"])) @ r(p["fc1_w"]) + p["fc1_b"]
+        m = r(_gelu_fast(hid) if cdt == BF16 else F.gelu(hid))
+        m = r(m @ r(p["fc2_w"]) + p["fc2_b"])
+        x = r(x2 + dpm[i, 1][:, None, None, None] * m)
+    return x.to(cdt)
 
 
 __all__ = [
-    "KERNELS", "PARAM_LEAVES", "WindowMap", "gemm_bias_epilogue", "gemm_dgrad",
-    "gemm_wgrad", "launch_counts", "ln_rows", "ln_rows_bwd", "reset_launch_counts",
-    "swin_trunk", "trunk_reference", "window_rows",
+    "KERNELS", "PARAM_LEAVES", "WindowMap", "gemm_bias_epilogue",
+    "gemm_dgrad", "gemm_wgrad", "launch_counts", "ln_rows", "ln_rows_bwd",
+    "reset_launch_counts", "swin_trunk", "trunk_reference", "window_rows",
 ]

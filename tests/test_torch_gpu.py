@@ -14,6 +14,16 @@ Tolerances as in chip_smoke: 1e-5 (LN forward), 1e-4 (GEMMs and LN
 backward: sums of up to a few thousand products in another order),
 2e-5 (attention forward), 1e-4 (attention backward: dbias sums over all
 windows), 2e-5 on a two-block trunk forward and 1e-4 on its gradients.
+The bf16 instantiations (and the save behaviours of the bf16 training
+forward and backward) are held against the same plain versions, which
+round where the kernels round: on bf16 outputs rtol 1e-2 (about 2 bf16
+ulps) plus an atol of 1e-2 of the tensor's largest entry, since an f32 sum
+taken in another order can flip a rounding of the output or of an
+intermediate that is rounded before a further product (ds before dq and
+dk: one flip moves dq by an ulp of the largest ds); 1e-4 on their f32
+outputs; on a two-block bf16 trunk the
+gradients within 3e-2 of each tensor's largest entry (the JAX trunk test's
+bound for its bf16 kernel against autograd of its reference).
 """
 
 import numpy as np
@@ -38,12 +48,28 @@ def _rnd(g, *shape, s=1.0):
     return torch.randn(shape, generator=g, device="cuda") * s
 
 
-def _close(got, want, tol):
+def _close(got, want, tol, atol=None):
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol if atol is None else atol)
+
+
+BF16 = torch.bfloat16
+BF16_RTOL = 1e-2  # and an atol of BF16_RTOL x max |want|
+
+
+def _close_bf16(got, want):
+    """bf16 outputs to BF16_RTOL (relative, and of the largest entry), f32
+    outputs (grads, partial sums) to 1e-4."""
+    if want.dtype == BF16:
+        _close(got, want, BF16_RTOL, BF16_RTOL * float(want.float().abs().max()))
+    else:
+        _close(got, want, 1e-4)
 
 
 pytestmark = pytest.mark.gpu
+F32 = torch.float32
 
 
 @pytest.mark.parametrize("c", [16, 180, 256])
@@ -148,9 +174,9 @@ def test_gemm_dgrad(gpu, m, k, n, variant):
     dy, w = _rnd(gpu, m, n), _rnd(gpu, k, n, s=0.1)
     scale = torch.tensor([0.0, 1.25], device="cuda")[: 2 if m % 2 == 0 else 1]
     scale = scale if variant != "plain" else None
-    pre = _rnd(gpu, m, k) if variant == "gelu" else None
-    got = st.gemm_dgrad(dy, w, scale=scale, pre=pre)
-    _close(got, st._torch_gemm_dgrad(dy, w, scale, None, pre), 1e-4)
+    gp = _rnd(gpu, m, k) if variant == "gelu" else None  # gelu'(h) of the fc1 pre-activation
+    got = st.gemm_dgrad(dy, w, scale=scale, gp=gp)
+    _close(got, st._torch_gemm_dgrad(dy, w, scale, None, gp), 1e-4)
 
 
 @pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (4000, 360, 180)])
@@ -178,13 +204,15 @@ def test_gemm_bwd_window_gather(gpu, shift):
 
 
 def test_gemm_gelu_pre_epilogue(gpu):
+    """The fc1 recompute's epilogue: gelu(h) and, beside it, gelu'(h) of the
+    pre-activation h (the "gelu_pair" epilogue with an f32 gp buffer)."""
     a, w, b = _rnd(gpu, 130, 20), _rnd(gpu, 20, 33, s=0.3), _rnd(gpu, 33, s=0.1)
-    pre = torch.empty(130, 33, device="cuda")
-    got = st.gemm_bias_epilogue(a, w, b, "gelu", pre=pre)
-    pre_p = torch.empty_like(pre)
-    want = st._torch_gemm_bias_epilogue(a, w, b, "gelu", pre=pre_p)
+    gp = torch.empty(130, 33, device="cuda")
+    got = st.gemm_bias_epilogue(a, w, b, "gelu_pair", gp=gp)
+    gp_p = torch.empty_like(gp)
+    want = st._torch_gemm_bias_epilogue(a, w, b, "gelu_pair", gp=gp_p)
     _close(got, want, 1e-4)
-    _close(pre, pre_p, 1e-4)
+    _close(gp, gp_p, 1e-4)
 
 
 @pytest.mark.parametrize("n,hd,b_", [(16, 8, 12), (64, 30, 996), (49, 32, 30)])
@@ -245,3 +273,209 @@ def test_trunk_grads_match_reference(gpu):
                                   "ln_rows_bwd": 2 * d}
     for a, b_ in zip(got, grads(st.trunk_reference)):
         _close(a, b_, 1e-4)
+
+
+# -- bf16 instantiations and the save behaviours (the bf16 training recipe) ----
+
+
+def _bf(g, *shape, s=1.0):
+    return _rnd(g, *shape, s=s).to(BF16)
+
+
+@pytest.mark.parametrize("c", [16, 180])
+@pytest.mark.parametrize("shift", [None, 2])
+def test_ln_rows_bf16(gpu, c, shift):
+    x = _bf(gpu, 2, 8, 12, c)
+    g, b = 1 + _rnd(gpu, c, s=0.1), _rnd(gpu, c, s=0.1)
+    wm = None if shift is None else st.WindowMap(8, 12, 4, shift)
+    inp = x if wm else x.view(-1, c)
+    _close_bf16(st.ln_rows(inp, g, b, window=wm), st._torch_ln_rows(inp, g, b, wm))
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180)])
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "gelu_pair", "gelu_pair_f32"])
+def test_gemm_bias_epilogue_bf16(gpu, m, k, n, epilogue):
+    a, w, b = _bf(gpu, m, k), _bf(gpu, k, n, s=0.1), _rnd(gpu, n, s=0.1)
+    res = _bf(gpu, m, n) if epilogue == "residual" else None
+    dpm = torch.tensor([0.5, 1.25], device="cuda")[: 2 if m % 2 == 0 else 1] if res is not None else None
+    gp = gp_p = None
+    if epilogue.startswith("gelu_pair"):
+        gp = torch.empty(m, n, device="cuda", dtype=F32 if epilogue.endswith("f32") else BF16)
+        gp_p, epilogue = torch.empty_like(gp), "gelu_pair"
+    got = st.gemm_bias_epilogue(a, w, b, epilogue, res=res, dpm=dpm, gp=gp)
+    _close_bf16(got, st._torch_gemm_bias_epilogue(a, w, b, epilogue, res, dpm, None, gp_p))
+    if gp is not None:
+        _close_bf16(gp, gp_p)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_gemm_residual_window_store_bf16(gpu, shift):
+    """proj's double rounding: round(a.w + b), then res + dpm * that in f32,
+    rounded again, on the pixel the window map names."""
+    wm = st.WindowMap(8, 12, 4, shift)
+    a, w, b = _bf(gpu, 2 * 96, 24), _bf(gpu, 24, 16, s=0.1), _rnd(gpu, 16, s=0.1)
+    res = _bf(gpu, 2, 8, 12, 16)
+    dpm = torch.tensor([0.0, 1.25], device="cuda")
+    got = st.gemm_bias_epilogue(a, w, b, "residual", res=res, dpm=dpm, window=wm)
+    _close_bf16(got, st._torch_gemm_bias_epilogue(a, w, b, "residual", res, dpm, wm))
+
+
+@pytest.mark.parametrize("n,hd", [(16, 8), (64, 30)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attn_fwd_bf16_p_store(gpu, n, hd, masked):
+    b_, nh, nw = 12, 3, 6
+    q, k, v = (_bf(gpu, b_, nh, n, hd, s=hd ** -0.5), _bf(gpu, b_, nh, n, hd),
+               _bf(gpu, b_, nh, n, hd))
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((nw, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    m = mask if masked else None
+    p, p_p = (torch.empty(b_, nh, n, n, device="cuda", dtype=BF16) for _ in range(2))
+    before = at.window_attn_fwd.launches
+    got = at.window_attn_fwd(q, k, v, bias, m, scale=1.5, p_out=p)
+    assert at.window_attn_fwd.launches == before + 1
+    _close_bf16(got, at._torch_attention(q, k, v, bias, m, 1.5, p_p))
+    _close_bf16(p, p_p)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("saved", [False, True])
+def test_window_attn_bwd_saved_p(gpu, dtype, saved):
+    """The backward reading the forward's saved p (K7) and, in bf16, the
+    recompute form (p rounded for dv, f32 for ds)."""
+    n, hd, b_, nh, nw = 64, 30, 60, 3, 6
+    q, k, v, do = (_rnd(gpu, b_, nh, n, hd, s=s).to(dtype) for s in (hd ** -0.5, 1, 1, 1))
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((nw, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    p = None
+    if saved:
+        p = torch.empty(b_, nh, n, n, device="cuda", dtype=dtype)
+        at.window_attn_fwd(q, k, v, bias, mask, scale=1.5, p_out=p)
+    got = at.window_attn_bwd(q, k, v, bias, mask, do, scale=1.5, p=p)
+    want = at._torch_attention_bwd(q, k, v, bias, mask, do, 1.5, p)
+    for x, y in zip(got, want):
+        (_close_bf16 if dtype == BF16 else lambda a, b_: _close(a, b_, 1e-4))(x, y)
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180)])
+@pytest.mark.parametrize("dy_dtype,out_dtype,gp_dtype", [
+    (BF16, F32, BF16),   # fc2: bf16 block gradient, saved bf16 gelu' -> f32 dh
+    (BF16, F32, F32),    # fc2 in the bf16 recompute: f32 gelu'
+    (F32, F32, None),    # fc1: f32 dh -> f32 dz
+    (F32, BF16, None),   # proj: f32 residual gradient -> bf16 d(att)
+    (BF16, BF16, None),  # qkv: bf16 dqkv -> bf16 da
+])
+def test_gemm_dgrad_bf16(gpu, m, k, n, dy_dtype, out_dtype, gp_dtype):
+    dy, w = _rnd(gpu, m, n).to(dy_dtype), _bf(gpu, k, n, s=0.1)
+    scale = torch.tensor([0.0, 1.25], device="cuda")[: 2 if m % 2 == 0 else 1]
+    gp = None if gp_dtype is None else _rnd(gpu, m, k).to(gp_dtype)
+    got = st.gemm_dgrad(dy, w, scale=scale, gp=gp, out_dtype=out_dtype)
+    _close_bf16(got, st._torch_gemm_dgrad(dy, w, scale, None, gp, out_dtype))
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (4000, 360, 180)])
+@pytest.mark.parametrize("dy_dtype", [F32, BF16])
+@pytest.mark.parametrize("db_rounded", [False, True])
+def test_gemm_wgrad_bf16(gpu, m, k, n, dy_dtype, db_rounded):
+    a, dy = _bf(gpu, m, k), _rnd(gpu, m, n).to(dy_dtype)
+    scale = torch.tensor([0.5, 1.3], device="cuda")
+    got = st.gemm_wgrad(a, dy, scale=scale, db_rounded=db_rounded)
+    want = st._torch_gemm_wgrad(a, dy, scale, None, db_rounded)
+    for x, y in zip(got, want):
+        _close(x, y, 1e-4 * max(1.0, m / 1000))
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_gemm_bwd_window_gather_bf16(gpu, shift):
+    wm = st.WindowMap(8, 12, 4, shift)
+    dy = _rnd(gpu, 2, 8, 12, 16)  # the f32 residual gradient dx2
+    a, w = _bf(gpu, 192, 24), _bf(gpu, 24, 16, s=0.1)
+    scale = torch.tensor([0.0, 1.25], device="cuda")
+    _close_bf16(st.gemm_dgrad(dy, w, scale=scale, window=wm),
+                st._torch_gemm_dgrad(dy, w, scale, wm))
+    for x, y in zip(st.gemm_wgrad(a, dy, scale=scale, window=wm, db_rounded=True),
+                    st._torch_gemm_wgrad(a, dy, scale, wm, True)):
+        _close(x, y, 1e-4)
+
+
+@pytest.mark.parametrize("c,shift", [(16, None), (180, 2)])
+@pytest.mark.parametrize("form", ["ln2", "ln1"])
+def test_ln_rows_bwd_bf16(gpu, c, shift, form):
+    """LN2: f32 dz, bf16 residual gradient -> f32 dx2; LN1: bf16 da, f32
+    residual gradient -> bf16 dx."""
+    x = _bf(gpu, 3, 8, 12, c)
+    g = 1 + _rnd(gpu, c, s=0.1)
+    wm = None if shift is None else st.WindowMap(8, 12, 4, shift)
+    inp = x if wm else x.view(-1, c)
+    dz_dtype, res_dtype, out_dtype = (F32, BF16, F32) if form == "ln2" else (BF16, F32, BF16)
+    dz, dres = _rnd(gpu, 288, c).to(dz_dtype), _rnd(gpu, *inp.shape).to(res_dtype)
+    got = st.ln_rows_bwd(inp, g, dz, window=wm, dres=dres, out_dtype=out_dtype)
+    want = st._torch_ln_rows_bwd(inp, g, dz, wm, dres, out_dtype)
+    for a, b in zip(got, want):
+        _close_bf16(a, b)
+
+
+def test_kernels_refuse_other_dtypes(gpu):
+    x = _rnd(gpu, 4, 16).half()
+    with pytest.raises(ValueError, match="x must be"):
+        st.ln_rows(x, torch.ones(16, device="cuda"), torch.zeros(16, device="cuda"))
+    a, w = _bf(gpu, 8, 16), _rnd(gpu, 16, 8)
+    with pytest.raises(ValueError, match="a must be"):
+        st.gemm_bias_epilogue(a, w, torch.zeros(8, device="cuda"))
+
+
+def _trunk_case(g, dtype):
+    d, b, h, w, c, nh, ws = 2, 2, 8, 12, 24, 3, 4
+    n = ws * ws
+    s = 0.1
+    shapes = {"ln1_s": (c,), "ln1_b": (c,), "qkv_w": (c, 3 * c), "qkv_b": (3 * c,),
+              "proj_w": (c, c), "proj_b": (c,), "ln2_s": (c,), "ln2_b": (c,),
+              "fc1_w": (c, 2 * c), "fc1_b": (2 * c,), "fc2_w": (2 * c, c), "fc2_b": (c,)}
+    params = {k: (1.0 if k.startswith("ln") and k.endswith("_s") else 0.0)
+              + _rnd(g, d, *shp, s=s) for k, shp in shapes.items()}
+    rpb = _rnd(g, d, nh, n, n, s=s)
+    mask = torch.from_numpy(shift_attn_mask(h, w, ws, ws // 2)).cuda()
+    dpm = torch.tensor([[[1.0, 0.5], [0.0, 1.25]], [[1.25, 1.0], [1.0, 0.0]]], device="cuda")
+    x, tgt = _rnd(g, b, h, w, c).to(dtype), _rnd(g, b, h, w, c)
+    return dict(params=params, rpb=rpb, mask=mask, dpm=dpm, x=x, tgt=tgt, nh=nh, ws=ws, d=d)
+
+
+def test_trunk_chain_bf16_matches_reference(gpu):
+    k = _trunk_case(gpu, BF16)
+    args = (k["x"], k["params"], k["rpb"], k["mask"], k["dpm"])
+    got = st.swin_trunk(*args, num_heads=k["nh"], window_size=k["ws"])
+    want = st.trunk_reference(*args, num_heads=k["nh"], window_size=k["ws"])
+    assert got.dtype == BF16
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("dtype,saves", [(BF16, None), (BF16, False), (F32, True)])
+def test_trunk_grads_saves_match_reference(gpu, dtype, saves):
+    """The saved-tensor backward (K5/K7: bf16 by default, f32 when asked)
+    and the bf16 recompute backward against autograd through the plain
+    trunk, with the launch counts of each mode."""
+    k = _trunk_case(gpu, dtype)
+    d = k["d"]
+
+    def grads(fn, **kw):
+        leaves = [k["x"], k["rpb"], *k["params"].values()]
+        leaves = [t.clone().requires_grad_() for t in leaves]
+        p = dict(zip(k["params"], leaves[2:]))
+        y = fn(leaves[0], p, leaves[1], k["mask"], k["dpm"], num_heads=k["nh"],
+               window_size=k["ws"], **kw)
+        return torch.autograd.grad(((y.float() - k["tgt"]) ** 2).mean(), leaves)
+
+    st.reset_launch_counts()
+    got = grads(st.swin_trunk, saves=saves)
+    full = saves if saves is not None else dtype == BF16
+    assert st.launch_counts() == {"ln_rows": 4 * d, "gemm_bias_epilogue": (5 if full else 6) * d,
+                                  "window_attn_fwd": (1 if full else 2) * d,
+                                  "gemm_dgrad": 4 * d, "gemm_wgrad": 4 * d,
+                                  "window_attn_bwd": d, "ln_rows_bwd": 2 * d}
+    for a, b_ in zip(got, grads(st.trunk_reference)):
+        assert a.dtype == b_.dtype
+        a, b_ = a.float(), b_.float()
+        if dtype == F32:
+            _close(a, b_, 1e-4)
+        else:
+            scale = float(b_.abs().max().clamp_min(1e-6))
+            _close(a / scale, b_ / scale, 0.0, 3e-2)

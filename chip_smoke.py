@@ -28,7 +28,19 @@
    and the weights moved; holds one step's gradients on the kernel path
    against the plain path (same inputs, draws and drop-path); profiles one
    step by kernel.
-5. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
+5. Captured training: the same trainer as one CUDA graph per dispatch
+   (``Trainer(capture=True)``, the default on CUDA) at ``scan_steps`` 1 and
+   2, f32 and bf16, from the same seed-0 weights and streams as the eager
+   run of phase 4: each step's loss, the final parameters and Adam state
+   must equal the eager run's bit for bit, and the kernels launched at
+   capture must be the design's per step; steady ms per step (host clock
+   over replays) and the device time of one replayed dispatch beside the
+   eager trainer's, peak memory.
+6. Launch-overhead probes (K8 ``copy_probe``, K9 ``trunk_skeleton``): each
+   held exactly against its plain version and timed at the probes' shapes,
+   then ``sei_tpu_torch.probes`` (chains of launches eager and captured,
+   the skeleton variants, the real trunk as the control).
+7. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
 
 Imports nothing of JAX and nothing of ``sei_tpu``.
@@ -97,6 +109,13 @@ TRUNK_GRAD_FRAC = 3e-2
 # of the two forwards by 100 per pixel before the batch mean (55296 values)
 # averages it down; its 2 sigma^2 weight (sigma = 5/255) keeps it small
 LOSS_RTOL_BF16 = 5e-2
+# captured training: the scan_steps values run, and the dispatches timed per
+# trainer after the comparison (host clock, one sync at the end)
+SCAN_STEPS = (1, 2)
+TIMED_DISPATCHES = 4
+# the probes' shape (experiments/perf_probe_r3*.py: b, h, w, c) and depth
+PROBE_SHAPE, PROBE_DEPTH = (8, 48, 48, 180), 6
+PROBE_BLOCKS = (1, 4, 8, 24, 132, 1056)
 
 
 def fail(msg: str) -> None:
@@ -119,6 +138,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call, by CUDA events over ``iters`` calls
+    queued behind a sleeping kernel: for calls shorter than their launch,
+    which ``time_ms`` would time at the host's launch rate."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock: longer than the enqueueing
     start.record()
     for _ in range(iters):
         fn()
@@ -578,6 +616,104 @@ def check_bf16_kernels(timed: bool) -> dict:
     return rows
 
 
+def check_probe_kernels(timed: bool) -> dict:
+    """K8 (``copy_probe``) at each block count and K9 (``trunk_skeleton``)
+    in each variant against their plain versions at the probes' shape,
+    exactly (an f32 add and one rounding per stored value), in bf16 (the
+    probes' type) and f32; bounds by bytes (no operation counts against
+    them); times queued (``queued_ms``): a call is shorter than its launch;
+    returns one row per variant, as the other checks do."""
+    import torch
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import launch_probe as lp
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, h, w, c = PROBE_SHAPE
+    d = PROBE_DEPTH
+    rows = {}
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()
+        for a, b_ in zip(got, want):
+            if a.dtype != b_.dtype or not torch.equal(a, b_):
+                fail(f"{name} differs from its plain version")
+        print(f"  {name}: equal to its plain version")
+
+    def record(kernel, variant, fn_k, fn_p, fn_lib, nbytes):
+        b_ms, b_by = bound_ms(0.0, nbytes)
+        r = {"variant": variant, "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+             "flops": 0.0, "bytes": nbytes, "per_block": 0}
+        if timed:
+            r["ms"] = queued_ms(fn_k)
+            r["plain_ms"] = queued_ms(fn_p)
+            r["library_ms"] = queued_ms(fn_lib) if fn_lib is not None else None
+            lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"    {kernel}[{variant}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}), {nbytes / 1e6:.1f} MB")
+        rows.setdefault(kernel, []).append(r)
+
+    params = {k: torch.randn((d, c), generator=g, device="cuda") * 0.02 for k in st.PARAM_LEAVES}
+    rpb = torch.randn((d, NH, N, N), generator=g, device="cuda") * 0.02
+    mask = torch.from_numpy(shift_attn_mask(h, w, WS, WS // 2)).cuda()
+    dpm = (torch.rand((d, 2, b), generator=g, device="cuda") < 0.9).float() / 0.9
+    print(f"probe kernel checks: x {PROBE_SHAPE}, D={d} (exact: |d| = 0)")
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        x = (torch.randn(PROBE_SHAPE, generator=g, device="cuda") * 8).to(dtype)
+        size = float(x.numel() * x.element_size())
+        for blocks in PROBE_BLOCKS:
+            for add in (True, False):
+                exact(f"copy_probe[{dt} {blocks} blocks add={add}]",
+                      [lp.copy_probe(x, blocks=blocks, add=add)], [lp._torch_copy_probe(x, add)])
+            record("copy_probe", f"{dt} {blocks} blocks", lambda: lp.copy_probe(x, blocks=blocks),
+                   lambda: lp._torch_copy_probe(x), lambda: torch.add(x, 1.0), 2.0 * size)
+        for tag, flags, outs in (("v_e", None, 0), ("v_a", {}, 0), ("v_b", {"outputs": True}, 2),
+                                 ("v_d", {"outputs": True, "body": True}, 2),
+                                 ("v_g", {"outputs": True, "body": True, "dpm_reads": True}, 2)):
+            if flags is None:
+                def run():
+                    return lp.trunk_skeleton(x)
+
+                def plain():
+                    return lp._torch_trunk_skeleton(x, None, 0, False, False, False)
+            else:
+                def run(flags=flags):
+                    return lp.trunk_skeleton(x, params, rpb, mask, dpm, **flags)
+
+                def plain(flags=flags):
+                    return lp._torch_trunk_skeleton(x, dpm, d, flags.get("outputs", False),
+                                                    flags.get("body", False),
+                                                    flags.get("dpm_reads", False))
+            got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            want = [t for t in plain() if t is not None]
+            exact(f"trunk_skeleton[{dt} {tag}]", got, want)
+            record("trunk_skeleton", f"{dt} {tag}", run, plain, None,
+                   (2.0 + outs * d) * size + (dpm.numel() * 4.0 if tag == "v_g" else 0.0))
+        del x
+    return rows
+
+
+def probe_phase() -> dict:
+    """The probes' own path (``sei_tpu_torch.probes``): K8 and K9 chains,
+    eager and captured, and the real trunk as the control; returns the K8/K9
+    launch counts over it and the measurements."""
+    from sei_tpu_torch import probes
+    from sei_tpu_torch.ops import launch_probe as lp
+
+    lp.reset_launch_counts()
+    out = {"copy": probes.copy_probes(), "skeleton": probes.skeleton_probes()}
+    counts = lp.launch_counts()
+    out["trunk"] = probes.trunk_control()
+    print(f"  probe launch counts {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"{name} was not launched on the probe path")
+    return counts
+
+
 def make_images(n: int, h: int, w: int, seed: int):
     """Dead-leaves-like test images: coloured discs over a flat background."""
     import numpy as np
@@ -631,10 +767,12 @@ def profile_forward(model, y) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def profile_step(step_fn, label: str) -> None:
+def profile_step(step_fn, label: str) -> tuple[float, float]:
     """Device time by kernel over one call of ``step_fn`` (torch.profiler /
     CUPTI), and the device's busy share: kernel time over the host-clock
-    wall time of an unprofiled call."""
+    wall time of an unprofiled call.  Returns (wall ms, device ms); where
+    the profiler sees no kernel (a graph replay it cannot trace), the device
+    span of one call by CUDA events stands in."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -650,11 +788,42 @@ def profile_step(step_fn, label: str) -> None:
     events = device_events(prof)
     total = sum(e.self_device_time_total for e in events) / 1e3
     if total <= 0.0:
-        fail("profiler recorded no device time")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_fn()
+        end.record()
+        end.synchronize()
+        total = start.elapsed_time(end)
+        print(f"  profile: {label} {wall_ms:.2f} ms wall (unprofiled); the profiler saw no "
+              f"kernel; CUDA events: {total:.2f} ms device span (busy share "
+              f"{total / wall_ms:.3f})")
+        return wall_ms, total
     print(f"  profile: {label} {wall_ms:.2f} ms wall (unprofiled), {total:.2f} ms of "
           f"device kernels (busy share {total / wall_ms:.3f})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return wall_ms, total
+
+
+def timed_dispatches(trainer, n: int = TIMED_DISPATCHES) -> float:
+    """Steady ms per training step: the host clock over ``n`` dispatches
+    issued back to back, ending in one synchronize."""
+    import torch
+
+    trainer.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (n * trainer.scan_steps)
+
+
+def train_state(trainer) -> list:
+    """Copies of what a step updates: params, Adam state, step counter."""
+    opt = [v for s_ in trainer.opt.state.values() for v in s_.values()]
+    return [t.detach().clone() for t in (*trainer.model.module.parameters(), *opt,
+                                         trainer.step_t)]
 
 
 def proposed_draws(trainer, physics, seed: int):
@@ -679,10 +848,12 @@ def proposed_draws(trainer, physics, seed: int):
     return x, y, draws
 
 
-def train_path(dtype=None) -> tuple[dict, object]:
-    """The proposed training path on the card, with SwinIR's compute dtype
-    ``dtype`` (None: f32; bfloat16: the JAX package's training recipe);
-    returns the kernels' launch counts over the run and the trainer."""
+def train_path(dtype=None) -> tuple[dict, object, dict]:
+    """The proposed training path on the card, eagerly (one launch at a
+    time, ``capture=False``), with SwinIR's compute dtype ``dtype`` (None:
+    f32; bfloat16: the JAX package's training recipe); returns the kernels'
+    launch counts over the run, the trainer, and the run's per-step losses,
+    final state and timings (what the captured runs are held against)."""
     import numpy as np
     import torch
 
@@ -705,7 +876,7 @@ def train_path(dtype=None) -> tuple[dict, object]:
     cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
     loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP)
     trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
-                      crop_size=DATA_CROP, seed=0)
+                      crop_size=DATA_CROP, seed=0, capture=False)
     torch.cuda.synchronize()
     print(f"  set-up {time.perf_counter() - t0:.2f} s; {trainer.steps_per_epoch} steps/epoch")
     before = {k: v.clone() for k, v in model.module.state_dict().items()}
@@ -750,6 +921,11 @@ def train_path(dtype=None) -> tuple[dict, object]:
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
           f"all {moved} parameter tensors moved; params and Adam state f32; "
           f"epoch losses {stats['epoch_losses']}")
+    eager = {"losses": losses, "state": train_state(trainer),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    eager["steady_ms"] = timed_dispatches(trainer)
+    print(f"  eager steady step {eager['steady_ms']:.2f} ms ({TIMED_DISPATCHES} dispatches "
+          f"back to back, one sync)")
 
     if dtype is None:
         # one step's gradients: kernel path against the plain path, same draws
@@ -773,8 +949,80 @@ def train_path(dtype=None) -> tuple[dict, object]:
             fail("kernel-path gradients disagree with the plain path")
         del grads
     model.module.zero_grad(set_to_none=True)
-    profile_step(trainer.step, f"one {label} training step")
-    return counts, trainer
+    eager["wall_ms"], eager["device_ms"] = profile_step(trainer.step, f"one {label} training step")
+    return counts, trainer, eager
+
+
+def captured_train(dtype, scan_steps: int, eager: dict) -> dict:
+    """The training path as ``Trainer`` runs it by default on CUDA: one CUDA
+    graph per dispatch of ``scan_steps`` steps, from the eager run's seed-0
+    weights and streams and for as many steps.  Each step's loss, the final
+    parameters and Adam state must equal the eager run's bit for bit (the
+    same kernels in the same order on the same draws); the trunk kernels
+    captured must be the design's per step.  Returns the kernels' launch
+    counts over the run (one eager warm-up dispatch and the capture: the
+    wrappers count where they launch, and a replay calls no wrapper)."""
+    import torch
+
+    from sei_tpu_torch.data import build_device_cache
+    from sei_tpu_torch.losses import get_loss
+    from sei_tpu_torch.models import get_model
+    from sei_tpu_torch.ops import swin_trunk as st
+    from sei_tpu_torch.physics import get_physics
+    from sei_tpu_torch.train import Trainer
+
+    label = "bf16" if dtype is not None else "f32"
+    per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
+    print(f"captured training ({label}, scan_steps {scan_steps}): the same run as one CUDA "
+          f"graph per dispatch")
+    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0,
+                      dtype=dtype)
+    physics = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
+    cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
+    loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP)
+    trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
+                      crop_size=DATA_CROP, seed=0, scan_steps=scan_steps)
+    if not trainer.graphed or trainer.scan_steps != scan_steps:
+        fail(f"{label}: Trainer did not take the captured path at scan_steps {scan_steps}")
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = trainer.train(log_every_epoch=False, on_step=lambda s_, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = st.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    want = {k: v * BLOCKS * len(TRAIN_GRAPHS) * scan_steps for k, v in per_block.items()}
+    print(f"  {stats['steps']} steps in {trainer.replays} replays, {seconds:.2f} s with the "
+          f"warm-up and the capture; launches captured {trainer.capture_launches}; "
+          f"peak memory {peak:.3f} GiB (eager {eager['peak_gib']:.3f})")
+    if trainer.replays * scan_steps != stats["steps"]:
+        fail(f"{label}: {trainer.replays} replays for {stats['steps']} steps at scan_steps "
+             f"{scan_steps}")
+    if trainer.capture_launches != want:
+        fail(f"{label} scan_steps {scan_steps}: captured launches {trainer.capture_launches}, "
+             f"expected {want}")
+    if counts != {k: 2 * v for k, v in want.items()}:
+        fail(f"{label}: launches over the warm-up and the capture {counts}, expected twice {want}")
+    got = train_state(trainer)
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, eager["state"])]
+    unequal = sum(not torch.equal(a, b) for a, b in zip(got, eager["state"]))
+    print(f"  losses {losses}; eager {eager['losses']}; state tensors unequal to the eager "
+          f"run's: {unequal} of {len(got)} (max |diff| {max(diffs):.3e})")
+    if losses != eager["losses"] or unequal or len(got) != len(eager["state"]):
+        fail(f"{label} scan_steps {scan_steps}: the captured run differs from the eager run")
+    steady = timed_dispatches(trainer)
+    wall, device = profile_step(trainer.step, f"one replayed {label} dispatch "
+                                              f"({scan_steps} steps)")
+    print(f"  steady step {steady:.2f} ms captured vs {eager['steady_ms']:.2f} ms eager "
+          f"({TIMED_DISPATCHES} dispatches back to back); one dispatch {wall / scan_steps:.2f} "
+          f"ms wall and {device / scan_steps:.2f} ms device per step (busy "
+          f"{device / wall:.3f}) vs eager {eager['wall_ms']:.2f} / {eager['device_ms']:.2f} ms "
+          f"(busy {eager['device_ms'] / eager['wall_ms']:.3f})")
+    return counts
 
 
 def bf16_trunk_grads() -> None:
@@ -918,6 +1166,15 @@ SOURCES = {
     "gemm_dgrad": ("sei_tpu_torch/ops/csrc/gemm_bwd.cu", "sei_tpu/ops/swin_trunk.py:979"),
     "gemm_wgrad": ("sei_tpu_torch/ops/csrc/gemm_bwd.cu", "sei_tpu/ops/swin_trunk.py:979"),
 }
+# K8 and K9: the launch-overhead probes; their JSON entries are those of the
+# probes' main configuration (bf16 as the TPU probes ran; the copy on all
+# 132 SMs, the skeleton with the staged body v_d), every variant listed
+SOURCES_PROBES = {
+    "copy_probe": ("sei_tpu_torch/ops/csrc/launch_probe.cu", "experiments/perf_probe_r3q.py:52",
+                   "bf16 1056 blocks"),
+    "trunk_skeleton": ("sei_tpu_torch/ops/csrc/launch_probe.cu",
+                       "experiments/perf_probe_r3s.py:136", "bf16 v_d"),
+}
 # the bf16 instantiations replace the trunk kernel's mode "full" forward (K5)
 # and saved-tensor backward (K7), attention included
 SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
@@ -952,17 +1209,43 @@ def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak:
     return out
 
 
-def kernel_line(rows: dict, rows_bf16: dict, eval_counts: dict, train_counts: dict,
-                bf16_counts: dict) -> dict:
+def probe_entries(rows: dict, counts: dict) -> list:
+    out = []
+    for name, (source, replaces, main) in SOURCES_PROBES.items():
+        r = next(v for v in rows[name] if v["variant"] == main)
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": counts[name], "variant": main,
+                    "max_abs_err": max(v["max_abs_err"] for v in rows[name]),
+                    **{k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms")},
+                    "variants": [{k: v.get(k) for k in ("variant", "max_abs_err", "ms", "plain_ms",
+                                                        "bound_ms", "bound_by", "library_ms")}
+                                 for v in rows[name]]})
+    return out
+
+
+def kernel_line(rows: dict, rows_bf16: dict, rows_probe: dict, eval_counts: dict,
+                train_counts: dict, bf16_counts: dict, probe_counts: dict,
+                captured: dict) -> dict:
     """The f32 kernels (eval shapes for the forward kernels, the 2B training
-    graph for the backward kernels; launches over the eval and f32 training
-    paths) and their bf16 instantiations (the 2B graph; launches over the
-    bf16 training path), bounds at the FP32 and the bf16 peak."""
+    graph for the backward kernels; launches over the eval and eager f32
+    training paths) and their bf16 instantiations (the 2B graph; launches
+    over the eager bf16 training path), bounds at the FP32 and the bf16
+    peak; ``launches_captured``: their launches over the captured runs (one
+    eager warm-up dispatch and the capture each).  Then K8 and K9, launches
+    over the probe path."""
     f32 = kernel_entries(rows, SOURCES, {k: eval_counts[k] + train_counts[k] for k in SOURCES},
                          "", PEAK_FP32_FLOPS,
-                         {"launches_eval": eval_counts, "launches_train": train_counts})
-    bf16 = kernel_entries(rows_bf16, SOURCES_BF16, bf16_counts, "[bf16]", PEAK_BF16_FLOPS, {})
-    return {"kernels": f32 + bf16}
+                         {"launches_eval": eval_counts, "launches_train": train_counts,
+                          "launches_captured": captured["f32"]})
+    bf16 = kernel_entries(rows_bf16, SOURCES_BF16, bf16_counts, "[bf16]", PEAK_BF16_FLOPS,
+                          {"launches_captured": captured["bf16"]})
+    return {"kernels": f32 + bf16 + probe_entries(rows_probe, probe_counts)}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
 
 
 def main(argv: list[str]) -> int:
@@ -990,16 +1273,27 @@ def main(argv: list[str]) -> int:
     for name, variants in check_train_kernels(timed=not quick).items():
         rows.setdefault(name, []).extend(variants)
     rows_bf16 = check_bf16_kernels(timed=not quick)
+    rows_probe = check_probe_kernels(timed=not quick)
     if quick:
         print("quick: kernel checks passed")
         return 0
     eval_counts = main_path()
-    train_counts, _ = train_path()
-    bf16_counts, trainer = train_path(torch.bfloat16)
+    captured = {}
+    train_counts, trainer, eager = train_path()
+    del trainer
+    for scan_steps in SCAN_STEPS:
+        add_counts(captured.setdefault("f32", {}), captured_train(None, scan_steps, eager))
+    bf16_counts, trainer, eager = train_path(torch.bfloat16)
+    for scan_steps in SCAN_STEPS:
+        add_counts(captured.setdefault("bf16", {}), captured_train(torch.bfloat16, scan_steps,
+                                                                  eager))
+    del eager
     bf16_trunk_grads()
     bf16_loss_vs_f32(trainer)
     del trainer
-    print(json.dumps(kernel_line(rows, rows_bf16, eval_counts, train_counts, bf16_counts)))
+    probe_counts = probe_phase()
+    print(json.dumps(kernel_line(rows, rows_bf16, rows_probe, eval_counts, train_counts,
+                                 bf16_counts, probe_counts, captured)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

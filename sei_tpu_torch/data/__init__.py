@@ -25,8 +25,9 @@ class DeviceDataCache:
     """The dataset as padded device tensors.
 
     x: (N, C, Hmax, Wmax) clean images, zero-padded bottom/right; y: the
-    measurements, same shape; heights/widths: each image's true size (host,
-    for the crop ranges); ids: per-image seed ids.
+    measurements, same shape; heights/widths: each image's true size (on
+    the device, where the crop ranges are drawn); ids: per-image seed ids
+    (host).
     """
 
     x: torch.Tensor
@@ -60,8 +61,8 @@ def build_device_cache(images: Sequence[np.ndarray], physics, *, seed: int = 0,
     x_dev = torch.from_numpy(x).to(dev)
     y_dev = torch.cat([physics.randomly_degrade(x_dev[i:i + 1], image_seed(seed, ids[i]))
                        for i in range(len(images))])
-    return DeviceDataCache(x=x_dev, y=y_dev, heights=torch.tensor(hs), widths=torch.tensor(ws),
-                           ids=torch.tensor(ids))
+    return DeviceDataCache(x=x_dev, y=y_dev, heights=torch.tensor(hs, device=dev),
+                           widths=torch.tensor(ws, device=dev), ids=torch.tensor(ids))
 
 
 def epoch_indices(perm: torch.Tensor, step_in_epoch: int, batch_size: int) -> torch.Tensor:
@@ -74,15 +75,17 @@ def epoch_indices(perm: torch.Tensor, step_in_epoch: int, batch_size: int) -> to
 def sample_train_batch(cache: DeviceDataCache, idx: torch.Tensor, *, crop_size: int = 256,
                        generator: Optional[torch.Generator] = None,
                        offsets: Optional[torch.Tensor] = None):
-    """(x, y) crops of the images ``idx`` (host LongTensor): MinSizePadding
-    to ``crop_size``, then an aligned ``crop_size`` crop per image inside its
-    true region, at ``offsets`` (B, 2) or offsets drawn from ``generator``."""
-    idx = torch.as_tensor(idx, dtype=torch.int64)
+    """(x, y) crops of the images ``idx`` (an int64 tensor, best on the
+    cache's device: the trainer's static index buffer): MinSizePadding to
+    ``crop_size``, then an aligned ``crop_size`` crop per image inside its
+    true region, at ``offsets`` (B, 2) or offsets drawn from ``generator``
+    (the crop stream, on the cache's device).  On the device throughout: a
+    CUDA graph of the step holds it."""
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=cache.x.device)
     if offsets is None:
         offsets = crop_offsets(generator, cache.heights[idx], cache.widths[idx], crop_size)
-    dev_idx = idx.to(cache.x.device)
-    x = pad_min_size(cache.x[dev_idx], crop_size, crop_size)
-    y = pad_min_size(cache.y[dev_idx], crop_size, crop_size)
+    x = pad_min_size(cache.x[idx], crop_size, crop_size)
+    y = pad_min_size(cache.y[idx], crop_size, crop_size)
     return crop_pair_batch(x, y, size=crop_size, offsets=offsets)
 
 

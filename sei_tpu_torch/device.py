@@ -4,6 +4,11 @@
 CUDA is asked for and absent, the call raises.  The evaluation is full f32
 (the JAX reference runs it at HIGHEST precision), so TF32 is switched off for
 both cuBLAS matmuls and cuDNN convolutions whenever a CUDA device is chosen.
+cuDNN is also held to its deterministic algorithms: by default its f32
+convolution backward sums in an order that changes from run to run (on the
+H100 two identical f32 training steps then differ in the last bits of every
+gradient), while the port's own kernels sum in a fixed order, so with it a
+training run repeats bit for bit, eager or as a captured CUDA graph.
 :func:`require_cuda` is the kernel wrappers' check of what they launch on.
 """
 
@@ -21,7 +26,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
     Raises ``RuntimeError`` when a CUDA device is requested and none is
     available.  Choosing CUDA also pins f32 matmuls and convolutions to full
-    f32 (no TF32).
+    f32 (no TF32) and cuDNN to its deterministic algorithms.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -32,6 +37,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
     elif dev.type != "cpu":
         raise ValueError(f"sei_tpu_torch: unsupported device {dev}")
     return dev

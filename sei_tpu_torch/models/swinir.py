@@ -238,6 +238,10 @@ class RSTB(nn.Module):
         self.window_size = window_size
         self.fused_trunk = fused_trunk
         self.drop_paths = tuple(drop_paths)
+        # the keep probabilities on the module's device, so a training
+        # forward copies nothing from the host (a CUDA graph holds it)
+        self.register_buffer("keep_probs", 1.0 - torch.tensor(self.drop_paths),
+                             persistent=False)
         self.residual_group = _ResidualGroup(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
@@ -270,7 +274,7 @@ class RSTB(nn.Module):
         d = len(self.drop_paths)
         if not self.training or max(self.drop_paths) == 0.0:
             return torch.ones((d, 2, b), device=device)
-        keep = (1.0 - torch.tensor(self.drop_paths, device=device))[:, None, None]
+        keep = self.keep_probs.to(device)[:, None, None]
         u = _uniform((d, 2, b), _need_generator(generator), device)
         return (u < keep).float() / keep
 
@@ -333,7 +337,7 @@ class SwinIR(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
         self.conv_after_body = Conv3x3(embed_dim, embed_dim, dtype)
         self.conv_last = Conv3x3(embed_dim, 3, dtype)
-        self._mask = (None, None)  # (key, tensor) of the last image size
+        self._masks = {}  # (h, w, device) -> shift mask tensor
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -356,10 +360,13 @@ class SwinIR(nn.Module):
         ws = self.window_size
         if min(h, w) <= ws:
             return None
+        # one entry per image size, each filled by the first forward at that
+        # size (the trainer's eager warm-up, before it captures the step: the
+        # host-to-device copy here cannot run inside a CUDA graph)
         key = (h, w, str(device))
-        if self._mask[0] != key:
-            self._mask = (key, torch.from_numpy(shift_attn_mask(h, w, ws, ws // 2)).to(device))
-        return self._mask[1]
+        if key not in self._masks:
+            self._masks[key] = torch.from_numpy(shift_attn_mask(h, w, ws, ws // 2)).to(device)
+        return self._masks[key]
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

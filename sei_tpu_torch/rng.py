@@ -5,6 +5,12 @@ The port keeps one generator per stream instead, each seeded from the run's
 seed, so a stream's draws do not move when another stream draws more or
 less.  The two packages give different numbers from the same seed; the
 golden tests hand both the same draws.
+
+Every stream but ``batch`` lives on the training device, so a step draws its
+crops, probe, scaling parameters and drop-path masks there, as the JAX
+package draws them inside its jitted step.  A CUDA graph of the step
+registers each device stream (:meth:`Streams.device_generators`), so each
+replay draws new numbers from where the stream stands.
 """
 
 from __future__ import annotations
@@ -18,10 +24,10 @@ _STREAMS = ("batch", "crop", "probe", "transform", "dropout")
 
 @dataclasses.dataclass
 class Streams:
-    """batch: the per-epoch image permutation (host); crop: dataset and loss
-    crop offsets (host, so slicing needs no device sync); probe: the SURE
-    probe, transform: the scaling rates and centers, dropout: drop-path
-    keep masks (all three on the training device)."""
+    """batch: the per-epoch image permutation (host); on the training
+    device: crop, the dataset and loss crop offsets; probe, the SURE probe;
+    transform, the scaling rates and centers; dropout, the drop-path keep
+    masks."""
 
     batch: torch.Generator
     crop: torch.Generator
@@ -29,11 +35,23 @@ class Streams:
     transform: torch.Generator
     dropout: torch.Generator
 
+    def device_generators(self) -> list:
+        """The streams a training step draws from on the device."""
+        return [getattr(self, name) for name in _STREAMS if name != "batch"]
+
+    def get_state(self) -> dict:
+        """Each stream's state (CPU byte tensors), for a checkpoint."""
+        return {name: getattr(self, name).get_state() for name in _STREAMS}
+
+    def set_state(self, state: dict) -> None:
+        for name in _STREAMS:
+            getattr(self, name).set_state(state[name])
+
 
 def make_streams(seed: int, device) -> Streams:
     device = torch.device(device)
     gens = {}
     for i, name in enumerate(_STREAMS):
-        dev = "cpu" if name in ("batch", "crop") else device
+        dev = "cpu" if name == "batch" else device
         gens[name] = torch.Generator(device=dev).manual_seed(seed * len(_STREAMS) + i)
     return Streams(**gens)

@@ -6,9 +6,17 @@ fine-tuning; ``multi_step_decay`` (x0.5 at 50/80/90/95% of the epochs) and
 ``delayed_linear_decay`` (constant for epochs/2, then linear to 1e-2 of the
 base LR).  The reference steps its schedules once per epoch; they are
 expressed here per optimizer step with ``steps_per_epoch``, as in the JAX
-package.  Adam is the stock ``torch.optim.Adam``: the JAX package left its
-elementwise update to XLA (optax), outside any Pallas kernel.  The
-``trainable_mask`` of fine-tuning is not ported yet (ROADMAP, Queue 1).
+package.  Each schedule has two forms: a float function of the step (the
+tests' comparisons) and a tensor function of a device step counter, the
+counterpart of optax reading ``state.step`` inside the jitted step, so the
+trainer's captured step computes its own LR on the device.  The tensor form
+works in f64 in the float form's operation order and rounds once to f32, so
+it equals the float form rounded to f32.  Adam is the stock
+``torch.optim.Adam`` with a tensor LR, ``capturable`` on a CUDA device (its
+step count and bias corrections on the device, updated inside a CUDA
+graph): the JAX package left its elementwise update to XLA (optax), outside
+any Pallas kernel.  The ``trainable_mask`` of fine-tuning is not ported yet
+(ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Callable, Iterable
 import torch
 
 Schedule = Callable[[int], float]
+TensorSchedule = Callable[[torch.Tensor], torch.Tensor]  # int64 step -> f32 LR
+F64 = torch.float64
 
 
 def multi_step_decay(lr: float, epochs: int, steps_per_epoch: int) -> Schedule:
@@ -41,6 +51,30 @@ def delayed_linear_decay(lr: float, epochs: int, steps_per_epoch: int) -> Schedu
     return schedule
 
 
+def multi_step_decay_tensor(lr: float, epochs: int, steps_per_epoch: int) -> TensorSchedule:
+    milestones = {epochs * p // 100 for p in (50, 80, 90, 95)}
+    bounds = sorted(m * steps_per_epoch for m in milestones)
+
+    def schedule(step: torch.Tensor) -> torch.Tensor:
+        scale = torch.ones((), dtype=F64, device=step.device)
+        for b in bounds:
+            scale = torch.where(step >= b, scale * 0.5, scale)
+        return (lr * scale).float()
+
+    return schedule
+
+
+def delayed_linear_decay_tensor(lr: float, epochs: int, steps_per_epoch: int) -> TensorSchedule:
+    half = epochs // 2
+    total = max(epochs // 2 - 1, 1)
+
+    def schedule(step: torch.Tensor) -> torch.Tensor:
+        decayed = (torch.div(step, steps_per_epoch, rounding_mode="floor") - half).clamp(0, total)
+        return (lr * (1.0 - 0.99 * decayed.to(F64) / total)).float()
+
+    return schedule
+
+
 def get_lr_schedule(kind, lr: float, epochs: int, steps_per_epoch: int) -> Schedule:
     if kind == "multi_step_decay":
         return multi_step_decay(lr, epochs, steps_per_epoch)
@@ -51,17 +85,30 @@ def get_lr_schedule(kind, lr: float, epochs: int, steps_per_epoch: int) -> Sched
     raise ValueError(f"Unknown lr scheduler: {kind}")
 
 
-def get_optimizer(params: Iterable[torch.Tensor], *, kind: str = "Adam", lr: float,
-                  beta2: float = 0.999) -> torch.optim.Optimizer:
-    """Adam (betas (0.9, beta2), eps 1e-8, as optax.adam) or plain SGD; the
-    trainer sets each step's LR from the schedule."""
+def get_lr_schedule_tensor(kind, lr: float, epochs: int, steps_per_epoch: int) -> TensorSchedule:
+    """The schedule ``kind`` as a tensor function: an int64 step counter (a
+    0-d tensor on any device) -> the f32 LR on that device, with no host
+    round trip."""
+    if kind == "multi_step_decay":
+        return multi_step_decay_tensor(lr, epochs, steps_per_epoch)
+    if kind == "delayed_linear_decay":
+        return delayed_linear_decay_tensor(lr, epochs, steps_per_epoch)
+    if kind in (None, "none", "constant"):
+        return lambda step: torch.full((), lr, dtype=torch.float32, device=step.device)
+    raise ValueError(f"Unknown lr scheduler: {kind}")
+
+
+def get_optimizer(params: Iterable[torch.Tensor], *, kind: str = "Adam", lr,
+                  beta2: float = 0.999, capturable: bool = False) -> torch.optim.Optimizer:
+    """Adam (betas (0.9, beta2), eps 1e-8, as optax.adam) or plain SGD.
+    ``lr`` is a float or a 1-element f32 tensor that the trainer rewrites
+    each step; ``capturable`` (Adam on a CUDA device) keeps Adam's step
+    count on the device, so a CUDA graph can hold the update.  SGD reads a
+    tensor LR on the host, so it cannot be captured."""
     if kind == "Adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, beta2), eps=1e-8)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, beta2), eps=1e-8,
+                                capturable=capturable)
     if kind == "SGD":
         return torch.optim.SGD(params, lr=lr)
     raise ValueError(f"Unknown optimizer: {kind}")
 
-
-def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
-    for group in opt.param_groups:
-        group["lr"] = lr

@@ -4,23 +4,38 @@ One step: the step's images (a slice of the epoch's permutation), their
 aligned dataset crop from the device cache, the loss with its model
 evaluations (for ``proposed``: the 2B SURE forward and the EI forward, each
 through the trunk kernels), ``backward`` (the trunk and attention backward
-kernels), and Adam at the step's scheduled LR.  Epoch bookkeeping follows
-the reference: ``len(dataset) // batch`` steps per epoch, the epoch's mean
-loss to stdout and ``training.csv``, ``torch.save`` checkpoints at epoch 0,
-every ``checkpoint_interval`` epochs and after the last.
+kernels), Adam at the step's scheduled LR, and the step counter + 1.  Epoch
+bookkeeping follows the reference: ``len(dataset) // batch`` steps per
+epoch, the epoch's mean loss to stdout and ``training.csv``, ``torch.save``
+checkpoints at epoch 0, every ``checkpoint_interval`` epochs and after the
+last; :meth:`Trainer.load_checkpoint` resumes from one.
+
+**One dispatch per ``scan_steps`` steps** (the counterpart of the JAX
+package's one jitted, scanned step, :291-347).  On a CUDA device the
+trainer warms up eagerly on a side stream (building the kernels, cuFFT
+plans, cuDNN choices and the shift-mask cache, and Adam's state), undoes
+the warm-up, and captures ``scan_steps`` whole steps into one CUDA graph;
+each dispatch is then a copy of the steps' image indices into a static
+device buffer (from pinned host memory) and one ``graph.replay()``.  The
+step's random draws come from the trainer's device generators, registered
+with the graph, so every replay draws new numbers; its LR comes from a
+tensor schedule of a device step counter; Adam is ``capturable``.
+``capture=False``, or a CPU device, runs the same steps eagerly, one launch
+at a time (what per-kernel profiling needs).  A capture that fails raises;
+nothing falls back.
 
 Randomness comes from the trainer's own generators (:mod:`sei_tpu_torch.rng`):
-permutation, crops, SURE probe, scaling parameters and drop-path each draw
-from their own stream.  Not ported yet (ROADMAP, Queue 1): multi-GPU (DDP),
-several steps per dispatch and a CUDA graph of the step, resume,
-``eval_interval`` / ``ckp_best``, ``trainable_mask`` fine-tuning and the
-weights-distance term.
+permutation (host), crops, SURE probe, scaling parameters and drop-path
+(device) each draw from their own stream.  Not ported yet (ROADMAP, Queue
+1): multi-GPU (DDP), ``eval_interval`` / ``ckp_best``, ``trainable_mask``
+fine-tuning and the weights-distance term.
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import math
 import os
 import time
 from datetime import datetime
@@ -29,13 +44,15 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..data import DeviceDataCache, epoch_indices, sample_train_batch
+from ..ops.swin_trunk import launch_counts
 from ..rng import Streams, make_streams
-from .optim import get_lr_schedule, get_optimizer, set_lr
+from .optim import get_lr_schedule_tensor, get_optimizer
 
 
 @dataclasses.dataclass
 class Trainer:
-    """Owns the optimizer, the random streams and the epoch loop."""
+    """Owns the optimizer, the random streams, the step's CUDA graph and the
+    epoch loop."""
 
     model: Any  # sei_tpu_torch.models.Model
     loss_fn: Callable  # loss(x, y, model, rng=None, draws=None) -> scalar
@@ -51,65 +68,171 @@ class Trainer:
     out_dir: Optional[str] = None
     checkpoint_interval: int = 50
     seed: int = 0
+    scan_steps: int = 1  # steps per dispatch
+    capture: bool = True  # one CUDA graph per dispatch (CUDA devices only)
+    start_epoch: int = 0
 
     def __post_init__(self):
+        dev = self.model.device
         self.steps_per_epoch = max(len(self.cache) // self.batch_size, 1)
-        self.schedule = get_lr_schedule(self.lr_scheduler_kind, self.lr, self.epochs,
-                                        self.steps_per_epoch)
+        if self.scan_steps < 1:
+            raise ValueError(f"scan_steps must be >= 1, got {self.scan_steps}")
+        # an epoch is a whole number of dispatches (the JAX trainer's rule, :195-198)
+        self.scan_steps = math.gcd(self.scan_steps, self.steps_per_epoch)
+        self.graphed = self.capture and dev.type == "cuda"
+        if self.graphed and self.optimizer != "Adam":
+            raise ValueError(f"capture needs Adam (capturable); {self.optimizer} reads its LR "
+                             "on the host: pass capture=False")
+        self.lr_schedule = get_lr_schedule_tensor(self.lr_scheduler_kind, self.lr,
+                                                  self.epochs, self.steps_per_epoch)
+        self.step_t = torch.zeros((), dtype=torch.int64, device=dev)  # what the LR reads
+        self.lr_t = self.lr_schedule(self.step_t)
         self.opt = get_optimizer(self.model.module.parameters(), kind=self.optimizer,
-                                 lr=self.schedule(0), beta2=self.beta2)
-        self.streams: Streams = make_streams(self.seed, self.model.device)
+                                 lr=self.lr_t, beta2=self.beta2, capturable=dev.type == "cuda")
+        self.streams: Streams = make_streams(self.seed, dev)
         self.step_count = 0
         self._perm = None
+        shape = (self.scan_steps, self.batch_size)
+        self._idx = torch.zeros(shape, dtype=torch.int64, device=dev)
+        self._idx_host = torch.zeros(shape, dtype=torch.int64, pin_memory=dev.type == "cuda")
+        self._idx_copied = torch.cuda.Event() if dev.type == "cuda" else None
+        self._losses = torch.zeros(self.scan_steps, device=dev)
+        self._graph = None
+        self.replays = 0
+        self.capture_launches: Optional[dict] = None  # trunk kernel launches in the graph
 
     def apply(self, y: torch.Tensor) -> torch.Tensor:
         """The model as the loss calls it: training mode, drop-path from the
         dropout stream."""
         return self.model.module(y, generator=self.streams.dropout)
 
-    def batch(self, step: int):
-        """(x, y) of a global step: a new permutation at each epoch start."""
+    def indices(self, step: int) -> torch.Tensor:
+        """The images of a global step (host): a new permutation from the
+        batch stream at each epoch start."""
         step_in_epoch = step % self.steps_per_epoch
         if self._perm is None or step_in_epoch == 0:
             self._perm = torch.randperm(len(self.cache), generator=self.streams.batch)
-        idx = epoch_indices(self._perm, step_in_epoch, self.batch_size)
-        return sample_train_batch(self.cache, idx, crop_size=self.crop_size,
+        return epoch_indices(self._perm, step_in_epoch, self.batch_size)
+
+    def batch(self, step: int):
+        """(x, y) of a global step, crops drawn from the crop stream."""
+        return sample_train_batch(self.cache, self.indices(step), crop_size=self.crop_size,
                                   generator=self.streams.crop)
 
-    def step(self) -> torch.Tensor:
-        """One optimizer step; returns the loss (a device scalar, no sync)."""
-        module = self.model.module
-        module.train()
-        x, y = self.batch(self.step_count)
-        set_lr(self.opt, self.schedule(self.step_count))
+    def _one_step(self, i: int) -> None:
+        """Inner step ``i`` of a dispatch, all on the device: what the graph
+        holds."""
+        x, y = sample_train_batch(self.cache, self._idx[i], crop_size=self.crop_size,
+                                  generator=self.streams.crop)
+        self.lr_t.copy_(self.lr_schedule(self.step_t))
         self.opt.zero_grad(set_to_none=True)
         loss = self.loss_fn(x, y, self.apply, self.streams)
         loss.backward()
         self.opt.step()
-        self.step_count += 1
-        return loss.detach()
+        self.step_t += 1
+        self._losses[i].copy_(loss.detach())
+
+    def _load_indices(self) -> None:
+        """The next dispatch's image indices into the static device buffer."""
+        if self._idx_copied is not None:
+            self._idx_copied.synchronize()  # the previous copy has read the pinned buffer
+        for i in range(self.scan_steps):
+            self._idx_host[i] = self.indices(self.step_count + i)
+        self._idx.copy_(self._idx_host, non_blocking=True)
+        if self._idx_copied is not None:
+            self._idx_copied.record()
+
+    def _state_tensors(self) -> list:
+        """Every tensor a step updates: params, Adam state, step counter, LR."""
+        opt_state = [v for s in self.opt.state.values() for v in s.values() if torch.is_tensor(v)]
+        return [*self.model.module.parameters(), *opt_state, self.step_t, self.lr_t]
+
+    def _warm_up(self) -> None:
+        """One eager dispatch on a side stream, then the trainer's state and
+        device streams put back as they were: the warm-up builds what a
+        capture cannot (kernels, cuFFT plans, cuDNN choices, the shift-mask
+        cache, Adam's state tensors) and counts as no training."""
+        fresh = not self.opt.state  # Adam makes its state at its first step
+        tensors = self._state_tensors()
+        with torch.no_grad():
+            saved = [t.clone() for t in tensors]
+        gens = self.streams.device_generators()
+        gen_states = [g.get_state() for g in gens]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(self.scan_steps):
+                self._one_step(i)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            if fresh:  # zero, as a first step would find it
+                for state in self.opt.state.values():
+                    for v in state.values():
+                        v.zero_()
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        for g, s in zip(gens, gen_states):
+            g.set_state(s)
+        torch.cuda.synchronize()
+
+    def _capture(self) -> None:
+        """Warm up, then capture ``scan_steps`` steps into one CUDA graph."""
+        self._warm_up()
+        graph = torch.cuda.CUDAGraph()
+        for g in self.streams.device_generators():
+            graph.register_generator_state(g)
+        self.opt.zero_grad(set_to_none=True)
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            for i in range(self.scan_steps):
+                self._one_step(i)
+        self.capture_launches = {k: v - before[k] for k, v in launch_counts().items()}
+        self._graph = graph
+
+    def step(self) -> torch.Tensor:
+        """One dispatch: ``scan_steps`` optimizer steps; returns their losses
+        (a (scan_steps,) device tensor, no sync)."""
+        self.model.module.train()
+        self._load_indices()
+        if self.graphed:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            self.replays += 1
+        else:
+            for i in range(self.scan_steps):
+                self._one_step(i)
+        self.step_count += self.scan_steps
+        return self._losses.clone()
 
     def train(self, *, log_every_epoch: bool = True,
               on_step: Optional[Callable[[int, torch.Tensor], None]] = None) -> dict:
-        """Run ``epochs`` epochs; returns wall time, images/s and the epoch
-        losses.  ``on_step(step, loss)`` is called after every step."""
+        """Run epochs ``start_epoch`` .. ``epochs - 1``; returns wall time,
+        images/s and the epoch losses.  ``on_step(step, loss)`` is called for
+        every step, after the dispatch that ran it."""
         writer = None
         if self.out_dir:
             os.makedirs(os.path.join(self.out_dir, "checkpoints"), exist_ok=True)
-            f = open(os.path.join(self.out_dir, "training.csv"), "w", newline="", buffering=1)
+            fresh = self.start_epoch == 0
+            f = open(os.path.join(self.out_dir, "training.csv"), "w" if fresh else "a",
+                     newline="", buffering=1)
             writer = csv.writer(f)
-            writer.writerow(["Epoch", "Training Loss"])
-            self.save_checkpoint(0, epoch=0)
+            if fresh:
+                writer.writerow(["Epoch", "Training Loss"])
+                self.save_checkpoint(0, epoch=0)
         t0 = time.perf_counter()
+        steps0 = self.step_count
         epoch_losses = []
-        for epoch in range(self.epochs):
+        for epoch in range(self.start_epoch, self.epochs):
             losses = []
-            for _ in range(self.steps_per_epoch):
-                loss = self.step()
-                losses.append(loss)
+            for _ in range(self.steps_per_epoch // self.scan_steps):
+                dispatch = self.step()
+                losses.append(dispatch)
                 if on_step is not None:
-                    on_step(self.step_count - 1, loss)
-            epoch_loss = float(torch.stack(losses).mean())
+                    first = self.step_count - self.scan_steps
+                    for i in range(self.scan_steps):
+                        on_step(first + i, dispatch[i])
+            epoch_loss = float(torch.cat(losses).mean())
             epoch_losses.append(epoch_loss)
             if log_every_epoch:
                 ts = datetime.now().strftime("%Y-%m-%d %H:%M:%S")
@@ -124,7 +247,7 @@ class Trainer:
             f.close()
         self.model.module.eval()
         dt = time.perf_counter() - t0
-        images = self.step_count * self.batch_size
+        images = (self.step_count - steps0) * self.batch_size
         return {"wall_time_s": dt, "images_per_sec": images / dt if dt > 0 else 0.0,
                 "steps": self.step_count, "epoch_losses": epoch_losses}
 
@@ -133,10 +256,34 @@ class Trainer:
         return os.path.join(self.out_dir, "checkpoints", f"ckp_{index:0{width}d}.pt")
 
     def save_checkpoint(self, index: int, *, epoch: int) -> str:
-        """``{"epoch", "params" (the state_dict), "optimizer"}``; loads back
-        through ``Model.load_weights``."""
+        """``{"epoch", "params" (the state_dict), "optimizer", "step",
+        "streams"}``; loads back through ``Model.load_weights`` and
+        :meth:`load_checkpoint`."""
         path = self.checkpoint_path(index)
-        torch.save({"epoch": epoch,
+        torch.save({"epoch": epoch, "step": self.step_count,
                     "params": {k: v.detach().cpu() for k, v in self.model.module.state_dict().items()},
-                    "optimizer": self.opt.state_dict()}, path)
+                    "optimizer": self.opt.state_dict(), "streams": self.streams.get_state()},
+                   path)
         return path
+
+    def load_checkpoint(self, path: str) -> dict:
+        """Resume (counterpart of ``sei_tpu/train/trainer.py:476-485``):
+        restore the params, Adam's state, the step counter and the random
+        streams, and start at the epoch after the checkpoint's last one, so
+        the resumed run continues the interrupted run exactly.  (The JAX
+        trainer restarts at the checkpoint's ``epoch`` entry, its last
+        epoch, and so repeats that epoch.)  A captured step is captured
+        again at the next dispatch."""
+        data = torch.load(path, map_location="cpu", weights_only=False)
+        self.model.load_weights(data)
+        self.opt.load_state_dict(data["optimizer"])
+        for group in self.opt.param_groups:
+            group["lr"] = self.lr_t  # load_state_dict put a copy there
+        self.step_count = int(data["step"])
+        self.step_t.fill_(self.step_count)
+        self.lr_t.copy_(self.lr_schedule(self.step_t))
+        self.streams.set_state(data["streams"])
+        self.start_epoch = self.step_count // self.steps_per_epoch
+        self._perm = None
+        self._graph = None
+        return data

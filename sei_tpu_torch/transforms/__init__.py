@@ -36,12 +36,15 @@ class ScalingTransform:
     def sample_params(self, generator: torch.Generator, batch: int):
         """Per-image (rates, rate_idx, centers) with the reference
         distribution: index floor(n * U), center 2U - 1, drawn on the
-        generator's device."""
+        generator's device.  The rates are selected on the device from the
+        index (no host-to-device copy, so a CUDA graph can hold the draw)."""
         n = len(DEFAULT_RATES)
         dev = generator.device
         u = torch.rand((batch,), generator=generator, device=dev)
         idx = torch.floor(n * u).long().clamp(0, n - 1)
-        rates = torch.tensor(DEFAULT_RATES, dtype=torch.float32, device=dev)[idx]
+        rates = torch.full((batch,), DEFAULT_RATES[0], dtype=torch.float32, device=dev)
+        for i, rate in enumerate(DEFAULT_RATES[1:], 1):
+            rates = torch.where(idx == i, rate, rates)
         centers = 2.0 * torch.rand((batch, 2), generator=generator, device=dev) - 1.0
         return rates, idx, centers
 

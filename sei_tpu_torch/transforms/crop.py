@@ -1,10 +1,13 @@
 """Aligned pair cropping (counterpart of ``sei_tpu/transforms/crop.py``).
 
 Both images are constant-padded bottom/right to the crop size, then both
-get a ``size`` crop at one per-image offset.  Offsets are host integers
-(drawn from a CPU generator or passed in), so the crops are plain slices
-with no device sync.  The SR crop ratio (x cropped ``size * rate`` at the
-scaled offset) comes with the SR task (ROADMAP, Queue 1 item 18).
+get a ``size`` crop at one per-image offset.  Offsets are a (B, 2) tensor on
+the images' device (drawn there from the trainer's crop stream, or passed
+in), and the crops are one gather built from them, the counterpart of
+``jax.lax.dynamic_slice`` under ``vmap`` (:56-92): no offset reaches the
+host, so a CUDA graph of the training step can hold the crops.  The SR crop
+ratio (x cropped ``size * rate`` at the scaled offset) comes with the SR
+task (ROADMAP, Queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -22,13 +25,30 @@ def pad_min_size(x: torch.Tensor, size_h: int, size_w: int) -> torch.Tensor:
 
 
 def crop_offsets(generator: torch.Generator, heights, widths, size: int) -> torch.Tensor:
-    """(B, 2) int offsets, uniform over [0, max(h - size + 1, 1)) per image
-    (the distribution of ``torch.randint(0, h - size + 1)``)."""
-    heights = torch.as_tensor(heights, dtype=torch.int64)
-    widths = torch.as_tensor(widths, dtype=torch.int64)
+    """(B, 2) int offsets on the generator's device, uniform over
+    [0, max(h - size + 1, 1)) per image (the distribution of
+    ``torch.randint(0, h - size + 1)``).  heights, widths: (B,) int tensors
+    (best on the generator's device: no copy) or sequences."""
+    dev = generator.device
+    heights = torch.as_tensor(heights, dtype=torch.int64, device=dev)
+    widths = torch.as_tensor(widths, dtype=torch.int64, device=dev)
     hi = torch.stack([(heights - size + 1).clamp_min(1), (widths - size + 1).clamp_min(1)], 1)
-    u = torch.rand(hi.shape, generator=generator, dtype=torch.float64)
+    u = torch.rand(hi.shape, generator=generator, device=dev, dtype=torch.float64)
     return torch.minimum((u * hi).long(), hi - 1)
+
+
+def crop_batch(img: torch.Tensor, offsets: torch.Tensor, size: int) -> torch.Tensor:
+    """``img[b, :, t:t + size, l:l + size]`` for each image b at offsets[b] =
+    (t, l), as one gather on img's device; offsets must keep the crop
+    inside the image."""
+    b, c, h, w = img.shape
+    offsets = torch.as_tensor(offsets, dtype=torch.int64, device=img.device)
+    ar = torch.arange(size, device=img.device)
+    rows = offsets[:, 0:1] + ar
+    cols = offsets[:, 1:2] + ar
+    flat = (rows[:, :, None] * w + cols[:, None, :]).view(b, 1, size * size)
+    return img.reshape(b, c, h * w).gather(2, flat.expand(b, c, size * size)).view(
+        b, c, size, size)
 
 
 def crop_pair_batch(x: torch.Tensor, y: torch.Tensor, *, size: int,
@@ -43,8 +63,8 @@ def crop_pair_batch(x: torch.Tensor, y: torch.Tensor, *, size: int,
     y = pad_min_size(y, size, size)
     b, _, h, w = y.shape
     if offsets is None:
-        offsets = crop_offsets(generator, [h] * b, [w] * b, size)
-    offs = torch.as_tensor(offsets).tolist()
-    xs = [x[i, :, t:t + size, l:l + size] for i, (t, l) in enumerate(offs)]
-    ys = [y[i, :, t:t + size, l:l + size] for i, (t, l) in enumerate(offs)]
-    return torch.stack(xs), torch.stack(ys)
+        def full(n):
+            return torch.full((b,), n, dtype=torch.int64, device=generator.device)
+
+        offsets = crop_offsets(generator, full(h), full(w), size)
+    return crop_batch(x, offsets, size), crop_batch(y, offsets, size)

@@ -24,15 +24,29 @@ dk: one flip moves dq by an ulp of the largest ds); 1e-4 on their f32
 outputs; on a two-block bf16 trunk the
 gradients within 3e-2 of each tensor's largest entry (the JAX trunk test's
 bound for its bf16 kernel against autograd of its reference).
+
+The launch-overhead probes (K8 ``copy_probe`` at every block count, K9
+``trunk_skeleton`` in each variant) equal their plain versions exactly (an
+f32 add and one rounding).  A tiny SwinIR ``Trainer`` captured as a CUDA
+graph (``scan_steps`` 1 and 2, f32 and bf16) equals the eager trainer bit for
+bit over two steps (losses, parameters, Adam state): the same kernels run in
+the same order on the same draws; two inner steps of one replay draw
+different SURE probes; a step with a host sync makes the capture raise.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sei_tpu_torch.data import build_device_cache
+from sei_tpu_torch.losses import LossDraws, get_loss, sample_probe
+from sei_tpu_torch.models import get_model
 from sei_tpu_torch.models.swinir import shift_attn_mask
 from sei_tpu_torch.ops import attention as at
+from sei_tpu_torch.ops import launch_probe as lp
 from sei_tpu_torch.ops import swin_trunk as st
+from sei_tpu_torch.physics import get_physics
+from sei_tpu_torch.train import Trainer
 
 
 @pytest.fixture
@@ -479,3 +493,117 @@ def test_trunk_grads_saves_match_reference(gpu, dtype, saves):
         else:
             scale = float(b_.abs().max().clamp_min(1e-6))
             _close(a / scale, b_ / scale, 0.0, 3e-2)
+
+
+# -- launch-overhead probes (K8, K9) -------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("blocks", [1, 4, 8, 24, 132, 1056])
+@pytest.mark.parametrize("shape", [(8, 48, 48, 180), (3, 5, 7, 11)])
+def test_copy_probe(gpu, dtype, blocks, shape):
+    x = (_rnd(gpu, *shape) * 8).to(dtype)
+    for add in (True, False):
+        got = lp.copy_probe(x, blocks=blocks, add=add)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, lp._torch_copy_probe(x, add))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("variant,flags", [
+    ("v_e", None), ("v_a", dict()), ("v_b", dict(outputs=True)),
+    ("v_d", dict(outputs=True, body=True)), ("v_g", dict(outputs=True, body=True, dpm_reads=True)),
+    ("v_d_no_outputs", dict(body=True))])
+def test_trunk_skeleton(gpu, dtype, variant, flags):
+    d, b, h, w, c = 4, 3, 16, 8, 24
+    x = (_rnd(gpu, b, h, w, c) * 8).to(dtype)
+    params = {k: _rnd(gpu, d, c) for k in st.PARAM_LEAVES}
+    rpb, mask = _rnd(gpu, d, 2, 16, 16), _rnd(gpu, 8, 16, 16)
+    dpm = (torch.rand((d, 2, b), generator=gpu, device="cuda") < 0.7).float() / 0.7
+    lp.reset_launch_counts()
+    if flags is None:
+        got, want = (lp.trunk_skeleton(x),), (lp._torch_trunk_skeleton(x, None, 0, False, False,
+                                                                        False)[0],)
+    else:
+        got = lp.trunk_skeleton(x, params, rpb, mask, dpm, **flags)
+        got = got if flags.get("outputs") else (got,)
+        want = lp._torch_trunk_skeleton(x, dpm, d, flags.get("outputs", False),
+                                        flags.get("body", False), flags.get("dpm_reads", False))
+    torch.cuda.synchronize()
+    assert lp.launch_counts()["trunk_skeleton"] == 1
+    for g, w_ in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w_)
+
+
+# -- the training step as one CUDA graph ---------------------------------------
+
+TINY = dict(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=4)
+TINY_BLOCKS, TINY_CROP = 4, 16
+PER_BLOCK_STEP = {F32: {"ln_rows": 4, "gemm_bias_epilogue": 6, "window_attn_fwd": 2,
+                        "gemm_dgrad": 4, "gemm_wgrad": 4, "window_attn_bwd": 1, "ln_rows_bwd": 2},
+                  BF16: {"ln_rows": 4, "gemm_bias_epilogue": 5, "window_attn_fwd": 1,
+                         "gemm_dgrad": 4, "gemm_wgrad": 4, "window_attn_bwd": 1, "ln_rows_bwd": 2}}
+
+
+def _tiny_trainer(dtype, *, scan_steps=1, capture=True, loss_fn=None):
+    phys = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5, device="cuda")
+    rng = np.random.default_rng(1)
+    cache = build_device_cache([rng.random((3, 40, 44)).astype(np.float32) for _ in range(4)],
+                               phys, seed=0)
+    model = get_model(device="cuda", swinir_overrides=TINY,
+                      dtype=None if dtype == F32 else dtype)
+    loss_fn = loss_fn or get_loss(method="proposed", physics=phys, crop_size=TINY_CROP)
+    return Trainer(model, loss_fn, phys, cache, batch_size=2, epochs=1, crop_size=24,
+                   scan_steps=scan_steps, capture=capture)
+
+
+def _trained(tr):
+    losses = []
+    tr.train(log_every_epoch=False, on_step=lambda s, loss: losses.append(loss.item()))
+    opt = [v for s in tr.opt.state.values() for v in s.values()]
+    return losses, [*tr.model.module.parameters(), *opt, tr.step_t]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("scan_steps", [1, 2])
+def test_captured_trainer_equals_eager(gpu, dtype, scan_steps):
+    want_losses, want = _trained(_tiny_trainer(dtype, capture=False))
+    tr = _tiny_trainer(dtype, scan_steps=scan_steps)
+    losses, got = _trained(tr)
+    assert tr.graphed and tr.scan_steps == scan_steps and tr.replays == 2 // scan_steps
+    assert tr.capture_launches == {k: v * TINY_BLOCKS * 2 * scan_steps
+                                   for k, v in PER_BLOCK_STEP[dtype].items()}
+    assert losses == want_losses
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_replays_draw_new_probes(gpu):
+    probes = []
+    phys = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5, device="cuda")
+    base = get_loss(method="proposed", physics=phys, crop_size=TINY_CROP)
+
+    def loss_fn(x, y, model, rng):
+        b = sample_probe(rng.probe, torch.empty((2, 3, TINY_CROP, TINY_CROP), device="cuda"), 6)
+        probes.append(b)
+        return base(x, y, model, rng, LossDraws(probe=b))
+
+    tr = _tiny_trainer(F32, scan_steps=2, loss_fn=loss_fn)
+    tr.step()
+    first = [p.clone() for p in probes[-2:]]  # the two captured inner steps
+    tr.step()
+    assert not torch.equal(first[0], first[1])
+    assert not torch.equal(probes[-2], first[0]) and not torch.equal(probes[-1], first[1])
+
+
+def test_capture_raises_on_a_host_sync(gpu):
+    phys = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5, device="cuda")
+    base = get_loss(method="proposed", physics=phys, crop_size=TINY_CROP)
+
+    def syncing_loss(x, y, model, rng):
+        loss = base(x, y, model, rng)
+        return loss * 1.0 if float(loss) > -1e30 else loss  # reads the loss on the host
+
+    tr = _tiny_trainer(F32, loss_fn=syncing_loss)
+    with pytest.raises(RuntimeError):
+        tr.step()
+    assert tr._graph is None and tr.replays == 0

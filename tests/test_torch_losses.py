@@ -221,7 +221,11 @@ def test_proposed_draws_from_the_streams(physics):
     y = phys.A(x)
     fn = get_loss(method="proposed", physics=phys, crop_size=24)
     model = lambda img: 0.9 * img  # noqa: E731
-    a = fn(x, y, model, make_streams(3, "cpu"))
+    streams = make_streams(3, "cpu")
+    assert all(g.device == x.device for g in streams.device_generators())
+    before = streams.crop.get_state()
+    a = fn(x, y, model, streams)
+    assert not torch.equal(streams.crop.get_state(), before)  # the loss crop's offsets
     b = fn(x, y, model, make_streams(3, "cpu"))
     c = fn(x, y, model, make_streams(4, "cpu"))
     assert a.item() == b.item() and a.item() != c.item()

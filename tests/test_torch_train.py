@@ -27,8 +27,9 @@ from sei_tpu_torch.losses import get_loss
 from sei_tpu_torch.models import get_model
 from sei_tpu_torch.models.swinir import RSTB, DropPath
 from sei_tpu_torch.physics import get_physics
+from sei_tpu_torch.rng import make_streams
 from sei_tpu_torch.train import Trainer
-from sei_tpu_torch.train.optim import get_lr_schedule, get_optimizer, set_lr
+from sei_tpu_torch.train.optim import get_lr_schedule, get_lr_schedule_tensor, get_optimizer
 
 OVERRIDES = dict(embed_dim=16, depths=(2, 2), num_heads=(2, 2), window_size=4)
 
@@ -62,14 +63,17 @@ def test_optimizer_matches_optax(kind):
     rng = np.random.default_rng(0)
     p0 = rng.standard_normal((5, 7)).astype(np.float32)
     grads = [rng.standard_normal(p0.shape).astype(np.float32) for _ in range(3)]
-    schedule = get_lr_schedule("delayed_linear_decay", 1e-2, 4, 1)  # LR moves at step 3
+    # the LR as the trainer feeds it: a tensor rewritten in place from the
+    # tensor schedule of the step counter (it moves at step 3)
+    schedule = get_lr_schedule_tensor("delayed_linear_decay", 1e-2, 4, 1)
     jsched = jax_schedule("delayed_linear_decay", 1e-2, 4, 1)
     tx = optax.adam(jsched, b1=0.9, b2=0.99) if kind == "Adam" else optax.sgd(jsched)
     want = _optax_steps(tx, p0, grads)
     w = torch.nn.Parameter(torch.from_numpy(p0.copy()))
-    opt = get_optimizer([w], kind=kind, lr=schedule(0), beta2=0.99)
+    lr = schedule(torch.tensor(0))
+    opt = get_optimizer([w], kind=kind, lr=lr, beta2=0.99)
     for step, g in enumerate(grads):
-        set_lr(opt, schedule(step))
+        lr.copy_(schedule(torch.tensor(step)))
         w.grad = torch.from_numpy(g)
         opt.step()
     np.testing.assert_allclose(w.detach().numpy(), want, rtol=1e-5, atol=1e-8)
@@ -107,11 +111,15 @@ def test_sample_train_batch_given_indices_and_offsets(cache):
     # MinSizePadding: a crop larger than the images pads them bottom/right
     x, y = sample_train_batch(c, torch.tensor([1]), crop_size=56, offsets=torch.tensor([[0, 0]]))
     assert x.shape == (1, 3, 56, 56) and float(y[0, :, 48:].abs().sum()) == 0.0
-    # drawn offsets stay inside each image's true region
-    g = torch.Generator().manual_seed(0)
+    # offsets drawn from the crop stream, on the cache's device, stay inside
+    # each image's true region
+    g = make_streams(0, c.x.device).crop
+    assert g.device == c.x.device and c.heights.device == c.x.device
     for _ in range(20):
-        x, _ = sample_train_batch(c, torch.tensor([1]), crop_size=32, generator=g)
-        assert float(x.abs().sum()) > 0
+        before = g.get_state()
+        x, _ = sample_train_batch(c, torch.tensor([1], device=c.x.device), crop_size=32,
+                                  generator=g)
+        assert float(x.abs().sum()) > 0 and not torch.equal(g.get_state(), before)
 
 
 def test_epoch_indices_visit_every_image():

@@ -1182,6 +1182,16 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
     for name, (src, _) in SOURCES.items()}
 
 
+# how each kernel computes: the bf16 weight grad on the tensor cores, every
+# other kernel on the CUDA cores
+DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc"}
+DESIGN_CUDA_CORES = "cuda-core fma"
+# a redesigned kernel keeps its earlier time beside the new one: ms per
+# SwinBlock of the version it replaced, and the run that measured it
+EARLIER = {"gemm_wgrad[bf16]": (1.1579, "PR 4 chip run, call 6: CUDA-core fma, "
+                                        "NVIDIA H100 80GB HBM3, 700.00 W")}
+
+
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
                    extra: dict) -> list:
     """One entry per kernel: times and bounds summed over the variants one
@@ -1198,7 +1208,11 @@ def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak:
             return None if any(v is None for v in vals) else scale * sum(vals)
 
         b_ms, b_by = bound_ms(total("flops"), total("bytes"), peak)
-        out.append({"name": name + suffix, "route": "cuda", "source": source, "replaces": replaces,
+        full = name + suffix
+        earlier = ({"earlier_ms": EARLIER[full][0], "earlier_of": EARLIER[full][1]}
+                   if full in EARLIER else {})
+        out.append({"name": full, "route": "cuda", "source": source, "replaces": replaces,
+                    "design": DESIGNS.get(full, DESIGN_CUDA_CORES), **earlier,
                     "launches": launches[name], **{k: v[name] for k, v in extra.items()},
                     "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
                     "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": b_ms,
@@ -1214,6 +1228,7 @@ def probe_entries(rows: dict, counts: dict) -> list:
     for name, (source, replaces, main) in SOURCES_PROBES.items():
         r = next(v for v in rows[name] if v["variant"] == main)
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "design": DESIGNS.get(name, DESIGN_CUDA_CORES),
                     "launches": counts[name], "variant": main,
                     "max_abs_err": max(v["max_abs_err"] for v in rows[name]),
                     **{k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -139,6 +139,37 @@ __device__ __forceinline__ void gelu_pair<bf16>(float x, float& g, float& gp) {
   gelu_pair_fast(x, g, gp);
 }
 
+// Tensor-core building blocks (bf16 in, f32 accumulate; sm_80 and up).
+// ldmatrix_x4_trans: four 8x8 bf16 matrices from shared memory, transposed
+// on the way; lane l gives the address of row l % 8 of matrix l / 8 (16
+// bytes, 16-byte aligned) and receives in r[q] the elements (2 (l % 4) + j,
+// l / 4), j = 0, 1 (low half first), of matrix q.  So a tile stored with the
+// reduction axis as its row comes out as mma's row-major A fragment or
+// col-major B fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d (16x8, f32) += a (16x16 bf16, row-major fragment) b (16x8 bf16, col-major)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// VEC consecutive elements of T, loaded or stored as one access
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
 // host side: an entry point's storage-type switch
 #define SEI_DISPATCH_T(is_bf16, ...) \
   do {                               \

@@ -28,16 +28,50 @@
 // Replace the products of the TPU trunk's backward kernel
 // (sei_tpu/ops/swin_trunk.py _block_bwd_image :663-669 (fc2/fc1),
 // :740 / :786-803 (proj, qkv), and the per-group partial weight grads of
-// _bwd_pallas :1153-1174 summed at :1198-1203), for with_saved=False (K6)
+// _bwd_pallas :1153-1176 summed at :1198-1203), for with_saved=False (K6)
 // and with_saved=True (K7).  Bound on the H100: 2*M*K*N flops against
 // (M*K + M*N + K*N) elements, ~45-90 flops per byte in f32 at K, N in {180,
 // 360, 540} (above the FP32 ridge of 20: operations bound, 67 TFLOP/s); in
-// bf16 ~90-180 against the bf16 ridge of 295 (989 TFLOP/s): bytes bound.
-// Design of this first version, as gemm_bias_epilogue.cu: 64x64 output tiles
-// per 256-thread block, 16-deep reduction slices staged through shared
-// memory as f32, a 4x4 register tile of CUDA-core FMAs per thread; the
-// gather, scale and rounding are applied on the load, gp in the epilogue.
-// mma/wgmma/TMA come later.
+// bf16 ~90-180 against the bf16 ridge of 295 (989 TFLOP/s): bytes bound
+// (the bf16 step's four weight grads per SwinBlock move ~200 MB: 0.0597 ms
+// at 3.35 TB/s).
+//
+// f32 (gemm_dgrad in both types, gemm_wgrad in f32), as gemm_bias_epilogue.cu:
+// 64x64 output tiles per 256-thread block, 16-deep reduction slices staged
+// through shared memory as f32, a 4x4 register tile of CUDA-core FMAs per
+// thread; the gather, scale and rounding are applied on the load, gp in the
+// epilogue.  TF32 stays off, so f32 stays on the CUDA cores.
+//
+// bf16 gemm_wgrad (gemm_wgrad_mma_kernel) runs on the tensor cores:
+// - Tiles.  A 128-thread block owns a 64x64 tile of dW over (K, N); its four
+//   warps take 32x32 each, as 2 x 4 mma.sync.m16n8k16 bf16 tiles with f32
+//   accumulators in registers.  The block walks its split's rows of M in
+//   slices of 32.  A slice of A and of the rounded operand G is staged in
+//   shared memory as bf16 with M as the row (pitch 72 elements: the eight
+//   16-byte rows of one ldmatrix fall in distinct banks); the reduction runs
+//   over M, so both fragments come out with ldmatrix .trans.
+// - Two stages.  Each thread loads its part of slice s+1 from global memory
+//   into registers before the mma of slice s and converts and stores it into
+//   the other shared buffer after: the loads are in flight during the mma.
+//   One __syncthreads per slice.
+// - The prologue stays fused on the load: each staged row's pixel
+//   (row_to_pixel) and scale are computed once per row and thread; the row
+//   is scaled, rounded to bf16 once, and stored.
+// - Bias sums.  Blocks of the first K tile also add each loaded value (the
+//   f32 one before rounding, or the rounded one with db_rounded) into
+//   per-thread running sums over a fixed set of columns and rows, reduced
+//   across the block in a fixed order at the end: the same order on every
+//   run (no atomics), so a captured step repeats the eager one bit for bit.
+// - Ragged widths.  K and N of 180, 360 or 540 are not multiples of 64:
+//   edges are zero-filled in shared memory (180 in 3 tiles of 64: the last
+//   holds 52 valid columns, 6.25% of the tile area is padding; 360 and 540
+//   likewise 6.25%).  Rows of bf16 A with K = 180 or 540 are 8-byte, not
+//   16-byte, aligned, so loads go through registers in 4-element packs (8
+//   bytes of bf16, 16 of f32) when K, N and the pointers allow it (VEC = 4,
+//   every shape of the step) and element by element otherwise (VEC = 1).
+// Left for a wgmma/TMA version: 64-row warpgroup tiles fed by TMA into a
+// ring of shared buffers with mbarriers, a producer warp, a persistent grid;
+// and the rounding prologue, which TMA cannot apply, in a converter warp.
 
 #include "common.cuh"
 
@@ -209,6 +243,191 @@ gemm_wgrad_kernel(const T* __restrict__ A, const TDY* __restrict__ dy,
   }
 }
 
+// -- bf16 gemm_wgrad on the tensor cores (see the note at the top) ---------
+
+constexpr int WG_TK = 64;        // dW rows (K) per block
+constexpr int WG_TN = 64;        // dW columns (N) per block
+constexpr int WG_SL = 32;        // token rows (M) per staged slice
+constexpr int WG_PITCH = 72;     // shared row pitch in bf16: 64 + 8
+constexpr int WG_THREADS = 128;  // 4 warps, 2 x 2 over the tile, 32x32 each
+
+// one global access of VEC elements of T (VEC * sizeof(T) bytes, aligned)
+template <int BYTES> struct RawOf;
+template <> struct RawOf<2> { typedef unsigned short type; };
+template <> struct RawOf<4> { typedef unsigned type; };
+template <> struct RawOf<8> { typedef uint2 type; };
+template <> struct RawOf<16> { typedef uint4 type; };
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
+  typedef typename RawOf<sizeof(T) * VEC>::type R;
+  Pack<T, VEC> out;
+  *reinterpret_cast<R*>(&out) = *reinterpret_cast<const R*>(p);
+  return out;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& v) {
+  typedef typename RawOf<sizeof(T) * VEC>::type R;
+  *reinterpret_cast<R*>(p) = *reinterpret_cast<const R*>(&v);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> zero_pack() {
+  Pack<T, VEC> out;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) out.v[j] = from_f<T>(0.f);
+  return out;
+}
+
+// dW[k][n] = sum_m A[m][k] round_bf16(s(m) dy[p(m)][n]) over this split's
+// rows m, as gemm_wgrad_kernel<bf16, TDY> computed it on the CUDA cores;
+// VEC = elements per global access (4, or 1 where K, N or a pointer do not
+// allow 4-element packs).
+template <typename TDY, int VEC>
+__global__ void __launch_bounds__(WG_THREADS, 4)
+gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,
+                      const float* __restrict__ scale, float* __restrict__ dw_part,
+                      float* __restrict__ db_part, int M, int K, int N, int chunk,
+                      int rows_per_img, int db_rounded, WinMap map) {
+  static_assert(WG_TK == WG_TN, "A and G tiles share one load layout");
+  constexpr int CPR = WG_TN / VEC;        // packs per staged row
+  constexpr int RSTEP = WG_THREADS / CPR;  // rows between one thread's packs
+  constexpr int NP = WG_SL / RSTEP;       // packs per thread and operand per slice
+  static_assert(WG_THREADS % CPR == 0 && WG_SL % RSTEP == 0, "load layout");
+  __shared__ __align__(16) bf16 As[2][WG_SL][WG_PITCH];  // As[m][k]
+  __shared__ __align__(16) bf16 Gs[2][WG_SL][WG_PITCH];  // Gs[m][n]
+  __shared__ float red[RSTEP][WG_TN];                    // bias partial sums
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wk = (tid >> 5) >> 1;  // this warp's 32 rows (k) of the tile
+  const int wn = (tid >> 5) & 1;   // and 32 columns (n)
+  const int k0 = blockIdx.y * WG_TK;
+  const int n0 = blockIdx.x * WG_TN;
+  const int z = blockIdx.z;
+  const int m_begin = z * chunk;
+  const int m_end = min(M, m_begin + chunk);
+  const bool with_bias = blockIdx.y == 0;
+
+  // loads: this thread's pack is columns lc .. lc+VEC-1 of rows lr + i*RSTEP;
+  // with VEC = 4, K and N are multiples of 4, so a pack is valid or padding
+  const int lc = (tid % CPR) * VEC;
+  const int lr = tid / CPR;
+  const bool a_col = k0 + lc < K;
+  const bool g_col = n0 + lc < N;
+
+  Pack<bf16, VEC> pa[NP];  // slice s+1 in flight, raw
+  Pack<TDY, VEC> pd[NP];
+  float ps[NP];            // the row's scale, 0 past the split's end
+  float bsum[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) bsum[j] = 0.f;
+  float acc[2][4][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+
+  auto load = [&](int mb) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int gm = mb + lr + i * RSTEP;
+      const bool ok = gm < m_end;
+      pa[i] = ok && a_col ? load_pack<bf16, VEC>(A + (long long)gm * K + k0 + lc)
+                          : zero_pack<bf16, VEC>();
+      pd[i] = ok && g_col ? load_pack<TDY, VEC>(dy + row_to_pixel(gm, map) * N + n0 + lc)
+                          : zero_pack<TDY, VEC>();
+      ps[i] = !ok ? 0.f : scale ? scale[gm / rows_per_img] : 1.f;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int r = lr + i * RSTEP;
+      store_pack(&As[buf][r][lc], pa[i]);
+      Pack<bf16, VEC> g;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float u = ps[i] * to_f(pd[i].v[j]);
+        g.v[j] = from_f<bf16>(u);
+        if (with_bias) bsum[j] += db_rounded ? to_f(g.v[j]) : u;
+      }
+      store_pack(&Gs[buf][r][lc], g);
+    }
+  };
+  // ldmatrix row addresses: lane l serves row l % 8 of matrix l / 8.  A
+  // fragment (16 k x 16 m): matrices (k 0-7, m 0-7), (k 8-15, m 0-7),
+  // (k 0-7, m 8-15), (k 8-15, m 8-15); B fragments of two n8 tiles (16 m x
+  // 8 n each): (m 0-7, n 0-7), (m 8-15, n 0-7), (m 0-7, n 8-15), (m 8-15,
+  // n 8-15).
+  const int a_m = (lane & 7) + ((lane >> 4) << 3);
+  const int a_k = wk * 32 + (((lane >> 3) & 1) << 3);
+  const int b_m = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int b_n = wn * 32 + ((lane >> 4) << 3);
+  auto compute = [&](int buf) {
+#pragma unroll
+    for (int ks = 0; ks < WG_SL; ks += 16) {
+      unsigned af[2][4], bf[4][2];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) ldmatrix_x4_trans(af[t], &As[buf][ks + a_m][a_k + t * 16]);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, &Gs[buf][ks + b_m][b_n + p * 16]);
+        bf[2 * p][0] = r[0];
+        bf[2 * p][1] = r[1];
+        bf[2 * p + 1][0] = r[2];
+        bf[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[t][j], af[t], bf[j][0], bf[j][1]);
+    }
+  };
+
+  const int slices = m_end > m_begin ? (m_end - m_begin + WG_SL - 1) / WG_SL : 0;
+  if (slices > 0) {
+    load(m_begin);
+    store(0);
+  }
+  __syncthreads();
+  for (int sl = 0; sl < slices; ++sl) {
+    const bool next = sl + 1 < slices;
+    if (next) load(m_begin + (sl + 1) * WG_SL);
+    compute(sl & 1);
+    if (next) store((sl + 1) & 1);
+    __syncthreads();
+  }
+
+  // accumulator (t, j): rows k = lane / 4 (+ 8), columns n = 2 (lane % 4) (+ 1)
+  float* part = dw_part + (long long)z * K * N;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gk = k0 + wk * 32 + t * 16 + (lane >> 2) + ((e >> 1) << 3);
+        const int gn = n0 + wn * 32 + j * 8 + ((lane & 3) << 1) + (e & 1);
+        if (gk < K && gn < N) part[(long long)gk * N + gn] = acc[t][j][e];
+      }
+  if (with_bias) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) red[lr][lc + j] = bsum[j];
+    __syncthreads();
+    if (tid < WG_TN) {
+      float b = 0.f;
+#pragma unroll
+      for (int r = 0; r < RSTEP; ++r) b += red[r][tid];
+      if (n0 + tid < N) db_part[(long long)z * N + n0 + tid] = b;
+    }
+  }
+}
+
 template <typename T, typename TDY, typename TOUT>
 void launch_dgrad(dim3 grid, cudaStream_t s, const void* dy, const void* Wt,
                   const float* scale, Buf gp, void* out, int M, int N, int K,
@@ -234,13 +453,26 @@ void launch_dgrad_bf16(int out_bf16, dim3 grid, cudaStream_t s, const void* dy,
     launch_dgrad<bf16, TDY, float>(grid, s, dy, Wt, scale, gp, out, M, N, K, rows_per_img, map);
 }
 
-template <typename T, typename TDY>
-void launch_wgrad(dim3 grid, cudaStream_t s, const void* A, const void* dy,
-                  const float* scale, float* dw_part, float* db_part, int M, int K,
-                  int N, int chunk, int rows_per_img, int db_rounded, WinMap map) {
-  gemm_wgrad_kernel<T, TDY><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(A), static_cast<const TDY*>(dy), scale, dw_part, db_part,
+void launch_wgrad_f32(dim3 grid, cudaStream_t s, const void* A, const void* dy,
+                      const float* scale, float* dw_part, float* db_part, int M, int K,
+                      int N, int chunk, int rows_per_img, int db_rounded, WinMap map) {
+  gemm_wgrad_kernel<float, float><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(A), static_cast<const float*>(dy), scale, dw_part, db_part,
       M, K, N, chunk, rows_per_img, db_rounded, map);
+}
+
+template <typename TDY>
+void launch_wgrad_mma(bool vec4, dim3 grid, cudaStream_t s, const void* A, const void* dy,
+                      const float* scale, float* dw_part, float* db_part, int M, int K,
+                      int N, int chunk, int rows_per_img, int db_rounded, WinMap map) {
+  const bf16* a = static_cast<const bf16*>(A);
+  const TDY* d = static_cast<const TDY*>(dy);
+  if (vec4)
+    gemm_wgrad_mma_kernel<TDY, 4><<<grid, WG_THREADS, 0, s>>>(
+        a, d, scale, dw_part, db_part, M, K, N, chunk, rows_per_img, db_rounded, map);
+  else
+    gemm_wgrad_mma_kernel<TDY, 1><<<grid, WG_THREADS, 0, s>>>(
+        a, d, scale, dw_part, db_part, M, K, N, chunk, rows_per_img, db_rounded, map);
 }
 
 }  // namespace
@@ -282,22 +514,29 @@ extern "C" int sei_gemm_wgrad(int device, int is_bf16, const void* A, const void
     return (int)cudaErrorInvalidValue;
   if (scale != nullptr && rows_per_img <= 0) return (int)cudaErrorInvalidValue;
   if (dy_bf16 && !is_bf16) return (int)cudaErrorInvalidValue;
-  // each split takes a whole number of BK-row slices
-  const int chunk = ((M + splits - 1) / splits + BK - 1) / BK * BK;
-  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
+  // each split takes a whole number of staged slices (BK rows in f32,
+  // WG_SL in bf16)
+  const int slice = is_bf16 ? WG_SL : BK;
+  const int chunk = ((M + splits - 1) / splits + slice - 1) / slice * slice;
+  const dim3 grid = is_bf16 ? dim3((N + WG_TN - 1) / WG_TN, (K + WG_TK - 1) / WG_TK, splits)
+                            : dim3((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const WinMap map{windowed, H, W, ws, shift};
   cudaStream_t s = (cudaStream_t)stream;
+  // 4-element packs: 8 bytes of bf16 A and dy, 16 of f32 dy, at every row start
+  const size_t dy_pack = 4 * (dy_bf16 ? sizeof(bf16) : sizeof(float));
+  const bool vec4 = K % 4 == 0 && N % 4 == 0 && (size_t)A % 8 == 0 &&
+                    (size_t)dy % dy_pack == 0;
   if (!is_bf16)
-    launch_wgrad<float, float>(grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
-                               rows_per_img, db_rounded, map);
+    launch_wgrad_f32(grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk, rows_per_img,
+                     db_rounded, map);
   else if (dy_bf16)
-    launch_wgrad<bf16, bf16>(grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
-                             rows_per_img, db_rounded, map);
+    launch_wgrad_mma<bf16>(vec4, grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
+                           rows_per_img, db_rounded, map);
   else
-    launch_wgrad<bf16, float>(grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
-                              rows_per_img, db_rounded, map);
+    launch_wgrad_mma<float>(vec4, grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
+                            rows_per_img, db_rounded, map);
   return (int)cudaGetLastError();
 }

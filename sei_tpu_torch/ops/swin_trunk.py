@@ -407,6 +407,10 @@ def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, gp=None
 gemm_dgrad.launches = 0
 
 
+# bf16 gemm_wgrad: 128-thread blocks per SM to aim for (splits of M x tiles)
+_WGRAD_MMA_PER_SM = 4
+
+
 def _torch_gemm_wgrad(a, dy, scale=None, window: Optional[WindowMap] = None,
                       db_rounded: bool = False):
     g = _grad_operand(dy, dy.shape[-1], scale, window)
@@ -427,11 +431,13 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
 
     Kernel ``gemm_wgrad`` (``csrc/gemm_bwd.cu``) replaces the weight-grad
     products of the TPU trunk's backward (``_block_bwd_image`` :663-668,
-    :786-802) and its per-group partials (``_bwd_pallas`` :1153-1174,
+    :786-802) and its per-group partials (``_bwd_pallas`` :1153-1176,
     summed at :1198-1203).  Bound by FP32 operations in f32, by bytes in
     bf16; 64x64 tiles over (K, N), the token axis split over the grid into
     partials that are summed here (no atomics), the bias column sums taken
-    from the same staged tiles.
+    from the same staged tiles.  f32 runs on the CUDA cores; bf16 on the
+    tensor cores (``mma.sync`` m16n8k16, f32 accumulators, 32-row slices
+    staged in two shared buffers).
     """
     m, k = a.shape
     n = dy.shape[-1]
@@ -444,7 +450,11 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
     scale = None if scale is None else scale.contiguous()
     require_cuda("gemm_wgrad", a=(a, KERNEL_DTYPES), dy=(dy, (a.dtype, F32)), scale=(scale, F32))
     tiles = -(-k // 64) * -(-n // 64)
-    splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
+    if a.dtype == BF16:
+        splits = _build.partial_count(-(-m // 128), blocks_per_partial=tiles,
+                                      per_sm=_WGRAD_MMA_PER_SM)
+    else:
+        splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
     dw = torch.empty((splits, k, n), device=a.device, dtype=F32)
     db = torch.empty((splits, n), device=a.device, dtype=F32)
     wm = window or WindowMap(0, 0, 0, 0)

@@ -21,7 +21,8 @@ ulps) plus an atol of 1e-2 of the tensor's largest entry, since an f32 sum
 taken in another order can flip a rounding of the output or of an
 intermediate that is rounded before a further product (ds before dq and
 dk: one flip moves dq by an ulp of the largest ds); 1e-4 on their f32
-outputs; on a two-block bf16 trunk the
+outputs (1e-3 + 1e-4 x |plain| on the tensor-core weight grad, whose sums
+over up to 4608 tokens run in the mma's order); on a two-block bf16 trunk the
 gradients within 3e-2 of each tensor's largest entry (the JAX trunk test's
 bound for its bf16 kernel against autograd of its reference).
 
@@ -409,6 +410,76 @@ def test_gemm_bwd_window_gather_bf16(gpu, shift):
     for x, y in zip(st.gemm_wgrad(a, dy, scale=scale, window=wm, db_rounded=True),
                     st._torch_gemm_wgrad(a, dy, scale, wm, True)):
         _close(x, y, 1e-4)
+
+
+# bf16 gemm_wgrad runs on the tensor cores (mma.sync, f32 accumulators): the
+# bf16 step's four calls at the flagship widths on 2 images of 48x48 (T =
+# 4608), (K, N, window map, drop-path scale); f32 outputs to 1e-3 + 1e-4 x
+# |plain|, chip_smoke's gate (products of bf16 values are exact in f32; the
+# sums run in another order)
+_WGRAD_VARIANTS = {"fc2": (360, 180, False, True), "fc1": (180, 360, False, False),
+                   "proj": (180, 180, True, True), "qkv": (180, 540, False, False)}
+
+
+def _wgrad_case(g, variant, dy_dtype):
+    k, n, windowed, scaled = _WGRAD_VARIANTS[variant]
+    a = _bf(g, 2 * 48 * 48, k)
+    wm = st.WindowMap(48, 48, 8, 4) if windowed else None
+    dy = (_rnd(g, 2, 48, 48, n) if windowed else _rnd(g, 2 * 48 * 48, n)).to(dy_dtype)
+    scale = torch.tensor([0.0, 1 / 0.9], device="cuda") if scaled else None
+    return a, dy, scale, wm
+
+
+@pytest.mark.parametrize("variant", list(_WGRAD_VARIANTS))
+@pytest.mark.parametrize("dy_dtype", [F32, BF16])
+@pytest.mark.parametrize("db_rounded", [False, True])
+def test_gemm_wgrad_mma_step_widths(gpu, variant, dy_dtype, db_rounded):
+    a, dy, scale, wm = _wgrad_case(gpu, variant, dy_dtype)
+    before = st.gemm_wgrad.launches
+    got = st.gemm_wgrad(a, dy, scale=scale, window=wm, db_rounded=db_rounded)
+    assert st.gemm_wgrad.launches == before + 1
+    for x, y in zip(got, st._torch_gemm_wgrad(a, dy, scale, wm, db_rounded)):
+        _close(x, y, 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (20, 8, 8),         # M below one 32-row slice, one 16x8 mma output tile valid
+    (100, 17, 8),       # K of 17: 1-element loads
+    (1007, 8, 17),      # N of 17; M not a multiple of the slice
+    (333, 17, 17),
+    (37, 180, 180),     # 4-element packs, M below two slices
+    (1037, 360, 540),
+])
+@pytest.mark.parametrize("dy_dtype", [F32, BF16])
+@pytest.mark.parametrize("db_rounded", [False, True])
+def test_gemm_wgrad_mma_ragged(gpu, m, k, n, dy_dtype, db_rounded):
+    a, dy = _bf(gpu, m, k), _rnd(gpu, m, n).to(dy_dtype)
+    scale = torch.tensor([0.7], device="cuda")
+    got = st.gemm_wgrad(a, dy, scale=scale, db_rounded=db_rounded)
+    for x, y in zip(got, st._torch_gemm_wgrad(a, dy, scale, None, db_rounded)):
+        _close(x, y, 1e-4, 1e-3)
+
+
+def test_gemm_wgrad_mma_unaligned_pointers(gpu):
+    """Operands at odd element offsets (views into a larger buffer) cannot
+    take 8- or 16-byte packs: the kernel loads them element by element."""
+    m, k, n = 300, 180, 180
+    a = _bf(gpu, m * k + 1)[1:].view(m, k)
+    dy = _rnd(gpu, m * n + 1)[1:].view(m, n)
+    for x, y in zip(st.gemm_wgrad(a, dy), st._torch_gemm_wgrad(a, dy)):
+        _close(x, y, 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("db_rounded", [False, True])
+def test_gemm_wgrad_mma_repeats_bit_for_bit(gpu, db_rounded):
+    """The mma order and the bias sums' order are fixed: two calls on the
+    same inputs agree exactly (what the captured step's bit-for-bit match
+    with the eager step rests on)."""
+    a, dy, scale, wm = _wgrad_case(gpu, "proj", F32)
+    first = st.gemm_wgrad(a, dy, scale=scale, window=wm, db_rounded=db_rounded)
+    second = st.gemm_wgrad(a, dy, scale=scale, window=wm, db_rounded=db_rounded)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("c,shift", [(16, None), (180, 2)])

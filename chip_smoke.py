@@ -42,6 +42,11 @@
    the skeleton variants, the real trunk as the control).
 7. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
+   Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
+   the bf16 ``gemm_wgrad``, CUDA-core FMAs for the rest); a redesigned one
+   keeps the replaced version's time as ``earlier_ms``.  bf16 entries also
+   carry ``queued_ms``: the device time of the same calls queued behind a
+   sleeping kernel, free of the wrapper's host cost.
 
 Imports nothing of JAX and nothing of ``sei_tpu``.
 """
@@ -451,11 +456,14 @@ def check_bf16_kernels(timed: bool) -> dict:
              "flops": flops, "bytes": nbytes, "per_block": per_block}
         if timed:
             r["ms"] = time_ms(fn_k)
+            # the same calls queued behind a sleeping kernel: device time
+            # alone, where a call (~0.1 ms) is shorter than its wrapper's host work
+            r["queued_ms"] = queued_ms(fn_k)
             r["plain_ms"] = time_ms(fn_p)
             r["library_ms"] = time_ms(fn_lib) if fn_lib is not None else None
             lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"    {kernel}[bf16 {variant}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}), "
+            print(f"    {kernel}[bf16 {variant}]: kernel {r['ms']:.4f} ms (queued {r['queued_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound {b_ms:.4f} ms ({b_by}), "
                   f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
         rows.setdefault(kernel, []).append(r)
 
@@ -1215,11 +1223,12 @@ def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak:
                     "design": DESIGNS.get(full, DESIGN_CUDA_CORES), **earlier,
                     "launches": launches[name], **{k: v[name] for k, v in extra.items()},
                     "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-                    "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": total("library_ms"),
+                    "ms": total("ms"), "queued_ms": total("queued_ms"), "plain_ms": total("plain_ms"),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": total("library_ms"),
                     "variants": [{k: r.get(k) for k in ("variant", "per_block", "max_abs_err", "ms",
-                                                        "plain_ms", "bound_ms", "bound_by",
-                                                        "library_ms")} for r in rows[name]]})
+                                                        "queued_ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")}
+                                 for r in rows[name]]})
     return out
 
 

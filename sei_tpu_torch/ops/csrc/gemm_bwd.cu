@@ -64,8 +64,9 @@
 //   run (no atomics), so a captured step repeats the eager one bit for bit.
 // - Ragged widths.  K and N of 180, 360 or 540 are not multiples of 64:
 //   edges are zero-filled in shared memory (180 in 3 tiles of 64: the last
-//   holds 52 valid columns, 6.25% of the tile area is padding; 360 and 540
-//   likewise 6.25%).  Rows of bf16 A with K = 180 or 540 are 8-byte, not
+//   holds 52 valid columns, 6.25% of the width is padding; 360 and 540
+//   likewise 6.25%, so 12.1% of each variant's K x N tile area).  M and the
+//   split chunks are whole 32-row slices at the step's T, so M pads nothing.  Rows of bf16 A with K = 180 or 540 are 8-byte, not
 //   16-byte, aligned, so loads go through registers in 4-element packs (8
 //   bytes of bf16, 16 of f32) when K, N and the pointers allow it (VEC = 4,
 //   every shape of the step) and element by element otherwise (VEC = 1).

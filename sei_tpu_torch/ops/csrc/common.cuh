@@ -164,12 +164,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// VEC consecutive elements of T, loaded or stored as one access
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
 // host side: an entry point's storage-type switch
 #define SEI_DISPATCH_T(is_bf16, ...) \
   do {                               \

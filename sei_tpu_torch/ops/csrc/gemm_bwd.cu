@@ -252,7 +252,13 @@ constexpr int WG_SL = 32;        // token rows (M) per staged slice
 constexpr int WG_PITCH = 72;     // shared row pitch in bf16: 64 + 8
 constexpr int WG_THREADS = 128;  // 4 warps, 2 x 2 over the tile, 32x32 each
 
-// one global access of VEC elements of T (VEC * sizeof(T) bytes, aligned)
+// VEC consecutive elements of T, loaded or stored as one access of VEC *
+// sizeof(T) bytes (aligned to that)
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
 template <int BYTES> struct RawOf;
 template <> struct RawOf<2> { typedef unsigned short type; };
 template <> struct RawOf<4> { typedef unsigned type; };
@@ -282,9 +288,10 @@ __device__ __forceinline__ Pack<T, VEC> zero_pack() {
 }
 
 // dW[k][n] = sum_m A[m][k] round_bf16(s(m) dy[p(m)][n]) over this split's
-// rows m, as gemm_wgrad_kernel<bf16, TDY> computed it on the CUDA cores;
-// VEC = elements per global access (4, or 1 where K, N or a pointer do not
-// allow 4-element packs).
+// rows m; blocks of the first k tile also sum db[n] over the same rows, of
+// the rounded operand or of the f32 one (db_rounded).  VEC = elements per
+// global access (4, or 1 where K, N or a pointer do not allow 4-element
+// packs).
 template <typename TDY, int VEC>
 __global__ void __launch_bounds__(WG_THREADS, 4)
 gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,

@@ -407,10 +407,6 @@ def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, gp=None
 gemm_dgrad.launches = 0
 
 
-# bf16 gemm_wgrad: 128-thread blocks per SM to aim for (splits of M x tiles)
-_WGRAD_MMA_PER_SM = 4
-
-
 def _torch_gemm_wgrad(a, dy, scale=None, window: Optional[WindowMap] = None,
                       db_rounded: bool = False):
     g = _grad_operand(dy, dy.shape[-1], scale, window)
@@ -450,11 +446,7 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
     scale = None if scale is None else scale.contiguous()
     require_cuda("gemm_wgrad", a=(a, KERNEL_DTYPES), dy=(dy, (a.dtype, F32)), scale=(scale, F32))
     tiles = -(-k // 64) * -(-n // 64)
-    if a.dtype == BF16:
-        splits = _build.partial_count(-(-m // 128), blocks_per_partial=tiles,
-                                      per_sm=_WGRAD_MMA_PER_SM)
-    else:
-        splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
+    splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
     dw = torch.empty((splits, k, n), device=a.device, dtype=F32)
     db = torch.empty((splits, n), device=a.device, dtype=F32)
     wm = window or WindowMap(0, 0, 0, 0)

@@ -1195,9 +1195,10 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
 DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc"}
 DESIGN_CUDA_CORES = "cuda-core fma"
 # a redesigned kernel keeps its earlier time beside the new one: ms per
-# SwinBlock of the version it replaced, and the run that measured it
-EARLIER = {"gemm_wgrad[bf16]": (1.1579, "PR 4 chip run, call 6: CUDA-core fma, "
-                                        "NVIDIA H100 80GB HBM3, 700.00 W")}
+# SwinBlock of the version it replaced, as this script timed it (PERF.md
+# section 6 names the run)
+EARLIER = {"gemm_wgrad[bf16]": (1.1579, "cuda-core fma version, this script on an "
+                                        "NVIDIA H100 80GB HBM3 at 700.00 W")}
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,

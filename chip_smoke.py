@@ -43,10 +43,12 @@
 7. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
-   the bf16 ``gemm_wgrad``, CUDA-core FMAs for the rest); a redesigned one
-   keeps the replaced version's time as ``earlier_ms``.  bf16 entries also
-   carry ``queued_ms``: the device time of the same calls queued behind a
-   sleeping kernel, free of the wrapper's host cost.
+   the bf16 ``gemm_wgrad``, CUDA-core FMAs for the rest).  bf16 entries
+   also carry ``queued_ms``: the device time of the same calls queued
+   behind a sleeping kernel, free of the wrapper's host cost; every entry
+   with a library call carries ``library_queued_ms``, the same for it.  A line before
+   the kernel line gives the replaced versions' earlier times, marked as
+   not measured in this run.
 
 Imports nothing of JAX and nothing of ``sei_tpu``.
 """
@@ -170,6 +172,21 @@ def queued_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def library_times(fn) -> dict:
+    """The library call's ``library_ms`` (``time_ms``) and
+    ``library_queued_ms`` (``queued_ms``: its device time alone, apart from
+    the host work of the call, autograd's included); None without one."""
+    if fn is None:
+        return {"library_ms": None, "library_queued_ms": None}
+    return {"library_ms": time_ms(fn), "library_queued_ms": queued_ms(fn)}
+
+
+def fmt_library(r: dict) -> str:
+    if r["library_ms"] is None:
+        return "library None"
+    return f"library {r['library_ms']:.4f} ms (queued {r['library_queued_ms']:.4f})"
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -233,10 +250,10 @@ def check_kernels(timed: bool) -> dict:
         if timed:
             r["ms"] = time_ms(fn_k)
             r["plain_ms"] = time_ms(fn_p)
-            r["library_ms"] = time_ms(fn_lib) if fn_lib is not None else None
+            r.update(library_times(fn_lib))
             print(f"    {kernel}[{variant}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}), {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+                  f"{fmt_library(r)}, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
         rows.setdefault(kernel, []).append(r)
 
     print("kernel checks (flagship shapes: T=%d tokens, C=%d, %d heads, window %d)" % (T, C, NH, WS))
@@ -316,10 +333,9 @@ def check_train_kernels(timed: bool) -> dict:
         if timed:
             r["ms"] = time_ms(fn_k)
             r["plain_ms"] = time_ms(fn_p)
-            r["library_ms"] = time_ms(fn_lib) if fn_lib is not None else None
-            lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            r.update(library_times(fn_lib))
             print(f"    {kernel}[{variant}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{fmt_library(r)}, bound {b_ms:.4f} ms ({b_by}), "
                   f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
         rows.setdefault(kernel, []).append(r)
 
@@ -460,10 +476,9 @@ def check_bf16_kernels(timed: bool) -> dict:
             # alone, where a call (~0.1 ms) is shorter than its wrapper's host work
             r["queued_ms"] = queued_ms(fn_k)
             r["plain_ms"] = time_ms(fn_p)
-            r["library_ms"] = time_ms(fn_lib) if fn_lib is not None else None
-            lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            r.update(library_times(fn_lib))
             print(f"    {kernel}[bf16 {variant}]: kernel {r['ms']:.4f} ms (queued {r['queued_ms']:.4f}), "
-                  f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"plain {r['plain_ms']:.4f} ms, {fmt_library(r)}, bound {b_ms:.4f} ms ({b_by}), "
                   f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
         rows.setdefault(kernel, []).append(r)
 
@@ -1194,11 +1209,11 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
 # other kernel on the CUDA cores
 DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc"}
 DESIGN_CUDA_CORES = "cuda-core fma"
-# a redesigned kernel keeps its earlier time beside the new one: ms per
-# SwinBlock of the version it replaced, as this script timed it (PERF.md
-# section 6 names the run)
-EARLIER = {"gemm_wgrad[bf16]": (1.1579, "cuda-core fma version, this script on an "
-                                        "NVIDIA H100 80GB HBM3 at 700.00 W")}
+# the times of the versions a redesign replaced, ms per SwinBlock, as an
+# earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md section 6 names the run); printed apart from the kernels
+# line, which holds only this run's measurements
+HISTORICAL = "historical, not measured in this run: gemm_wgrad[bf16] cuda-core fma 1.1579 ms"
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1218,17 +1233,17 @@ def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak:
 
         b_ms, b_by = bound_ms(total("flops"), total("bytes"), peak)
         full = name + suffix
-        earlier = ({"earlier_ms": EARLIER[full][0], "earlier_of": EARLIER[full][1]}
-                   if full in EARLIER else {})
         out.append({"name": full, "route": "cuda", "source": source, "replaces": replaces,
-                    "design": DESIGNS.get(full, DESIGN_CUDA_CORES), **earlier,
+                    "design": DESIGNS.get(full, DESIGN_CUDA_CORES),
                     "launches": launches[name], **{k: v[name] for k, v in extra.items()},
                     "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
                     "ms": total("ms"), "queued_ms": total("queued_ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": total("library_ms"),
+                    "library_queued_ms": total("library_queued_ms"),
                     "variants": [{k: r.get(k) for k in ("variant", "per_block", "max_abs_err", "ms",
                                                         "queued_ms", "plain_ms", "bound_ms",
-                                                        "bound_by", "library_ms")}
+                                                        "bound_by", "library_ms",
+                                                        "library_queued_ms")}
                                  for r in rows[name]]})
     return out
 
@@ -1317,6 +1332,7 @@ def main(argv: list[str]) -> int:
     bf16_loss_vs_f32(trainer)
     del trainer
     probe_counts = probe_phase()
+    print(HISTORICAL)
     print(json.dumps(kernel_line(rows, rows_bf16, rows_probe, eval_counts, train_counts,
                                  bf16_counts, probe_counts, captured)))
     print(smi)

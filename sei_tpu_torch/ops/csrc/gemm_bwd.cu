@@ -66,10 +66,11 @@
 //   edges are zero-filled in shared memory (180 in 3 tiles of 64: the last
 //   holds 52 valid columns, 6.25% of the width is padding; 360 and 540
 //   likewise 6.25%, so 12.1% of each variant's K x N tile area).  M and the
-//   split chunks are whole 32-row slices at the step's T, so M pads nothing.  Rows of bf16 A with K = 180 or 540 are 8-byte, not
-//   16-byte, aligned, so loads go through registers in 4-element packs (8
-//   bytes of bf16, 16 of f32) when K, N and the pointers allow it (VEC = 4,
-//   every shape of the step) and element by element otherwise (VEC = 1).
+//   split chunks are whole 32-row slices at the step's T, so M pads
+//   nothing.  Rows of bf16 A with K = 180 or 540 are 8-byte, not 16-byte,
+//   aligned, so loads go through registers in 4-element packs (8 bytes of
+//   bf16, 16 of f32) when K, N and the pointers allow it (VEC = 4, every
+//   shape of the step) and element by element otherwise (VEC = 1).
 // Left for a wgmma/TMA version: 64-row warpgroup tiles fed by TMA into a
 // ring of shared buffers with mbarriers, a producer warp, a persistent grid;
 // and the rounding prologue, which TMA cannot apply, in a converter warp.
@@ -154,18 +155,15 @@ gemm_dgrad_kernel(const TDY* __restrict__ dy, const T* __restrict__ Wt,
   }
 }
 
-// dW[k][n] = sum_m A[m][k] round_T(s(m) dy[p(m)][n]) over this split's rows m;
-// blocks of the first k tile also sum db[n] over the same rows, of the
-// rounded operand or of the f32 one (db_rounded).
-template <typename T, typename TDY>
+// dW[k][n] = sum_m A[m][k] s(m) dy[p(m)][n] over this split's rows m, in
+// f32; blocks of the first k tile also sum db[n] over the same rows.
 __global__ void __launch_bounds__(kThreads)
-gemm_wgrad_kernel(const T* __restrict__ A, const TDY* __restrict__ dy,
+gemm_wgrad_kernel(const float* __restrict__ A, const float* __restrict__ dy,
                   const float* __restrict__ scale, float* __restrict__ dw_part,
                   float* __restrict__ db_part, int M, int K, int N, int chunk,
-                  int rows_per_img, int db_rounded, WinMap map) {
+                  int rows_per_img, WinMap map) {
   __shared__ __align__(16) float As[BK][BM];  // As[m][k]
   __shared__ __align__(16) float Bs[BK][BN];  // Bs[m][n]
-  __shared__ __align__(16) float Ds[BK][BN];  // Bs before rounding (bias sums)
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // output columns (n) tx*4 .. +3
@@ -176,9 +174,6 @@ gemm_wgrad_kernel(const T* __restrict__ A, const TDY* __restrict__ dy,
   const int m_begin = z * chunk;
   const int m_end = min(M, m_begin + chunk);
   const bool with_bias = blockIdx.y == 0;
-  // f32 storage rounds nothing, so the bias sums read Bs
-  const bool raw_bias = sizeof(T) != sizeof(float) && !db_rounded;
-  const float(*bias_src)[BN] = raw_bias ? Ds : Bs;
 
   const int l_m = tid >> 4;        // 16 rows x 16 threads, 4 columns each
   const int l_c = (tid & 15) * 4;
@@ -193,17 +188,15 @@ gemm_wgrad_kernel(const T* __restrict__ A, const TDY* __restrict__ dy,
   for (int mb = m_begin; mb < m_end; mb += BK) {
     const int gm = mb + l_m;
     const bool ok = gm < m_end;
-    const T* arow = ok ? A + (long long)gm * K : nullptr;
-    const TDY* drow = ok ? dy + row_to_pixel(gm, map) * N : nullptr;
+    const float* arow = ok ? A + (long long)gm * K : nullptr;
+    const float* drow = ok ? dy + row_to_pixel(gm, map) * N : nullptr;
     const float s = (ok && scale) ? scale[gm / rows_per_img] : 1.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gk = k0 + l_c + i;
       const int gn = n0 + l_c + i;
-      As[l_m][l_c + i] = (ok && gk < K) ? to_f(arow[gk]) : 0.f;
-      const float u = (ok && gn < N) ? s * to_f(drow[gn]) : 0.f;
-      Bs[l_m][l_c + i] = round_as<T>(u);
-      if (raw_bias && with_bias) Ds[l_m][l_c + i] = u;
+      As[l_m][l_c + i] = (ok && gk < K) ? arow[gk] : 0.f;
+      Bs[l_m][l_c + i] = (ok && gn < N) ? s * drow[gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -218,7 +211,7 @@ gemm_wgrad_kernel(const T* __restrict__ A, const TDY* __restrict__ dy,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       if (with_bias && ty == 0) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bsum[j] += bias_src[mm][tx * 4 + j];
+        for (int j = 0; j < 4; ++j) bsum[j] += Bs[mm][tx * 4 + j];
       }
     }
     __syncthreads();
@@ -246,10 +239,9 @@ gemm_wgrad_kernel(const T* __restrict__ A, const TDY* __restrict__ dy,
 
 // -- bf16 gemm_wgrad on the tensor cores (see the note at the top) ---------
 
-constexpr int WG_TK = 64;        // dW rows (K) per block
-constexpr int WG_TN = 64;        // dW columns (N) per block
+// a block's dW tile is BM x BN (K x N), as in the f32 kernel
 constexpr int WG_SL = 32;        // token rows (M) per staged slice
-constexpr int WG_PITCH = 72;     // shared row pitch in bf16: 64 + 8
+constexpr int WG_PITCH = BN + 8;  // shared row pitch in bf16
 constexpr int WG_THREADS = 128;  // 4 warps, 2 x 2 over the tile, 32x32 each
 
 // VEC consecutive elements of T, loaded or stored as one access of VEC *
@@ -298,21 +290,21 @@ gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,
                       const float* __restrict__ scale, float* __restrict__ dw_part,
                       float* __restrict__ db_part, int M, int K, int N, int chunk,
                       int rows_per_img, int db_rounded, WinMap map) {
-  static_assert(WG_TK == WG_TN, "A and G tiles share one load layout");
-  constexpr int CPR = WG_TN / VEC;        // packs per staged row
+  static_assert(BM == BN, "A and G tiles share one load layout");
+  constexpr int CPR = BN / VEC;        // packs per staged row
   constexpr int RSTEP = WG_THREADS / CPR;  // rows between one thread's packs
   constexpr int NP = WG_SL / RSTEP;       // packs per thread and operand per slice
   static_assert(WG_THREADS % CPR == 0 && WG_SL % RSTEP == 0, "load layout");
   __shared__ __align__(16) bf16 As[2][WG_SL][WG_PITCH];  // As[m][k]
   __shared__ __align__(16) bf16 Gs[2][WG_SL][WG_PITCH];  // Gs[m][n]
-  __shared__ float red[RSTEP][WG_TN];                    // bias partial sums
+  __shared__ float red[RSTEP][BN];                    // bias partial sums
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wk = (tid >> 5) >> 1;  // this warp's 32 rows (k) of the tile
   const int wn = (tid >> 5) & 1;   // and 32 columns (n)
-  const int k0 = blockIdx.y * WG_TK;
-  const int n0 = blockIdx.x * WG_TN;
+  const int k0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
   const int z = blockIdx.z;
   const int m_begin = z * chunk;
   const int m_end = min(M, m_begin + chunk);
@@ -427,7 +419,7 @@ gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) red[lr][lc + j] = bsum[j];
     __syncthreads();
-    if (tid < WG_TN) {
+    if (tid < BN) {
       float b = 0.f;
 #pragma unroll
       for (int r = 0; r < RSTEP; ++r) b += red[r][tid];
@@ -463,10 +455,10 @@ void launch_dgrad_bf16(int out_bf16, dim3 grid, cudaStream_t s, const void* dy,
 
 void launch_wgrad_f32(dim3 grid, cudaStream_t s, const void* A, const void* dy,
                       const float* scale, float* dw_part, float* db_part, int M, int K,
-                      int N, int chunk, int rows_per_img, int db_rounded, WinMap map) {
-  gemm_wgrad_kernel<float, float><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(A), static_cast<const float*>(dy), scale, dw_part, db_part,
-      M, K, N, chunk, rows_per_img, db_rounded, map);
+                      int N, int chunk, int rows_per_img, WinMap map) {
+  gemm_wgrad_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(A),
+                                              static_cast<const float*>(dy), scale, dw_part,
+                                              db_part, M, K, N, chunk, rows_per_img, map);
 }
 
 template <typename TDY>
@@ -526,8 +518,7 @@ extern "C" int sei_gemm_wgrad(int device, int is_bf16, const void* A, const void
   // WG_SL in bf16)
   const int slice = is_bf16 ? WG_SL : BK;
   const int chunk = ((M + splits - 1) / splits + slice - 1) / slice * slice;
-  const dim3 grid = is_bf16 ? dim3((N + WG_TN - 1) / WG_TN, (K + WG_TK - 1) / WG_TK, splits)
-                            : dim3((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
+  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -537,9 +528,9 @@ extern "C" int sei_gemm_wgrad(int device, int is_bf16, const void* A, const void
   const size_t dy_pack = 4 * (dy_bf16 ? sizeof(bf16) : sizeof(float));
   const bool vec4 = K % 4 == 0 && N % 4 == 0 && (size_t)A % 8 == 0 &&
                     (size_t)dy % dy_pack == 0;
-  if (!is_bf16)
+  if (!is_bf16)  // f32 rounds nothing: db_rounded changes no sum
     launch_wgrad_f32(grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk, rows_per_img,
-                     db_rounded, map);
+                     map);
   else if (dy_bf16)
     launch_wgrad_mma<bf16>(vec4, grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
                            rows_per_img, db_rounded, map);

@@ -92,6 +92,7 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 _EPS = 1e-5
 _EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
+_TILE = 64  # the GEMM kernels' output tile edge (BM = BN in csrc/gemm_*.cu)
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -299,7 +300,7 @@ def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
                  gp=(gp, (cdt, F32)), b=(b, F32), dpm=(dpm, F32))
     if gp is not None and not gp.is_contiguous():
         raise ValueError("gemm_bias_epilogue: gp must be contiguous")
-    if m > 65535 * 64:
+    if m > 65535 * _TILE:
         raise ValueError(f"gemm_bias_epilogue: M={m} exceeds the kernel's grid")
     out = torch.empty(res.shape if residual else (m, n), device=a.device, dtype=cdt)
     wm = window or WindowMap(0, 0, 0, 0)
@@ -390,7 +391,7 @@ def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, gp=None
                  scale=(scale, F32))
     if out_dtype not in (cdt, F32):
         raise ValueError(f"gemm_dgrad: out_dtype {out_dtype} with {cdt} weights")
-    if m > 65535 * 64:
+    if m > 65535 * _TILE:
         raise ValueError(f"gemm_dgrad: M={m} exceeds the kernel's grid")
     out = torch.empty((m, k), device=dy.device, dtype=out_dtype)
     wm = window or WindowMap(0, 0, 0, 0)
@@ -445,7 +446,7 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
     a, dy = a.contiguous(), dy.contiguous()
     scale = None if scale is None else scale.contiguous()
     require_cuda("gemm_wgrad", a=(a, KERNEL_DTYPES), dy=(dy, (a.dtype, F32)), scale=(scale, F32))
-    tiles = -(-k // 64) * -(-n // 64)
+    tiles = -(-k // _TILE) * -(-n // _TILE)
     splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
     dw = torch.empty((splits, k, n), device=a.device, dtype=F32)
     db = torch.empty((splits, n), device=a.device, dtype=F32)

@@ -43,10 +43,11 @@
 7. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
-   the bf16 ``gemm_wgrad``, CUDA-core FMAs for the rest).  bf16 entries
-   also carry ``queued_ms``: the device time of the same calls queued
-   behind a sleeping kernel, free of the wrapper's host cost; every entry
-   with a library call carries ``library_queued_ms``, the same for it.  A line before
+   the bf16 ``gemm_wgrad`` and ``gemm_bias_epilogue``, CUDA-core FMAs for
+   the rest).  bf16 entries also carry ``queued_ms``: the device time of
+   the same calls queued behind a sleeping kernel, free of the wrapper's
+   host cost; every entry with a library call carries
+   ``library_queued_ms``, the same for it.  A line before
    the kernel line gives the replaced versions' earlier times, marked as
    not measured in this run.
 
@@ -1205,15 +1206,17 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
     for name, (src, _) in SOURCES.items()}
 
 
-# how each kernel computes: the bf16 weight grad on the tensor cores, every
-# other kernel on the CUDA cores
-DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc"}
+# how each kernel computes: the bf16 weight grad and forward GEMM on the
+# tensor cores, every other kernel on the CUDA cores
+DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
+           "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc"}
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
 # earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
 # 700.00 W (PERF.md section 6 names the run); printed apart from the kernels
 # line, which holds only this run's measurements
-HISTORICAL = "historical, not measured in this run: gemm_wgrad[bf16] cuda-core fma 1.1579 ms"
+HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core fma 1.1579 ms; "
+              "gemm_bias_epilogue[bf16] cuda-core fma 1.2657 ms")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,

@@ -139,11 +139,81 @@ __device__ __forceinline__ void gelu_pair<bf16>(float x, float& g, float& gp) {
   gelu_pair_fast(x, g, gp);
 }
 
+// VEC consecutive elements of T, loaded or stored as one access of VEC *
+// sizeof(T) bytes (aligned to that; 32 bytes go as two 16-byte accesses)
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC > 16 ? 16 : sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <int BYTES> struct RawOf;
+template <> struct RawOf<2> { typedef unsigned short type; };
+template <> struct RawOf<4> { typedef unsigned type; };
+template <> struct RawOf<8> { typedef uint2 type; };
+template <> struct RawOf<16> { typedef uint4 type; };
+template <> struct RawOf<32> { struct type { uint4 lo, hi; }; };
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
+  typedef typename RawOf<sizeof(T) * VEC>::type R;
+  Pack<T, VEC> out;
+  *reinterpret_cast<R*>(&out) = *reinterpret_cast<const R*>(p);
+  return out;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& v) {
+  typedef typename RawOf<sizeof(T) * VEC>::type R;
+  *reinterpret_cast<R*>(p) = *reinterpret_cast<const R*>(&v);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> zero_pack() {
+  Pack<T, VEC> out;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) out.v[j] = from_f<T>(0.f);
+  return out;
+}
+
+// cp.async (sm_80 and up): BYTES (4, 8 or 16, aligned to that) from global
+// to shared memory without passing through registers; with valid == false
+// nothing is read and the destination is zero-filled (src-size 0).  Copies
+// are grouped by cp_async_commit; cp_async_wait<n> returns once at most n of
+// this thread's groups are still in flight.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :
+               : "r"(addr), "l"(gmem), "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" : : "n"(N) : "memory");
+}
+
 // Tensor-core building blocks (bf16 in, f32 accumulate; sm_80 and up).
-// ldmatrix_x4_trans: four 8x8 bf16 matrices from shared memory, transposed
-// on the way; lane l gives the address of row l % 8 of matrix l / 8 (16
-// bytes, 16-byte aligned) and receives in r[q] the elements (2 (l % 4) + j,
-// l / 4), j = 0, 1 (low half first), of matrix q.  So a tile stored with the
+// ldmatrix_x4: four 8x8 bf16 matrices from shared memory; lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned) and
+// receives in r[q] the elements (l / 4, 2 (l % 4) + j), j = 0, 1 (low half
+// first), of matrix q.  So a tile stored with the reduction axis contiguous
+// in each row comes out as mma's row-major A fragment.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// ldmatrix_x4_trans: the same, transposed on the way: lane l receives the
+// elements (2 (l % 4) + j, l / 4) of matrix q.  So a tile stored with the
 // reduction axis as its row comes out as mma's row-major A fragment or
 // col-major B fragment.
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {

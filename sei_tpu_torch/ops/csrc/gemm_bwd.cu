@@ -244,41 +244,6 @@ constexpr int WG_SL = 32;        // token rows (M) per staged slice
 constexpr int WG_PITCH = BN + 8;  // shared row pitch in bf16
 constexpr int WG_THREADS = 128;  // 4 warps, 2 x 2 over the tile, 32x32 each
 
-// VEC consecutive elements of T, loaded or stored as one access of VEC *
-// sizeof(T) bytes (aligned to that)
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-template <int BYTES> struct RawOf;
-template <> struct RawOf<2> { typedef unsigned short type; };
-template <> struct RawOf<4> { typedef unsigned type; };
-template <> struct RawOf<8> { typedef uint2 type; };
-template <> struct RawOf<16> { typedef uint4 type; };
-
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
-  typedef typename RawOf<sizeof(T) * VEC>::type R;
-  Pack<T, VEC> out;
-  *reinterpret_cast<R*>(&out) = *reinterpret_cast<const R*>(p);
-  return out;
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& v) {
-  typedef typename RawOf<sizeof(T) * VEC>::type R;
-  *reinterpret_cast<R*>(p) = *reinterpret_cast<const R*>(&v);
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> zero_pack() {
-  Pack<T, VEC> out;
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) out.v[j] = from_f<T>(0.f);
-  return out;
-}
-
 // dW[k][n] = sum_m A[m][k] round_bf16(s(m) dy[p(m)][n]) over this split's
 // rows m; blocks of the first k tile also sum db[n] over the same rows, of
 // the rounded operand or of the f32 one (db_rounded).  VEC = elements per

@@ -270,8 +270,12 @@ def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
     the qkv / proj / fc1 / fc2 products inside the TPU trunk kernel
     (``sei_tpu/ops/swin_trunk.py`` :448, :474, :539-547; the gelu/gelu'
     saves of mode ``full`` :541-545, :556-559).  Bound by FP32 operations in
-    f32 (TF32 off), by bytes in bf16; 64x64 tiles with 4x4 register tiles of
-    CUDA-core FMAs and the epilogue applied in registers.
+    f32 (TF32 off), by bytes in bf16; 64x64 output tiles, the epilogue
+    applied in registers.  f32 runs on the CUDA cores (4x4 register tiles of
+    FMAs); bf16 on the tensor cores (``mma.sync`` m16n8k16, f32
+    accumulators, 32-deep K slices copied by ``cp.async`` into a ring of
+    three shared buffers, the output tile staged in shared memory and
+    written in packed rows at each row's pixel).
     """
     if epilogue not in _EPILOGUES:
         raise ValueError(f"gemm_bias_epilogue: unknown epilogue {epilogue!r}")

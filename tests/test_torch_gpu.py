@@ -22,7 +22,9 @@ taken in another order can flip a rounding of the output or of an
 intermediate that is rounded before a further product (ds before dq and
 dk: one flip moves dq by an ulp of the largest ds); 1e-4 on their f32
 outputs (1e-3 + 1e-4 x |plain| on the tensor-core weight grad, whose sums
-over up to 4608 tokens run in the mma's order); on a two-block bf16 trunk the
+over up to 4608 tokens run in the mma's order; the tensor-core forward GEMM
+is held at the same bf16 gates, at the step's widths, on ragged and
+unaligned operands, and repeats bit for bit); on a two-block bf16 trunk the
 gradients within 3e-2 of each tensor's largest entry (the JAX trunk test's
 bound for its bf16 kernel against autograd of its reference).
 
@@ -307,20 +309,96 @@ def test_ln_rows_bf16(gpu, c, shift):
     _close_bf16(st.ln_rows(inp, g, b, window=wm), st._torch_ln_rows(inp, g, b, wm))
 
 
-@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180)])
-@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "gelu_pair", "gelu_pair_f32"])
-def test_gemm_bias_epilogue_bf16(gpu, m, k, n, epilogue):
-    a, w, b = _bf(gpu, m, k), _bf(gpu, k, n, s=0.1), _rnd(gpu, n, s=0.1)
-    res = _bf(gpu, m, n) if epilogue == "residual" else None
+_BF16_EPILOGUES = ["none", "gelu", "residual", "gelu_pair", "gelu_pair_f32"]
+
+
+def _gemm_bf16_case(g, m, k, n, epilogue, offset=0):
+    """Inputs of one bf16 gemm_bias_epilogue call (``offset``: a, w, res and
+    gp start that many elements into a larger buffer), its kwargs, and the
+    plain version's gp buffer."""
+
+    def buf(*shape, dtype=BF16, s=1.0):
+        numel = int(np.prod(shape))
+        return _rnd(g, numel + offset, s=s).to(dtype)[offset:].view(*shape)
+
+    a, w, b = buf(m, k), buf(k, n, s=0.1), _rnd(g, n, s=0.1)
+    res = buf(m, n) if epilogue == "residual" else None
     dpm = torch.tensor([0.5, 1.25], device="cuda")[: 2 if m % 2 == 0 else 1] if res is not None else None
     gp = gp_p = None
     if epilogue.startswith("gelu_pair"):
-        gp = torch.empty(m, n, device="cuda", dtype=F32 if epilogue.endswith("f32") else BF16)
+        gp = buf(m, n, dtype=F32 if epilogue.endswith("f32") else BF16)
         gp_p, epilogue = torch.empty_like(gp), "gelu_pair"
-    got = st.gemm_bias_epilogue(a, w, b, epilogue, res=res, dpm=dpm, gp=gp)
-    _close_bf16(got, st._torch_gemm_bias_epilogue(a, w, b, epilogue, res, dpm, None, gp_p))
-    if gp is not None:
-        _close_bf16(gp, gp_p)
+    return (a, w, b, epilogue), dict(res=res, dpm=dpm, gp=gp), gp_p
+
+
+# bf16 runs on the tensor cores (mma.sync, cp.async): besides the step's
+# widths, the kernel's edges: K or N of 17 or 33 (1-element copies), 8 and
+# 64 (16-byte copies), M not a multiple of the 64-row tile, one valid 16x8
+# mma tile, K of one 32-deep slice and of a partial one
+@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180),
+                                   (20, 8, 8), (100, 17, 8), (1007, 8, 17), (333, 17, 17),
+                                   (130, 33, 64), (65, 32, 64), (37, 180, 180), (1037, 360, 540)])
+@pytest.mark.parametrize("epilogue", _BF16_EPILOGUES)
+def test_gemm_bias_epilogue_bf16(gpu, m, k, n, epilogue):
+    args, kw, gp_p = _gemm_bf16_case(gpu, m, k, n, epilogue)
+    got = st.gemm_bias_epilogue(*args, **kw)
+    _close_bf16(got, st._torch_gemm_bias_epilogue(*args, kw["res"], kw["dpm"], None, gp_p))
+    if gp_p is not None:
+        _close_bf16(kw["gp"], gp_p)
+
+
+# the bf16 step's calls at the flagship widths, on both graphs (T = 16 or 8
+# images of 48x48): (K, N, epilogue, window map); fc1 with the saved bf16
+# gelu' (K5), the recompute's f32 gelu', and plain gelu (the no-grad forward)
+_FWD_VARIANTS = {"qkv": (180, 540, "none", False), "proj": (180, 180, "residual", True),
+                 "fc1_gelu": (180, 360, "gelu", False),
+                 "fc1_gelu_pair": (180, 360, "gelu_pair", False),
+                 "fc1_gelu_pair_f32": (180, 360, "gelu_pair_f32", False),
+                 "fc2": (360, 180, "residual", False)}
+
+
+@pytest.mark.parametrize("variant", list(_FWD_VARIANTS))
+@pytest.mark.parametrize("images", [16, 8])
+def test_gemm_bias_epilogue_mma_step_widths(gpu, variant, images):
+    k, n, epilogue, windowed = _FWD_VARIANTS[variant]
+    t = images * 48 * 48
+    (a, w, b, epi), kw, gp_p = _gemm_bf16_case(gpu, t, k, n, epilogue)
+    wm = st.WindowMap(48, 48, 8, 4) if windowed else None
+    if epi == "residual":
+        kw["res"] = _bf(gpu, images, 48, 48, n) if windowed else _bf(gpu, t, n)
+        kw["dpm"] = (torch.rand(images, generator=gpu, device="cuda") < 0.9).float() / 0.9
+    before = st.gemm_bias_epilogue.launches
+    got = st.gemm_bias_epilogue(a, w, b, epi, window=wm, **kw)
+    assert st.gemm_bias_epilogue.launches == before + 1
+    _close_bf16(got, st._torch_gemm_bias_epilogue(a, w, b, epi, kw["res"], kw["dpm"], wm, gp_p))
+    if gp_p is not None:
+        _close_bf16(kw["gp"], gp_p)
+
+
+@pytest.mark.parametrize("epilogue", _BF16_EPILOGUES)
+def test_gemm_bias_epilogue_mma_unaligned_pointers(gpu, epilogue):
+    """a, w, res and gp at odd element offsets (views into larger buffers)
+    cannot take 8- or 16-byte copies: the kernel copies element by element."""
+    args, kw, gp_p = _gemm_bf16_case(gpu, 300, 180, 180, epilogue, offset=1)
+    assert args[0].data_ptr() % 4 != 0
+    got = st.gemm_bias_epilogue(*args, **kw)
+    _close_bf16(got, st._torch_gemm_bias_epilogue(*args, kw["res"], kw["dpm"], None, gp_p))
+    if gp_p is not None:
+        _close_bf16(kw["gp"], gp_p)
+
+
+@pytest.mark.parametrize("epilogue", _BF16_EPILOGUES)
+def test_gemm_bias_epilogue_mma_repeats_bit_for_bit(gpu, epilogue):
+    """The mma order is fixed (no split-K, no atomics): two calls on the same
+    inputs agree exactly, gp included."""
+    args, kw, _ = _gemm_bf16_case(gpu, 4608, 180, 360, epilogue)
+    first = st.gemm_bias_epilogue(*args, **kw)
+    gp_first = None if kw["gp"] is None else kw["gp"].clone()
+    second = st.gemm_bias_epilogue(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    if gp_first is not None:
+        assert torch.equal(gp_first, kw["gp"])
 
 
 @pytest.mark.parametrize("shift", [0, 2])

@@ -43,8 +43,8 @@
 7. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
-   the bf16 ``gemm_wgrad`` and ``gemm_bias_epilogue``, CUDA-core FMAs for
-   the rest).  bf16 entries also carry ``queued_ms``: the device time of
+   the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue`` and ``gemm_dgrad``,
+   CUDA-core FMAs for the rest).  bf16 entries also carry ``queued_ms``: the device time of
    the same calls queued behind a sleeping kernel, free of the wrapper's
    host cost; every entry with a library call carries
    ``library_queued_ms``, the same for it.  A line before
@@ -57,6 +57,7 @@ Imports nothing of JAX and nothing of ``sei_tpu``.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -186,6 +187,30 @@ def fmt_library(r: dict) -> str:
     if r["library_ms"] is None:
         return "library None"
     return f"library {r['library_ms']:.4f} ms (queued {r['library_queued_ms']:.4f})"
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel of nvcc's ``-Xptxas -v`` log: its source, its name
+    (demangled where ``c++filt`` is found, without the parameter list), its
+    registers, barriers and shared memory, and its stack and spills."""
+    rows, src, name, frame = [], "", "", ""
+    for line in log.splitlines():
+        s = line.strip()
+        if s.startswith("== "):
+            src = s[3:]
+        elif "Compiling entry function" in s:
+            name = s.split("'")[1]
+        elif "spill" in s:
+            frame = s
+        elif s.startswith("ptxas info") and "Used" in s and "registers" in s:
+            rows.append((src, name, s.split(":", 1)[1].strip(), frame))
+    names = [r[1] for r in rows]
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True, timeout=60).stdout.splitlines()
+        names = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                 for n in names]
+    return [f"{src} {n}: {used}; {frame}" for (src, _, used, frame), n in zip(rows, names)]
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -1206,17 +1231,19 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
     for name, (src, _) in SOURCES.items()}
 
 
-# how each kernel computes: the bf16 weight grad and forward GEMM on the
-# tensor cores, every other kernel on the CUDA cores
+# how each kernel computes: the bf16 GEMMs (weight grad, forward, data
+# grad) on the tensor cores, every other kernel on the CUDA cores
 DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
-           "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc"}
+           "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
+           "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc"}
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
 # earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
 # 700.00 W (PERF.md section 6 names the run); printed apart from the kernels
 # line, which holds only this run's measurements
 HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core fma 1.1579 ms; "
-              "gemm_bias_epilogue[bf16] cuda-core fma 1.2657 ms")
+              "gemm_bias_epilogue[bf16] cuda-core fma 1.2657 ms; "
+              "gemm_dgrad[bf16] cuda-core fma 0.8734 ms")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1308,9 +1335,8 @@ def main(argv: list[str]) -> int:
     resolve_device("cuda")
     built = _build.library()
     print(f"kernels built in {built.seconds:.2f} s -> {built.path}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    for line in ptxas_report(built.log):
+        print(f"  {line}")
 
     rows = check_kernels(timed=not quick)
     for name, variants in check_train_kernels(timed=not quick).items():

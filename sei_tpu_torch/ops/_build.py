@@ -67,22 +67,22 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags: tuple[str, ...]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path, sources: list[Path]) -> str:
+def _compile(out: Path, sources: list[Path], flags: tuple[str, ...]) -> str:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
     try:
         objs = [tmp / (s.stem + ".o") for s in sources]
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s),
+            subprocess.Popen([nvcc, *flags, "-I", str(CSRC), "-c", str(s),
                               "-o", str(o)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
@@ -105,14 +105,17 @@ def _compile(out: Path, sources: list[Path]) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> Built:
-    """Build (if needed) and load the kernel library; cached per process."""
+def library(defines: tuple[str, ...] = ()) -> Built:
+    """Build (if needed) and load the kernel library; cached per process.
+    ``defines``: extra ``-D`` macros for a variant of the library (the tile
+    sweep's), part of its name; the kernel wrappers load the default one."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     sources = sorted(CSRC.glob("*.cu"))
-    out = BUILD_DIR / f"libsei_kernels_{_digest()}.so"
+    out = BUILD_DIR / f"libsei_kernels_{_digest(flags)}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         t0 = time.perf_counter()
-        log = _compile(out, sources)
+        log = _compile(out, sources, flags)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

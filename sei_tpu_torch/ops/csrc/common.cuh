@@ -5,10 +5,8 @@
 // training recipe); arithmetic is f32 throughout, and a value is rounded to
 // T exactly where the JAX trunk casts to its compute dtype (round_as<T>).
 // Buffers that are f32 in one call and T in another get a template
-// parameter of their own where the hot loop touches them (dy of the backward
-// GEMMs, dz/dres/dx of the LN backward); gelu'(h), read or written once per
-// element in an epilogue, is a Buf, whose element type is chosen at run
-// time on a branch that is uniform across the grid.
+// parameter of their own (dy, gp and out of the backward GEMMs, dz/dres/dx
+// of the LN backward, gelu'(h) of the forward GEMM's epilogue).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,22 +27,6 @@ __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_
 // v rounded to T (round to nearest even, as astype / .to(bfloat16))
 template <typename T>
 __device__ __forceinline__ float round_as(float v) { return to_f(from_f<T>(v)); }
-
-// A buffer of float or bf16 elements, the type chosen at run time.
-struct Buf {
-  void* p;
-  int is_bf16;
-  __device__ __forceinline__ float ld(long long i) const {
-    return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
-                   : static_cast<const float*>(p)[i];
-  }
-  __device__ __forceinline__ void st(long long i, float v) const {
-    if (is_bf16)
-      static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(p)[i] = v;
-  }
-};
 
 // Row order of a (rows, C) token matrix against the (B, H, W, C) image it
 // came from.  windowed == 0: row r is pixel r.  windowed == 1: row r is token

@@ -32,48 +32,62 @@
 // and with_saved=True (K7).  Bound on the H100: 2*M*K*N flops against
 // (M*K + M*N + K*N) elements, ~45-90 flops per byte in f32 at K, N in {180,
 // 360, 540} (above the FP32 ridge of 20: operations bound, 67 TFLOP/s); in
-// bf16 ~90-180 against the bf16 ridge of 295 (989 TFLOP/s): bytes bound
-// (the bf16 step's four weight grads per SwinBlock move ~200 MB: 0.0597 ms
-// at 3.35 TB/s).
+// bf16 ~90-180 against the bf16 ridge of 295 (989 TFLOP/s): bytes bound.
+// Per SwinBlock of the bf16 step (T = 36864) the four weight grads move
+// ~200 MB (0.0597 ms at 3.35 TB/s) and the four data grads 266 MB (0.0794
+// ms: f32 dy of fc1 and proj, f32 dh and dz, the bf16 gelu' read by fc2).
 //
-// f32 (gemm_dgrad in both types, gemm_wgrad in f32), as gemm_bias_epilogue.cu:
-// 64x64 output tiles per 256-thread block, 16-deep reduction slices staged
+// f32 (gemm_dgrad_kernel, gemm_wgrad_kernel), as gemm_bias_epilogue.cu: 64x64
+// output tiles per 256-thread block, 16-deep reduction slices staged
 // through shared memory as f32, a 4x4 register tile of CUDA-core FMAs per
-// thread; the gather, scale and rounding are applied on the load, gp in the
-// epilogue.  TF32 stays off, so f32 stays on the CUDA cores.
+// thread; the gather and scale are applied on the load, gp in the epilogue.
+// TF32 stays off, so f32 stays on the CUDA cores.
 //
-// bf16 gemm_wgrad (gemm_wgrad_mma_kernel) runs on the tensor cores:
-// - Tiles.  A 128-thread block owns a 64x64 tile of dW over (K, N); its four
-//   warps take 32x32 each, as 2 x 4 mma.sync.m16n8k16 bf16 tiles with f32
-//   accumulators in registers.  The block walks its split's rows of M in
-//   slices of 32.  A slice of A and of the rounded operand G is staged in
-//   shared memory as bf16 with M as the row (pitch 72 elements: the eight
-//   16-byte rows of one ldmatrix fall in distinct banks); the reduction runs
-//   over M, so both fragments come out with ldmatrix .trans.
-// - Two stages.  Each thread loads its part of slice s+1 from global memory
-//   into registers before the mma of slice s and converts and stores it into
-//   the other shared buffer after: the loads are in flight during the mma.
-//   One __syncthreads per slice.
-// - The prologue stays fused on the load: each staged row's pixel
-//   (row_to_pixel) and scale are computed once per row and thread; the row
-//   is scaled, rounded to bf16 once, and stored.
-// - Bias sums.  Blocks of the first K tile also add each loaded value (the
-//   f32 one before rounding, or the rounded one with db_rounded) into
-//   per-thread running sums over a fixed set of columns and rows, reduced
-//   across the block in a fixed order at the end: the same order on every
-//   run (no atomics), so a captured step repeats the eager one bit for bit.
-// - Ragged widths.  K and N of 180, 360 or 540 are not multiples of 64:
-//   edges are zero-filled in shared memory (180 in 3 tiles of 64: the last
-//   holds 52 valid columns, 6.25% of the width is padding; 360 and 540
-//   likewise 6.25%, so 12.1% of each variant's K x N tile area).  M and the
-//   split chunks are whole 32-row slices at the step's T, so M pads
-//   nothing.  Rows of bf16 A with K = 180 or 540 are 8-byte, not 16-byte,
-//   aligned, so loads go through registers in 4-element packs (8 bytes of
-//   bf16, 16 of f32) when K, N and the pointers allow it (VEC = 4, every
-//   shape of the step) and element by element otherwise (VEC = 1).
+// bf16 runs on the tensor cores (gemm_wgrad_mma_kernel, gemm_dgrad_mma_kernel):
+// - Tiles.  A 128-thread block owns a 64x64 tile of dW over (K, N), or a
+//   64x96 tile of out over (M, K); its four warps take 32x32 (32x48) each,
+//   as 2 x 4 (2 x 6) mma.sync.m16n8k16 bf16 tiles with f32 accumulators in
+//   registers.  The
+//   reduction (M for dW, N for out) is walked in slices of 32, staged in
+//   shared memory as bf16 at a row pitch of +8 elements (the eight 16-byte
+//   rows of one ldmatrix fall in distinct banks).
+// - Fragments.  wgrad reduces over M, which is the row of both staged
+//   operands (A [m][k], G [m][n]): both fragments come from ldmatrix .trans.
+//   dgrad reduces over N, which is contiguous in both (G [m][n], W [k][n],
+//   the col-major B fragment as W is stored): both from a plain ldmatrix.
+// - Two stages.  Each thread loads its part of slice s+1 of the rounded
+//   operand G into registers before the mma of slice s and scales, rounds
+//   and stores it into the other shared buffer after: the loads are in
+//   flight during the mma.  dgrad's W needs no prologue and goes straight
+//   to shared memory by cp.async alongside.  One __syncthreads per slice.
+// - The prologue stays fused on the load: the rows a thread stages are the
+//   same in every slice, so each row's pixel (row_to_pixel) and scale are
+//   computed once per row and thread; the row is scaled, rounded to bf16
+//   once, and stored.  dgrad runs it ceil(K / DG_TN) times over each dy
+//   element: 2 at K = 180 and 4 at 360 with 96 columns (64: 3 and 6, 10%
+//   slower on the card; 192: 1 and 2, but 168 registers spill at 3 blocks
+//   per SM, 4% slower; dgrad_tile_sweep.py, PERF.md).
+// - Bias sums (wgrad).  Blocks of the first K tile also add each loaded
+//   value (the f32 one before rounding, or the rounded one with db_rounded)
+//   into per-thread running sums over a fixed set of columns and rows,
+//   reduced across the block in a fixed order at the end.
+// - dgrad's epilogue.  The f32 tile is staged in the slices' shared memory,
+//   then each row goes out in packed accesses, times gp's packs (bf16 or
+//   f32) and converted to the output type.
+// - Ragged widths.  K and N of 180, 360 or 540 are not multiples of 64, 96
+//   or 32: edges are zero-filled in shared memory (6.25% of each of those
+//   widths is padding; 6.7% of K in dgrad's 96-column tiles).  M is whole tiles and slices at the step's T.  Rows
+//   of 180 or 540 bf16 are 8-byte, not 16-byte, aligned, so global accesses
+//   are 4-element packs (8 bytes of bf16, 16 of f32; cp.async of 8 bytes)
+//   when K, N and the pointers allow it (VEC = 4, every shape of the step)
+//   and element by element otherwise (VEC = 1).
+// - The sum order is fixed (no split-K, no atomics): repeats are bit for bit
+//   equal, so a captured step repeats the eager one.
 // Left for a wgmma/TMA version: 64-row warpgroup tiles fed by TMA into a
 // ring of shared buffers with mbarriers, a producer warp, a persistent grid;
 // and the rounding prologue, which TMA cannot apply, in a converter warp.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -84,12 +98,12 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int kThreads = 256;
 
-// out[m][k] = sum_n round_T(s(m) dy[p(m)][n]) W[k][n]  (M x K, reduction over N)
-template <typename T, typename TDY, typename TOUT, bool GP>
+// out[m][k] = sum_n s(m) dy[p(m)][n] W[k][n]  (M x K, reduction over N), in f32
+template <bool GP>
 __global__ void __launch_bounds__(kThreads)
-gemm_dgrad_kernel(const TDY* __restrict__ dy, const T* __restrict__ Wt,
-                  const float* __restrict__ scale, Buf gp, TOUT* __restrict__ out, int M,
-                  int N, int K, int rows_per_img, WinMap map) {
+gemm_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ Wt,
+                  const float* __restrict__ scale, const float* __restrict__ gp,
+                  float* __restrict__ out, int M, int N, int K, int rows_per_img, WinMap map) {
   __shared__ __align__(16) float As[BK][BM + 4];  // As[n][m]
   __shared__ __align__(16) float Bs[BK][BN + 4];  // Bs[n][k]
 
@@ -102,14 +116,14 @@ gemm_dgrad_kernel(const TDY* __restrict__ dy, const T* __restrict__ Wt,
   const int l_row = tid >> 2;  // 64 rows x 4 threads, 4 reduction entries each
   const int l_n = (tid & 3) * 4;
   const int am = m0 + l_row;
-  const TDY* arow = nullptr;
+  const float* arow = nullptr;
   float as = 0.f;
   if (am < M) {
     arow = dy + row_to_pixel(am, map) * N;
     as = scale ? scale[am / rows_per_img] : 1.f;
   }
   const int bk = k0 + l_row;
-  const T* brow = bk < K ? Wt + (long long)bk * N : nullptr;
+  const float* brow = bk < K ? Wt + (long long)bk * N : nullptr;
 
   float acc[4][4];
 #pragma unroll
@@ -121,8 +135,8 @@ gemm_dgrad_kernel(const TDY* __restrict__ dy, const T* __restrict__ Wt,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gn = n0 + l_n + i;
-      As[l_n + i][l_row] = (arow && gn < N) ? round_as<T>(as * to_f(arow[gn])) : 0.f;
-      Bs[l_n + i][l_row] = (brow && gn < N) ? to_f(brow[gn]) : 0.f;
+      As[l_n + i][l_row] = (arow && gn < N) ? as * arow[gn] : 0.f;
+      Bs[l_n + i][l_row] = (brow && gn < N) ? brow[gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -148,9 +162,7 @@ gemm_dgrad_kernel(const TDY* __restrict__ dy, const T* __restrict__ Wt,
       const int gk = k0 + tx * 4 + j;
       if (gk >= K) continue;
       const long long idx = (long long)gm * K + gk;
-      float o = acc[i][j];
-      if (GP) o *= gp.ld(idx);
-      out[idx] = from_f<TOUT>(o);
+      out[idx] = GP ? acc[i][j] * gp[idx] : acc[i][j];
     }
   }
 }
@@ -393,30 +405,262 @@ gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,
   }
 }
 
-template <typename T, typename TDY, typename TOUT>
-void launch_dgrad(dim3 grid, cudaStream_t s, const void* dy, const void* Wt,
-                  const float* scale, Buf gp, void* out, int M, int N, int K,
-                  int rows_per_img, WinMap map) {
-  const TDY* d = static_cast<const TDY*>(dy);
-  const T* w = static_cast<const T*>(Wt);
-  TOUT* o = static_cast<TOUT*>(out);
-  if (gp.p != nullptr)
-    gemm_dgrad_kernel<T, TDY, TOUT, true><<<grid, kThreads, 0, s>>>(d, w, scale, gp, o, M,
-                                                                    N, K, rows_per_img, map);
+// -- bf16 gemm_dgrad on the tensor cores (see the note at the top) ---------
+
+// output columns (K) per block: 96 (K = 180 in 2 tiles, 360 in 4), which
+// beat 64 and 192 on the card (dgrad_tile_sweep.py builds the library with
+// -DSEI_DGRAD_TN=64 or 192; PERF.md)
+#ifndef SEI_DGRAD_TN
+#define SEI_DGRAD_TN 96
+#endif
+constexpr int DG_BM = BM;             // output rows (tokens) per block
+constexpr int DG_TN = SEI_DGRAD_TN;
+constexpr int DG_SL = 32;             // reduction depth (N) of one staged slice
+constexpr int DG_THREADS = 128;       // 4 warps, 2 x 2 over the tile
+constexpr int DG_PITCH = DG_SL + 8;   // bf16 row pitch of the staged slices
+constexpr int DG_O_PITCH = DG_TN + 4;  // f32 row pitch of the staged output tile
+constexpr int DG_G_STAGE = DG_BM * DG_PITCH;
+constexpr int DG_W_STAGE = DG_TN * DG_PITCH;
+constexpr int DG_RING = 2 * (DG_G_STAGE + DG_W_STAGE) * (int)sizeof(bf16);
+constexpr int DG_OUT = DG_BM * DG_O_PITCH * (int)sizeof(float);
+constexpr int DG_SMEM = DG_RING > DG_OUT ? DG_RING : DG_OUT;  // dynamic shared bytes
+static_assert(DG_TN % 32 == 0, "each warp's columns are whole pairs of n8 tiles");
+
+// out[m][k] = (sum_n round_bf16(s(m) dy[p(m)][n]) W[k][n]) gp[m][k] with f32
+// accumulators; TGP = void: no gp factor.  VEC = elements per global access
+// (4, or 1 where K, N or a pointer do not allow 4-element packs).
+template <typename TDY, typename TOUT, typename TGP, int VEC>
+__global__ void __launch_bounds__(DG_THREADS, DG_TN <= 96 ? 4 : 3)
+gemm_dgrad_mma_kernel(const TDY* __restrict__ dy, const bf16* __restrict__ Wt,
+                      const float* __restrict__ scale, const TGP* __restrict__ gp,
+                      TOUT* __restrict__ out, int M, int N, int K, int rows_per_img,
+                      WinMap map) {
+  // packs per staged row, rows between one thread's G packs, packs per thread
+  constexpr int G_CPR = DG_SL / VEC, G_RSTEP = DG_THREADS / G_CPR, G_NP = DG_BM / G_RSTEP;
+  constexpr int W_NP = DG_TN * G_CPR / DG_THREADS;
+  constexpr int O_CPR = DG_TN / VEC, O_NP = DG_BM * O_CPR / DG_THREADS;
+  static_assert(DG_THREADS % G_CPR == 0 && DG_BM % G_RSTEP == 0 &&
+                DG_TN * G_CPR % DG_THREADS == 0 && DG_BM * O_CPR % DG_THREADS == 0,
+                "load layout");
+  constexpr int WJ = DG_TN / 16;  // n8 tiles per warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Gs = reinterpret_cast<bf16*>(smem);  // [stage][m][n]
+  bf16* Ws = Gs + 2 * DG_G_STAGE;            // [stage][k][n]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wm = (tid >> 5) >> 1;  // this warp's 32 rows (m) of the tile
+  const int wn = (tid >> 5) & 1;   // and DG_TN / 2 columns (k)
+  const int k0 = blockIdx.x * DG_TN;
+  const int m0 = blockIdx.y * DG_BM;
+
+  // this thread's G packs: columns gc .. gc+VEC-1 of rows gr + i*G_RSTEP in
+  // every slice, so each row's pixel and scale are found once (pixel -1:
+  // past M, zero-filled); with VEC = 4, N is a multiple of 4, so a pack is
+  // valid or padding
+  const int gc = (tid % G_CPR) * VEC;
+  const int gr = tid / G_CPR;
+  int pix[G_NP];
+  float ps[G_NP];
+#pragma unroll
+  for (int i = 0; i < G_NP; ++i) {
+    const int gm = m0 + gr + i * G_RSTEP;
+    pix[i] = gm < M ? (int)row_to_pixel(gm, map) : -1;
+    ps[i] = gm < M && scale ? scale[gm / rows_per_img] : 1.f;
+  }
+  Pack<TDY, VEC> pd[G_NP];  // slice s+1 of G in flight, raw
+
+  // slice n0: G into registers; W straight into stage st by cp.async (one
+  // element through registers with VEC = 1), zero-filled past K and N
+  auto load = [&](int st, int n0) {
+    const bool col = n0 + gc < N;
+#pragma unroll
+    for (int i = 0; i < G_NP; ++i)
+      pd[i] = col && pix[i] >= 0 ? load_pack<TDY, VEC>(dy + (long long)pix[i] * N + n0 + gc)
+                                 : zero_pack<TDY, VEC>();
+    bf16* ws = Ws + st * DG_W_STAGE;
+#pragma unroll
+    for (int i = 0; i < W_NP; ++i) {
+      const int idx = tid + i * DG_THREADS;
+      const int r = idx / G_CPR, c = (idx % G_CPR) * VEC;
+      const int gk = k0 + r, gn = n0 + c;
+      const bool ok = gk < K && gn < N;
+      const bf16* src = ok ? Wt + (long long)gk * N + gn : Wt;
+      if constexpr (VEC == 1)
+        ws[r * DG_PITCH + c] = ok ? *src : from_f<bf16>(0.f);
+      else
+        cp_async<VEC * (int)sizeof(bf16)>(ws + r * DG_PITCH + c, src, ok);
+    }
+  };
+  // G's prologue: scale, round to bf16 once, store into stage st
+  auto store = [&](int st) {
+    bf16* gs = Gs + st * DG_G_STAGE;
+#pragma unroll
+    for (int i = 0; i < G_NP; ++i) {
+      Pack<bf16, VEC> g;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) g.v[j] = from_f<bf16>(ps[i] * to_f(pd[i].v[j]));
+      store_pack(gs + (gr + i * G_RSTEP) * DG_PITCH + gc, g);
+    }
+  };
+
+  // ldmatrix row addresses: lane l serves row l % 8 of matrix l / 8.  Both
+  // operands are staged with the reduction axis (n) contiguous, so both come
+  // from a plain ldmatrix.  A fragment (16 m x 16 n): matrices (m 0-7, n
+  // 0-7), (m 8-15, n 0-7), (m 0-7, n 8-15), (m 8-15, n 8-15); B fragments of
+  // two n8 tiles, from W's rows k: (k 0-7, n 0-7), (k 0-7, n 8-15), (k 8-15,
+  // n 0-7), (k 8-15, n 8-15), i.e. b0, b1 of the first tile, then of the
+  // second.
+  const int a_m = wm * 32 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int a_n = (lane >> 4) << 3;
+  const int b_k = wn * (DG_TN / 2) + (lane & 7) + ((lane >> 4) << 3);
+  const int b_n = ((lane >> 3) & 1) << 3;
+  float acc[2][WJ][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < WJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+  auto compute = [&](int st) {
+    const bf16* gs = Gs + st * DG_G_STAGE;
+    const bf16* ws = Ws + st * DG_W_STAGE;
+#pragma unroll
+    for (int ks = 0; ks < DG_SL; ks += 16) {
+      unsigned af[2][4], bfr[WJ][2];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) ldmatrix_x4(af[t], gs + (a_m + t * 16) * DG_PITCH + ks + a_n);
+#pragma unroll
+      for (int p = 0; p < WJ / 2; ++p) {
+        unsigned r[4];
+        ldmatrix_x4(r, ws + (b_k + p * 16) * DG_PITCH + ks + b_n);
+        bfr[2 * p][0] = r[0];
+        bfr[2 * p][1] = r[1];
+        bfr[2 * p + 1][0] = r[2];
+        bfr[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < WJ; ++j) mma_bf16_16816(acc[t][j], af[t], bfr[j][0], bfr[j][1]);
+    }
+  };
+
+  // two stages: slice s+1's loads are in flight during slice s's mma; G is
+  // stored after it, and one barrier per slice frees the stage it read
+  const int slices = (N + DG_SL - 1) / DG_SL;
+  load(0, 0);
+  cp_async_commit();
+  store(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int s = 0; s < slices; ++s) {
+    const bool next = s + 1 < slices;
+    if (next) load((s + 1) & 1, (s + 1) * DG_SL);
+    cp_async_commit();
+    compute(s & 1);
+    if (next) store((s + 1) & 1);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // the f32 tile goes through shared memory (the ring is free: every warp
+  // passed the last barrier), then out in packed rows, times gp's packs
+  // accumulator (t, j): rows m = lane / 4 (+ 8), columns k = 2 (lane % 4) (+ 1)
+  float* so = reinterpret_cast<float*>(smem);  // [m][k]
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < WJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + t * 16 + (lane >> 2) + h * 8;
+        const int c = wn * (DG_TN / 2) + j * 8 + ((lane & 3) << 1);
+        *reinterpret_cast<float2*>(so + r * DG_O_PITCH + c) =
+            make_float2(acc[t][j][2 * h], acc[t][j][2 * h + 1]);
+      }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < O_NP; ++i) {
+    const int idx = tid + i * DG_THREADS;
+    const int r = idx / O_CPR, c = (idx % O_CPR) * VEC;
+    const int gm = m0 + r, gk = k0 + c;
+    if (gm >= M || gk >= K) continue;
+    const long long o = (long long)gm * K + gk;
+    const Pack<float, VEC> v = load_pack<float, VEC>(so + r * DG_O_PITCH + c);
+    Pack<TOUT, VEC> y;
+    if constexpr (std::is_void<TGP>::value) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) y.v[j] = from_f<TOUT>(v.v[j]);
+    } else {
+      const Pack<TGP, VEC> g = load_pack<TGP, VEC>(gp + o);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) y.v[j] = from_f<TOUT>(v.v[j] * to_f(g.v[j]));
+    }
+    store_pack(out + o, y);
+  }
+}
+
+struct DgradArgs {
+  const void* dy;
+  const void* Wt;
+  const float* scale;
+  const void* gp;
+  void* out;
+  int M, N, K, rows_per_img;
+  WinMap map;
+};
+
+void launch_dgrad_f32(dim3 grid, cudaStream_t s, const DgradArgs& a) {
+  const float* d = static_cast<const float*>(a.dy);
+  const float* w = static_cast<const float*>(a.Wt);
+  const float* g = static_cast<const float*>(a.gp);
+  float* o = static_cast<float*>(a.out);
+  if (g != nullptr)
+    gemm_dgrad_kernel<true><<<grid, kThreads, 0, s>>>(d, w, a.scale, g, o, a.M, a.N, a.K,
+                                                      a.rows_per_img, a.map);
   else
-    gemm_dgrad_kernel<T, TDY, TOUT, false><<<grid, kThreads, 0, s>>>(d, w, scale, gp, o, M,
-                                                                     N, K, rows_per_img, map);
+    gemm_dgrad_kernel<false><<<grid, kThreads, 0, s>>>(d, w, a.scale, g, o, a.M, a.N, a.K,
+                                                       a.rows_per_img, a.map);
+}
+
+template <typename TDY, typename TOUT, typename TGP, int VEC>
+cudaError_t launch_dgrad_mma_vec(dim3 grid, cudaStream_t s, const DgradArgs& a) {
+  const auto kernel = gemm_dgrad_mma_kernel<TDY, TOUT, TGP, VEC>;
+  if (DG_SMEM > 48 * 1024) {  // wide tiles of the sweep only
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DG_SMEM);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, DG_THREADS, DG_SMEM, s>>>(
+      static_cast<const TDY*>(a.dy), static_cast<const bf16*>(a.Wt), a.scale,
+      static_cast<const TGP*>(a.gp), static_cast<TOUT*>(a.out), a.M, a.N, a.K,
+      a.rows_per_img, a.map);
+  return cudaSuccess;
+}
+
+template <typename TDY, typename TOUT, typename TGP>
+cudaError_t launch_dgrad_mma_gp(bool vec4, dim3 grid, cudaStream_t s, const DgradArgs& a) {
+  return vec4 ? launch_dgrad_mma_vec<TDY, TOUT, TGP, 4>(grid, s, a)
+              : launch_dgrad_mma_vec<TDY, TOUT, TGP, 1>(grid, s, a);
+}
+
+template <typename TDY, typename TOUT>
+cudaError_t launch_dgrad_mma_out(int gp_bf16, bool vec4, dim3 grid, cudaStream_t s,
+                                 const DgradArgs& a) {
+  if (a.gp == nullptr) return launch_dgrad_mma_gp<TDY, TOUT, void>(vec4, grid, s, a);
+  if (gp_bf16) return launch_dgrad_mma_gp<TDY, TOUT, bf16>(vec4, grid, s, a);
+  return launch_dgrad_mma_gp<TDY, TOUT, float>(vec4, grid, s, a);
 }
 
 template <typename TDY>
-void launch_dgrad_bf16(int out_bf16, dim3 grid, cudaStream_t s, const void* dy,
-                       const void* Wt, const float* scale, Buf gp, void* out, int M, int N,
-                       int K, int rows_per_img, WinMap map) {
-  if (out_bf16)
-    launch_dgrad<bf16, TDY, bf16>(grid, s, dy, Wt, scale, gp, out, M, N, K, rows_per_img, map);
-  else
-    launch_dgrad<bf16, TDY, float>(grid, s, dy, Wt, scale, gp, out, M, N, K, rows_per_img, map);
+cudaError_t launch_dgrad_mma(int out_bf16, int gp_bf16, bool vec4, dim3 grid, cudaStream_t s,
+                             const DgradArgs& a) {
+  return out_bf16 ? launch_dgrad_mma_out<TDY, bf16>(gp_bf16, vec4, grid, s, a)
+                  : launch_dgrad_mma_out<TDY, float>(gp_bf16, vec4, grid, s, a);
 }
+
+bool aligned(const void* p, size_t bytes) { return (size_t)p % bytes == 0; }
 
 void launch_wgrad_f32(dim3 grid, cudaStream_t s, const void* A, const void* dy,
                       const float* scale, float* dw_part, float* db_part, int M, int K,
@@ -449,24 +693,29 @@ extern "C" int sei_gemm_dgrad(int device, int is_bf16, const void* dy, int dy_bf
                               int ws, int shift, void* stream) {
   if (M < 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   if (scale != nullptr && rows_per_img <= 0) return (int)cudaErrorInvalidValue;
-  if (!is_bf16 && (dy_bf16 || out_bf16)) return (int)cudaErrorInvalidValue;
+  if (!is_bf16 && (dy_bf16 || out_bf16 || gp_bf16)) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const dim3 grid((K + BN - 1) / BN, (M + BM - 1) / BM);
+  // both kernels' tiles are DG_BM = BM rows high; the f32 tile is BN wide
+  const int tn = is_bf16 ? DG_TN : BN;
+  const dim3 grid((K + tn - 1) / tn, (M + BM - 1) / BM);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const WinMap map{windowed, H, W, ws, shift};
-  const Buf g{const_cast<void*>(gp), gp_bf16};
+  const DgradArgs a{dy, Wt, scale, gp, out, M, N, K, rows_per_img,
+                    WinMap{windowed, H, W, ws, shift}};
   cudaStream_t s = (cudaStream_t)stream;
-  if (!is_bf16)
-    launch_dgrad<float, float, float>(grid, s, dy, Wt, scale, g, out, M, N, K, rows_per_img,
-                                      map);
-  else if (dy_bf16)
-    launch_dgrad_bf16<bf16>(out_bf16, grid, s, dy, Wt, scale, g, out, M, N, K, rows_per_img,
-                            map);
-  else
-    launch_dgrad_bf16<float>(out_bf16, grid, s, dy, Wt, scale, g, out, M, N, K, rows_per_img,
-                             map);
+  if (!is_bf16) {
+    launch_dgrad_f32(grid, s, a);
+    return (int)cudaGetLastError();
+  }
+  // 4-element packs: 8 bytes of bf16, 16 of f32, at every row start
+  const auto pack = [](int is_bf) { return 4 * (is_bf ? sizeof(bf16) : sizeof(float)); };
+  const bool vec4 = K % 4 == 0 && N % 4 == 0 && aligned(dy, pack(dy_bf16)) &&
+                    aligned(Wt, pack(1)) && aligned(gp, pack(gp_bf16)) &&
+                    aligned(out, pack(out_bf16));
+  err = dy_bf16 ? launch_dgrad_mma<bf16>(out_bf16, gp_bf16, vec4, grid, s, a)
+                : launch_dgrad_mma<float>(out_bf16, gp_bf16, vec4, grid, s, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -92,7 +92,7 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 _EPS = 1e-5
 _EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
-_TILE = 64  # the GEMM kernels' output tile edge (BM = BN in csrc/gemm_*.cu)
+_TILE = 64  # the GEMM tiles' rows (BM in csrc/gemm_*.cu; BN too, but bf16 dgrad is 96 wide)
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -374,8 +374,12 @@ def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, gp=None
     Kernel ``gemm_dgrad`` (``csrc/gemm_bwd.cu``) replaces the data-grad
     products of the TPU trunk's backward (``sei_tpu/ops/swin_trunk.py``
     ``_block_bwd_image`` :665-666, :669, :740-741, :803).  Bound by FP32
-    operations in f32, by bytes in bf16; 64x64 tiles, 4x4 register tiles,
-    the gather, scale and rounding on the load and gp in the epilogue.
+    operations in f32, by bytes in bf16; the gather, scale and rounding on
+    the load and gp in the epilogue.  f32 runs on the CUDA cores (64x64
+    tiles, 4x4 register tiles); bf16 on the tensor cores (``mma.sync``
+    m16n8k16, f32 accumulators, 64x96 tiles, 32-deep slices of the rounded
+    operand staged through registers and of w copied by ``cp.async``, two
+    shared buffers).  Both tiles are ``_TILE`` rows high.
     """
     k, n = w.shape
     if dy.shape[-1] != n:

@@ -22,9 +22,9 @@ taken in another order can flip a rounding of the output or of an
 intermediate that is rounded before a further product (ds before dq and
 dk: one flip moves dq by an ulp of the largest ds); 1e-4 on their f32
 outputs (1e-3 + 1e-4 x |plain| on the tensor-core weight grad, whose sums
-over up to 4608 tokens run in the mma's order; the tensor-core forward GEMM
-is held at the same bf16 gates, at the step's widths, on ragged and
-unaligned operands, and repeats bit for bit); on a two-block bf16 trunk the
+over up to 4608 tokens run in the mma's order; the tensor-core forward and
+data-grad GEMMs are held at the same bf16 gates, at the step's widths, on
+ragged and unaligned operands, and repeat bit for bit); on a two-block bf16 trunk the
 gradients within 3e-2 of each tensor's largest entry (the JAX trunk test's
 bound for its bf16 kernel against autograd of its reference).
 
@@ -449,7 +449,13 @@ def test_window_attn_bwd_saved_p(gpu, dtype, saved):
         (_close_bf16 if dtype == BF16 else lambda a, b_: _close(a, b_, 1e-4))(x, y)
 
 
-@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180)])
+# bf16 runs on the tensor cores (mma.sync; dy staged through registers, w
+# copied by cp.async): besides the step's widths, the kernel's edges: K or N
+# of 17 or 33 (1-element loads), 8 (one n8 tile), M not a multiple of the
+# 64-row tile, N of one 32-deep slice and of a partial one
+@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180),
+                                   (20, 8, 8), (100, 17, 8), (1007, 8, 17), (333, 17, 17),
+                                   (65, 64, 32), (37, 180, 180), (1037, 360, 540)])
 @pytest.mark.parametrize("dy_dtype,out_dtype,gp_dtype", [
     (BF16, F32, BF16),   # fc2: bf16 block gradient, saved bf16 gelu' -> f32 dh
     (BF16, F32, F32),    # fc2 in the bf16 recompute: f32 gelu'
@@ -546,6 +552,66 @@ def test_gemm_wgrad_mma_repeats_bit_for_bit(gpu, db_rounded):
     second = st.gemm_wgrad(a, dy, scale=scale, window=wm, db_rounded=db_rounded)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+# bf16 gemm_dgrad on the tensor cores: the bf16 step's four calls at the
+# flagship widths on both graphs (T = 16 or 8 images of 48x48), (K, N, dy,
+# out, gp, window map and drop-path scale); fc2 with the saved bf16 gelu'
+# (K7) and with the recompute's f32 gelu'
+_DGRAD_VARIANTS = {"fc2": (360, 180, BF16, F32, BF16, False),
+                   "fc2_gp_f32": (360, 180, BF16, F32, F32, False),
+                   "fc1": (180, 360, F32, F32, None, False),
+                   "proj": (180, 180, F32, BF16, None, True),
+                   "qkv": (180, 540, BF16, BF16, None, False)}
+
+
+def _dgrad_case(g, variant, images):
+    k, n, dy_dtype, out_dtype, gp_dtype, windowed = _DGRAD_VARIANTS[variant]
+    t = images * 48 * 48
+    wm = st.WindowMap(48, 48, 8, 4) if windowed else None
+    dy = (_rnd(g, images, 48, 48, n) if windowed else _rnd(g, t, n)).to(dy_dtype)
+    scale = ((torch.rand(images, generator=g, device="cuda") < 0.9).float() / 0.9
+             if variant.startswith("fc2") or windowed else None)
+    gp = None if gp_dtype is None else _rnd(g, t, k).to(gp_dtype)
+    return (dy, _bf(g, k, n, s=0.05)), dict(scale=scale, window=wm, gp=gp, out_dtype=out_dtype)
+
+
+@pytest.mark.parametrize("variant", list(_DGRAD_VARIANTS))
+@pytest.mark.parametrize("images", [16, 8])
+def test_gemm_dgrad_mma_step_widths(gpu, variant, images):
+    (dy, w), kw = _dgrad_case(gpu, variant, images)
+    before = st.gemm_dgrad.launches
+    got = st.gemm_dgrad(dy, w, **kw)
+    assert st.gemm_dgrad.launches == before + 1
+    _close_bf16(got, st._torch_gemm_dgrad(dy, w, kw["scale"], kw["window"], kw["gp"],
+                                          kw["out_dtype"]))
+
+
+@pytest.mark.parametrize("gp_dtype", [None, BF16, F32])
+@pytest.mark.parametrize("out_dtype", [F32, BF16])
+def test_gemm_dgrad_mma_unaligned_pointers(gpu, gp_dtype, out_dtype):
+    """dy, w and gp at odd element offsets (views into larger buffers) cannot
+    take 4-element packs or 8-byte copies: the kernel loads them element by
+    element."""
+    m, k, n = 300, 180, 180
+    dy = _rnd(gpu, m * n + 1).to(BF16)[1:].view(m, n)
+    w = _bf(gpu, k * n + 1, s=0.1)[1:].view(k, n)
+    gp = None if gp_dtype is None else _rnd(gpu, m * k + 1).to(gp_dtype)[1:].view(m, k)
+    assert dy.data_ptr() % 4 != 0
+    got = st.gemm_dgrad(dy, w, gp=gp, out_dtype=out_dtype)
+    _close_bf16(got, st._torch_gemm_dgrad(dy, w, None, None, gp, out_dtype))
+
+
+@pytest.mark.parametrize("variant", ["fc2", "fc2_gp_f32", "proj"])
+def test_gemm_dgrad_mma_repeats_bit_for_bit(gpu, variant):
+    """The mma order is fixed (no split-K, no atomics): two calls on the same
+    inputs agree exactly (what the captured step's bit-for-bit match with the
+    eager step rests on)."""
+    (dy, w), kw = _dgrad_case(gpu, variant, 2)
+    first = st.gemm_dgrad(dy, w, **kw)
+    second = st.gemm_dgrad(dy, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("c,shift", [(16, None), (180, 2)])

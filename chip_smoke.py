@@ -44,12 +44,13 @@
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
    the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue`` and ``gemm_dgrad``,
-   CUDA-core FMAs for the rest).  bf16 entries also carry ``queued_ms``: the device time of
-   the same calls queued behind a sleeping kernel, free of the wrapper's
-   host cost; every entry with a library call carries
-   ``library_queued_ms``, the same for it.  A line before
-   the kernel line gives the replaced versions' earlier times, marked as
-   not measured in this run.
+   CUDA-core FMAs for the rest; the f32 ``gemm_bias_epilogue`` in 8x6
+   register tiles fed by ``cp.async``) and carries ``queued_ms``: the
+   device time of the same calls queued behind a sleeping kernel, free of
+   the wrapper's host cost; every entry with a library call carries
+   ``library_queued_ms``, the same for it.  A line before the kernel line
+   gives the replaced versions' earlier times, marked as not measured in
+   this run; each profiled step prints its device time by kernel.
 
 Imports nothing of JAX and nothing of ``sei_tpu``.
 """
@@ -275,10 +276,11 @@ def check_kernels(timed: bool) -> dict:
              "flops": flops, "bytes": nbytes, "per_block": True}
         if timed:
             r["ms"] = time_ms(fn_k)
+            r["queued_ms"] = queued_ms(fn_k)
             r["plain_ms"] = time_ms(fn_p)
             r.update(library_times(fn_lib))
-            print(f"    {kernel}[{variant}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"{fmt_library(r)}, bound {b_ms:.4f} ms ({b_by}), "
+            print(f"    {kernel}[{variant}]: kernel {r['ms']:.4f} ms (queued {r['queued_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.4f} ms, {fmt_library(r)}, bound {b_ms:.4f} ms ({b_by}), "
                   f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
         rows.setdefault(kernel, []).append(r)
 
@@ -358,10 +360,11 @@ def check_train_kernels(timed: bool) -> dict:
              "flops": flops, "bytes": nbytes, "per_block": per_block}
         if timed:
             r["ms"] = time_ms(fn_k)
+            r["queued_ms"] = queued_ms(fn_k)
             r["plain_ms"] = time_ms(fn_p)
             r.update(library_times(fn_lib))
-            print(f"    {kernel}[{variant}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"{fmt_library(r)}, bound {b_ms:.4f} ms ({b_by}), "
+            print(f"    {kernel}[{variant}]: kernel {r['ms']:.4f} ms (queued {r['queued_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.4f} ms, {fmt_library(r)}, bound {b_ms:.4f} ms ({b_by}), "
                   f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
         rows.setdefault(kernel, []).append(r)
 
@@ -816,6 +819,31 @@ def profile_forward(model, y) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+# the port's kernels, by the names of their CUDA functions
+PORT_KERNELS = ("ln_rows", "gemm_bias_epilogue", "window_attn_fwd", "gemm_dgrad", "gemm_wgrad",
+                "window_attn_bwd", "ln_rows_bwd")
+
+
+def kernel_split(events) -> dict:
+    """Device ms of a profile by kernel: each of the port's kernels (its
+    tensor-core version as ``name[mma]``), then the rest (cuDNN, cuFFT,
+    cuBLAS, PyTorch's reductions and elementwise kernels) as ``other_ms``
+    with its five largest entries by name."""
+    split, other = {}, {}
+    for e in events:
+        ms = e.self_device_time_total / 1e3
+        name = next((k + ("[mma]" if f"{k}_mma_kernel" in e.key else "") for k in PORT_KERNELS
+                     if f"{k}_kernel" in e.key or f"{k}_mma_kernel" in e.key), None)
+        if name is None:
+            other[e.key[:80]] = other.get(e.key[:80], 0.0) + ms
+        else:
+            split[name] = split.get(name, 0.0) + ms
+    split = dict(sorted(split.items(), key=lambda kv: -kv[1]))
+    split["other_ms"] = sum(other.values())
+    split["other_largest"] = dict(sorted(other.items(), key=lambda kv: -kv[1])[:5])
+    return split
+
+
 def profile_step(step_fn, label: str) -> tuple[float, float]:
     """Device time by kernel over one call of ``step_fn`` (torch.profiler /
     CUPTI), and the device's busy share: kernel time over the host-clock
@@ -851,6 +879,7 @@ def profile_step(step_fn, label: str) -> tuple[float, float]:
           f"device kernels (busy share {total / wall_ms:.3f})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    print(f"  device ms by kernel, {label}: {json.dumps(kernel_split(events))}")
     return wall_ms, total
 
 
@@ -1235,7 +1264,8 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
 # grad) on the tensor cores, every other kernel on the CUDA cores
 DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
-           "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc"}
+           "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
+           "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async"}
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
 # earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
@@ -1243,7 +1273,9 @@ DESIGN_CUDA_CORES = "cuda-core fma"
 # line, which holds only this run's measurements
 HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core fma 1.1579 ms; "
               "gemm_bias_epilogue[bf16] cuda-core fma 1.2657 ms; "
-              "gemm_dgrad[bf16] cuda-core fma 0.8734 ms")
+              "gemm_dgrad[bf16] cuda-core fma 0.8734 ms; "
+              "gemm_bias_epilogue cuda-core fma, 4x4 register tiles 2.1481 ms (eval shape), "
+              "0.2782 ms (fc1_gelu_pair T=36864)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1335,8 +1367,11 @@ def main(argv: list[str]) -> int:
     resolve_device("cuda")
     built = _build.library()
     print(f"kernels built in {built.seconds:.2f} s -> {built.path}")
-    for line in ptxas_report(built.log):
+    report = ptxas_report(built.log)
+    for line in report:
         print(f"  {line}")
+    print("ptxas, f32 forward GEMM: " + " | ".join(
+        line.split(" ", 1)[1] for line in report if "gemm_bias_epilogue_kernel" in line))
 
     rows = check_kernels(timed=not quick)
     for name, variants in check_train_kernels(timed=not quick).items():

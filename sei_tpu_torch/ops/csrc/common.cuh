@@ -157,6 +157,12 @@ __device__ __forceinline__ Pack<T, VEC> zero_pack() {
   return out;
 }
 
+// The inline-PTX helpers and SEI_LAUNCH below exist only where nvcc
+// compiles the source.  Without __CUDACC__ (a kernel's index logic compiled
+// for the CPU by a host compiler, tests/test_torch_gemm_f32_emulated.py) a
+// stub cuda_runtime.h on the include path supplies host versions of them.
+#ifdef __CUDACC__
+
 // cp.async (sm_80 and up): BYTES (4, 8 or 16, aligned to that) from global
 // to shared memory without passing through registers; with valid == false
 // nothing is read and the destination is zero-filled (src-size 0).  Copies
@@ -215,6 +221,12 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// kernel<<<grid, block, 0, stream>>>(...), written SEI_LAUNCH(grid, block,
+// stream, kernel)(...)
+#define SEI_LAUNCH(grid, block, stream, ...) __VA_ARGS__<<<grid, block, 0, stream>>>
+
+#endif  // __CUDACC__
 
 // host side: an entry point's storage-type switch
 #define SEI_DISPATCH_T(is_bf16, ...) \

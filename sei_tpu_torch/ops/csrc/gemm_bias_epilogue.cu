@@ -27,11 +27,37 @@
 // bf16 step's five calls per SwinBlock (qkv twice, proj, fc1 with the gelu'
 // save, fc2) move 266 MB at T = 36864, 0.0794 ms at 3.35 TB/s.
 //
-// f32 (gemm_bias_epilogue_kernel): a 64x64 output tile per 256-thread block,
-// K staged through shared memory 16 deep (A stored transposed so the inner
-// loop reads float4 along M and along N), a 4x4 register tile per thread of
-// CUDA-core FMAs, the epilogue applied in registers before the single store.
-// TF32 stays off, so f32 stays on the CUDA cores.
+// f32 (gemm_bias_epilogue_kernel) runs on the CUDA cores' FP32 FMAs (TF32
+// stays off), bound by them: 0.634 ms per SwinBlock at the eval shape (T =
+// 81920), 0.071 ms for the step's fc1 recompute (T = 36864).
+// - Tiles.  A block of 2 BM threads owns a BM x BN tile of the output
+//   (128 x 96: N = 180, 360, 540 pad to 192, 384, 576, 6.7%; the tile and
+//   the slice depth won the sweep of dgrad_tile_sweep.py --fwd-f32, which
+//   builds others by -DSEI_FWD_F32_BM / _BN / _BK),
+//   each thread 8 rows x 6 columns of accumulators.  Per k a thread reads
+//   two float4 of A and a float4 and a float2 of W from shared memory for
+//   48 FMAs: 3.4 FMAs per float read, where the earlier 64 x 64 tile of 4 x
+//   4 did 2 and the shared-memory pipe held it at about half the FMA rate.
+//   A warp is 4 x 8 threads, so each of its shared loads is one pass.
+// - Staging.  K in 20-deep slices (180 and 360 pad nothing; 37.5 KB of
+//   static shared memory, 2 blocks per SM) through two shared stages with
+//   one barrier per slice: slice s + 1's W goes by 16-byte cp.async, and its
+//   A into registers, before slice s's FMAs; A is stored transposed ([k][m],
+//   pitch BM + 4) after them, so the FMA loop reads float4 along m.
+// - Epilogue.  Each row's pixel (row_to_pixel) and drop-path factor are
+//   found once per block into shared memory.  Bias, GELU or the pair and the
+//   residual in registers; each row's column groups are stored at the row's
+//   pixel as float4 / float2, the residual read the same way: a warp's 8
+//   column threads cover 128 contiguous bytes of a row.
+// - Ragged widths.  float4 accesses where K and N are multiples of 4 and
+//   every pointer is 16-byte aligned (every shape of the step and the eval),
+//   else one element per access; ragged edges and the M tail zero-filled.
+// - One FMA chain per output in ascending k from 0, the bias added after it
+//   (no split-K, no atomics): repeats are bit for bit equal, and the sums are
+//   those of the 64 x 64 kernel this one replaces.
+// Left for later: 3xTF32 (f32 products on the tensor cores with error
+// compensation: other numbers, so it needs its own accuracy gate), a
+// persistent grid, deeper staging.
 //
 // bf16 (gemm_bias_epilogue_mma_kernel) runs on the tensor cores:
 // - Tiles.  A 128-thread block owns a 64x64 tile of the output over (M, N);
@@ -62,100 +88,242 @@
 // overlap this tile's epilogue, and wider N tiles (one block over all 180 or
 // 360 columns would read A once).
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 enum { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_GELU_PAIR = 3 };
 
-constexpr int BM = 64;  // output tile: rows of M x columns of N, both kernels
-constexpr int BN = 64;
+// -- f32 on the CUDA cores (see the note at the top) -------------------------
 
-// -- f32 on the CUDA cores ----------------------------------------------------
+// The f32 block tile, rows of M x columns of N, and the depth of a K slice;
+// -DSEI_FWD_F32_BM=... -DSEI_FWD_F32_BN=... -DSEI_FWD_F32_BK=... build
+// another (the tile sweep): BM 64 or 128, BN a multiple of 32 from 64, BK a
+// multiple of 4
+#ifndef SEI_FWD_F32_BM
+#define SEI_FWD_F32_BM 128
+#endif
+#ifndef SEI_FWD_F32_BN
+#define SEI_FWD_F32_BN 96
+#endif
+#ifndef SEI_FWD_F32_BK
+#define SEI_FWD_F32_BK 20
+#endif
+constexpr int F32_BM = SEI_FWD_F32_BM;
+constexpr int F32_BN = SEI_FWD_F32_BN;
+constexpr int F32_BK = SEI_FWD_F32_BK;
+constexpr int F32_THREADS = 2 * F32_BM;        // 16 columns x BM / 8 rows of threads
+constexpr int F32_NG4 = F32_BN / 64;           // 4-column groups of a thread, 64 apart
+constexpr int F32_NG2 = (F32_BN % 64) / 32;    // and a 2-column group after them
+constexpr int F32_TN = 4 * F32_NG4 + 2 * F32_NG2;  // a thread's columns (and 8 rows)
+constexpr int F32_AP = F32_BM + 4;             // As row pitch (floats)
+static_assert((F32_BM == 64 || F32_BM == 128) && F32_BN % 32 == 0 && F32_BN >= 64 &&
+              F32_BK % 4 == 0, "f32 tile");
 
-constexpr int BK = 16;
-constexpr int kThreads = 256;
-
-template <int EPI>
-__global__ void __launch_bounds__(kThreads)
+// VEC = elements per global access: 4 (K, N multiples of 4 and every pointer
+// 16-byte aligned) or 1
+template <int EPI, int VEC>
+__global__ void __launch_bounds__(F32_THREADS, (F32_BN <= 96 ? 512 : 256) / F32_THREADS)
 gemm_bias_epilogue_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
-                          const float* __restrict__ bias, float* out, float* gp,
-                          const float* res, const float* __restrict__ dpm,
-                          int M, int K, int N, int rows_per_img, WinMap map) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // As[k][m]
-  __shared__ __align__(16) float Bs[BK][BN];      // Bs[k][n]
+                          const float* __restrict__ bias, float* __restrict__ out,
+                          float* __restrict__ gp, const float* __restrict__ res,
+                          const float* __restrict__ dpm, int M, int K, int N,
+                          int rows_per_img, WinMap map) {
+  constexpr int BM = F32_BM, BN = F32_BN, BK = F32_BK, TN = F32_TN;
+  // copies per staged row, per slice, per thread
+  constexpr int A_CPR = BK / VEC, A_COPIES = BM * A_CPR;
+  constexpr int A_N = (A_COPIES + F32_THREADS - 1) / F32_THREADS;
+  constexpr int B_CPR = BN / VEC, B_COPIES = BK * B_CPR;
+  constexpr int B_N = (B_COPIES + F32_THREADS - 1) / F32_THREADS;
+  __shared__ __align__(16) float As[2][BK][F32_AP];  // As[stage][k][m]
+  __shared__ __align__(16) float Bs[2][BK][BN];      // Bs[stage][k][n]
+  __shared__ long long opix[BM];                     // each row's output offset
+  __shared__ float okeep[BM];                        // and drop-path factor
 
+  // a warp is 4 x 8 threads: 4 rows of threads read 4 float4 of As and 8
+  // columns of threads 8 float4 (or float2) of Bs per k, one pass each
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // output columns tx*4 .. +3
-  const int ty = tid >> 4;  // output rows    ty*4 .. +3
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // rows ty*4 .. +3 and BM/2 + ty*4 .. +3
+  const int tx = (warp & 1) * 8 + (lane & 7);    // columns tx*4 .. +3 (+ 64 g), then tx*2 .. +1
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
-  const int a_row = tid >> 2;       // 64 rows x 4 threads, 4 k each
-  const int a_k = (tid & 3) * 4;
-  const int b_k = tid >> 4;         // 16 k x 16 threads, 4 n each
-  const int b_n = (tid & 15) * 4;
-  const long long a_m = (long long)m0 + a_row;
-
-  float acc[4][4];
+  // A [m][k] is stored transposed, so it goes through registers: slice s + 1
+  // is read into ra before slice s's FMAs and stored after them; W [k][n] is
+  // stored as it is, by cp.async into the stage the FMAs do not read
+  float ra[A_N][VEC];
+  auto load_a = [&](int k0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = k0 + a_k + i;
-      As[a_k + i][a_row] = (a_m < M && gk < K) ? A[a_m * K + gk] : 0.f;
+    for (int i = 0; i < A_N; ++i) {
+      const int c = tid + i * F32_THREADS;
+      const int gm = m0 + c / A_CPR, gk = k0 + (c % A_CPR) * VEC;
+      const bool ok = c < A_COPIES && gm < M && gk < K;  // a copy is all in or all out
+      if constexpr (VEC == 4) {
+        const float4 v = ok ? *reinterpret_cast<const float4*>(A + (long long)gm * K + gk)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        ra[i][0] = v.x, ra[i][1] = v.y, ra[i][2] = v.z, ra[i][3] = v.w;
+      } else {
+        ra[i][0] = ok ? A[(long long)gm * K + gk] : 0.f;
+      }
     }
-    const int gk = k0 + b_k;
+  };
+  auto store_a = [&](int st) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gn = n0 + b_n + i;
-      Bs[b_k][b_n + i] = (gk < K && gn < N) ? Wt[(long long)gk * N + gn] : 0.f;
+    for (int i = 0; i < A_N; ++i) {
+      const int c = tid + i * F32_THREADS;
+      if (c < A_COPIES) {
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) As[st][(c % A_CPR) * VEC + q][c / A_CPR] = ra[i][q];
+      }
     }
-    __syncthreads();
+  };
+  auto load_w = [&](int st, int k0) {
+#pragma unroll
+    for (int i = 0; i < B_N; ++i) {
+      const int c = tid + i * F32_THREADS;
+      if (c < B_COPIES) {
+        const int r = c / B_CPR, cn = (c % B_CPR) * VEC;
+        const int gk = k0 + r, gn = n0 + cn;
+        const bool ok = gk < K && gn < N;
+        cp_async<VEC * 4>(&Bs[st][r][cn], ok ? Wt + (long long)gk * N + gn : Wt, ok);
+      }
+    }
+  };
+
+  // one FMA chain per output, ascending k from 0, the bias added after it:
+  // no split-K, no atomics, so repeats are bit for bit equal
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  auto compute = [&](int st) {
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      float a[8], b[TN];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[st][kk][BM / 2 + ty * 4]);
+      a[0] = a0.x, a[1] = a0.y, a[2] = a0.z, a[3] = a0.w;
+      a[4] = a1.x, a[5] = a1.y, a[6] = a1.z, a[7] = a1.w;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int g = 0; g < F32_NG4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(&Bs[st][kk][g * 64 + tx * 4]);
+        b[4 * g] = v.x, b[4 * g + 1] = v.y, b[4 * g + 2] = v.z, b[4 * g + 3] = v.w;
+      }
+      if (F32_NG2) {
+        const float2 v = *reinterpret_cast<const float2*>(&Bs[st][kk][F32_NG4 * 64 + tx * 2]);
+        b[TN - 2] = v.x, b[TN - 1] = v.y;
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
+  };
+
+  // each row's pixel and keep factor, once per block (the 16 column threads
+  // of a row share them); the first barrier below publishes them
+  if (tid < BM) {
+    const int gm = m0 + tid;
+    opix[tid] = gm < M ? row_to_pixel(gm, map) * N : 0;
+    if (EPI == EPI_RESIDUAL) okeep[tid] = gm < M ? dpm[gm / rows_per_img] : 0.f;
   }
 
+  // two stages, one barrier per slice: slice s + 1's loads are in flight
+  // while slice s's FMAs run; the barrier after them frees stage s % 2
+  const int slices = (K + BK - 1) / BK;
+  load_a(0);
+  load_w(0, 0);
+  cp_async_commit();
+  store_a(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int s = 0; s < slices; ++s) {
+    const int st = s & 1;
+    const bool more = s + 1 < slices;
+    if (more) {
+      load_a((s + 1) * BK);
+      load_w(st ^ 1, (s + 1) * BK);
+      cp_async_commit();
+    }
+    compute(st);
+    if (more) {
+      store_a(st ^ 1);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+  }
+
+  // epilogue in registers, then each row's column groups stored at its pixel
+  // (float4 / float2 with VEC 4: a group is all in or all out, as N % 4 == 0)
+  auto col = [&](int j) {
+    return j < 4 * F32_NG4 ? (j >> 2) * 64 + tx * 4 + (j & 3) : F32_NG4 * 64 + tx * 2 + (j & 1);
+  };
+  float bj[TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-    const long long orow = row_to_pixel(gm, map) * N;
-    float keep = 0.f;
-    if (EPI == EPI_RESIDUAL) keep = dpm[gm / rows_per_img];
+  for (int j = 0; j < TN; ++j) {
+    const int gn = n0 + col(j);
+    bj[j] = gn < N ? bias[gn] : 0.f;
+  }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= N) continue;
-      float v = acc[i][j] + bias[gn];
+  for (int i = 0; i < 8; ++i) {
+    const int r = (i >> 2) * (BM / 2) + ty * 4 + (i & 3);
+    if (m0 + r >= M) continue;
+    const long long orow = opix[r];
+    const float keep = EPI == EPI_RESIDUAL ? okeep[r] : 0.f;
+    float y[TN], d[TN] = {};
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      float v = acc[i][j] + bj[j];
       if (EPI == EPI_GELU || EPI == EPI_GELU_PAIR) {
-        float g, d;
-        gelu_pair_exact(v, g, d);
-        if (EPI == EPI_GELU_PAIR) gp[orow + gn] = d;
+        float g;
+        gelu_pair_exact(v, g, d[j]);
         v = g;
       }
-      if (EPI == EPI_RESIDUAL) v = res[orow + gn] + keep * v;
-      out[orow + gn] = v;
+      y[j] = v;
     }
+    // the group of Wd columns from the thread's column j0
+    auto store = [&](int j0, auto wd) {
+      constexpr int Wd = decltype(wd)::value;
+      const int gn = n0 + col(j0);
+      const long long o = orow + gn;
+      if constexpr (VEC == 4) {
+        if (gn >= N) return;
+        Pack<float, Wd> p;
+        if (EPI == EPI_RESIDUAL) p = load_pack<float, Wd>(res + o);
+#pragma unroll
+        for (int q = 0; q < Wd; ++q)
+          p.v[q] = EPI == EPI_RESIDUAL ? p.v[q] + keep * y[j0 + q] : y[j0 + q];
+        store_pack(out + o, p);
+        if (EPI == EPI_GELU_PAIR) {
+#pragma unroll
+          for (int q = 0; q < Wd; ++q) p.v[q] = d[j0 + q];
+          store_pack(gp + o, p);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < Wd; ++q) {
+          if (gn + q >= N) continue;
+          float v = y[j0 + q];
+          if (EPI == EPI_RESIDUAL) v = res[o + q] + keep * v;
+          out[o + q] = v;
+          if (EPI == EPI_GELU_PAIR) gp[o + q] = d[j0 + q];
+        }
+      }
+    };
+#pragma unroll
+    for (int g = 0; g < F32_NG4; ++g) store(4 * g, std::integral_constant<int, 4>());
+    if (F32_NG2) store(TN - 2, std::integral_constant<int, 2>());
   }
 }
 
 // -- bf16 on the tensor cores (see the note at the top) -----------------------
 
+constexpr int BM = 64;  // output tile: rows of M x columns of N
+constexpr int BN = 64;
 constexpr int MMA_BK = 32;        // reduction depth of one staged slice
 constexpr int MMA_STAGES = 3;     // slices in the ring
 constexpr int MMA_THREADS = 128;  // 4 warps, 2 x 2 over the tile, 32x32 each
@@ -357,17 +525,30 @@ struct Args {
   WinMap map;
 };
 
-template <int EPI>
-void launch_f32(dim3 grid, cudaStream_t s, const Args& a) {
-  gemm_bias_epilogue_kernel<EPI><<<grid, kThreads, 0, s>>>(
+bool aligned(const void* p, size_t bytes) { return (size_t)p % bytes == 0; }
+
+template <int EPI, int VEC>
+void launch_f32_vec(cudaStream_t s, const Args& a) {
+  const dim3 grid((a.N + F32_BN - 1) / F32_BN, (a.M + F32_BM - 1) / F32_BM);
+  SEI_LAUNCH(grid, F32_THREADS, s, gemm_bias_epilogue_kernel<EPI, VEC>)(
       static_cast<const float*>(a.A), static_cast<const float*>(a.Wt), a.bias,
       static_cast<float*>(a.out), static_cast<float*>(a.gp), static_cast<const float*>(a.res),
       a.dpm, a.M, a.K, a.N, a.rows_per_img, a.map);
 }
 
+// float4 accesses where K, N and every pointer allow them, else one element
+template <int EPI>
+void launch_f32(cudaStream_t s, const Args& a) {
+  if (a.K % 4 == 0 && a.N % 4 == 0 && aligned(a.A, 16) && aligned(a.Wt, 16) &&
+      aligned(a.out, 16) && aligned(a.res, 16) && aligned(a.gp, 16))
+    launch_f32_vec<EPI, 4>(s, a);
+  else
+    launch_f32_vec<EPI, 1>(s, a);
+}
+
 template <int EPI, typename TGP, int VEC>
 void launch_mma_vec(dim3 grid, cudaStream_t s, const Args& a) {
-  gemm_bias_epilogue_mma_kernel<EPI, TGP, VEC><<<grid, MMA_THREADS, 0, s>>>(
+  SEI_LAUNCH(grid, MMA_THREADS, s, gemm_bias_epilogue_mma_kernel<EPI, TGP, VEC>)(
       static_cast<const bf16*>(a.A), static_cast<const bf16*>(a.Wt), a.bias,
       static_cast<bf16*>(a.out), static_cast<TGP*>(a.gp), static_cast<const bf16*>(a.res),
       a.dpm, a.M, a.K, a.N, a.rows_per_img, a.map);
@@ -382,8 +563,6 @@ void launch_mma(int vec, dim3 grid, cudaStream_t s, const Args& a) {
   else
     launch_mma_vec<EPI, TGP, 1>(grid, s, a);
 }
-
-bool aligned(const void* p, size_t bytes) { return (size_t)p % bytes == 0; }
 
 // the widest pack (elements) that K, N and every pointer allow: 16 bytes of
 // bf16, 8, or one element; gp's packs are as wide in elements (two 16-byte
@@ -410,7 +589,7 @@ extern "C" int sei_gemm_bias_epilogue(int device, int is_bf16, const void* A,
                                       int H, int W, int ws, int shift, void* stream) {
   if (M < 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);  // bf16's; f32's rows are F32_BM >= BM
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   if (epilogue == EPI_RESIDUAL && (res == nullptr || dpm == nullptr || rows_per_img <= 0))
     return (int)cudaErrorInvalidValue;
@@ -423,10 +602,10 @@ extern "C" int sei_gemm_bias_epilogue(int device, int is_bf16, const void* A,
   cudaStream_t s = (cudaStream_t)stream;
   if (!is_bf16) {
     switch (epilogue) {
-      case EPI_NONE: launch_f32<EPI_NONE>(grid, s, a); break;
-      case EPI_GELU: launch_f32<EPI_GELU>(grid, s, a); break;
-      case EPI_RESIDUAL: launch_f32<EPI_RESIDUAL>(grid, s, a); break;
-      case EPI_GELU_PAIR: launch_f32<EPI_GELU_PAIR>(grid, s, a); break;
+      case EPI_NONE: launch_f32<EPI_NONE>(s, a); break;
+      case EPI_GELU: launch_f32<EPI_GELU>(s, a); break;
+      case EPI_RESIDUAL: launch_f32<EPI_RESIDUAL>(s, a); break;
+      case EPI_GELU_PAIR: launch_f32<EPI_GELU_PAIR>(s, a); break;
       default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

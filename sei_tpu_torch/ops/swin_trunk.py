@@ -92,7 +92,8 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 _EPS = 1e-5
 _EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
-_TILE = 64  # the GEMM tiles' rows (BM in csrc/gemm_*.cu; BN too, but bf16 dgrad is 96 wide)
+_TILE = 64  # rows of the GEMM tiles (BM in csrc/gemm_*.cu; BN too, but bf16 dgrad is 96 wide and
+#              the f32 forward GEMM 128 x 96, for which the grid check below is conservative)
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -270,9 +271,11 @@ def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
     the qkv / proj / fc1 / fc2 products inside the TPU trunk kernel
     (``sei_tpu/ops/swin_trunk.py`` :448, :474, :539-547; the gelu/gelu'
     saves of mode ``full`` :541-545, :556-559).  Bound by FP32 operations in
-    f32 (TF32 off), by bytes in bf16; 64x64 output tiles, the epilogue
-    applied in registers.  f32 runs on the CUDA cores (4x4 register tiles of
-    FMAs); bf16 on the tensor cores (``mma.sync`` m16n8k16, f32
+    f32 (TF32 off), by bytes in bf16.  f32 runs on the CUDA cores: 128x96
+    output tiles, 8x6 register tiles of FMAs per thread, 20-deep K slices
+    in two shared stages (W by ``cp.async``, A through registers), the
+    epilogue in registers and float4 stores at each row's pixel.  bf16 runs
+    on the tensor cores: 64x64 output tiles (``mma.sync`` m16n8k16, f32
     accumulators, 32-deep K slices copied by ``cp.async`` into a ring of
     three shared buffers, the output tile staged in shared memory and
     written in packed rows at each row's pixel).

@@ -7,6 +7,9 @@ the port, so it runs on the GPU machine without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
+The f32 forward GEMM (CUDA cores, 128x96 tiles) is held at the step's and
+the eval's widths, on ragged shapes, odd widths and unaligned views, with
+and without the window store, and repeats bit for bit.
 Small and ragged shapes (M, K, N not multiples of the tiles; C = 16 and 256;
 windows of 16 tokens, hd 8; window counts that are not multiples of the
 partial count) that the flagship checks in ``chip_smoke.py`` do not reach.
@@ -101,24 +104,81 @@ def test_ln_rows(gpu, c, shift):
     assert st.ln_rows.launches == before + 1
 
 
-@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180)])
-@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual"])
-def test_gemm_bias_epilogue(gpu, m, k, n, epilogue):
-    a, w, b = _rnd(gpu, m, k), _rnd(gpu, k, n, s=0.1), _rnd(gpu, n, s=0.1)
-    res = _rnd(gpu, m, n) if epilogue == "residual" else None
+def _gemm_case(g, m, k, n, epilogue, offset=0, dtype=F32):
+    """Inputs of one gemm_bias_epilogue call in ``dtype`` (``offset``: a, w,
+    res and gp start that many elements into a larger buffer), its kwargs,
+    and the plain version's gp buffer; gp is f32 in f32, and in bf16 for
+    "gelu_pair" or f32 for "gelu_pair_f32" (the recompute's)."""
+
+    def buf(*shape, dtype=dtype, s=1.0):
+        numel = int(np.prod(shape))
+        return _rnd(g, numel + offset, s=s).to(dtype)[offset:].view(*shape)
+
+    a, w, b = buf(m, k), buf(k, n, s=0.1), _rnd(g, n, s=0.1)
+    res = buf(m, n) if epilogue == "residual" else None
     dpm = torch.tensor([0.5, 1.25], device="cuda")[: 2 if m % 2 == 0 else 1] if res is not None else None
-    got = st.gemm_bias_epilogue(a, w, b, epilogue, res=res, dpm=dpm)
-    _close(got, st._torch_gemm_bias_epilogue(a, w, b, epilogue, res, dpm), 1e-4)
+    gp = gp_p = None
+    if epilogue.startswith("gelu_pair"):
+        gp = buf(m, n, dtype=F32 if dtype == F32 or epilogue.endswith("f32") else BF16)
+        gp_p, epilogue = torch.empty_like(gp), "gelu_pair"
+    return (a, w, b, epilogue), dict(res=res, dpm=dpm, gp=gp), gp_p
 
 
+# f32 runs on the CUDA cores in 128x96 tiles, 20-deep slices: the step's and
+# the eval's widths (K 180 / 360, N 180 / 360 / 540), M off the tile, K off
+# the slice (44), odd K or N (one element per access)
+@pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (130, 360, 180),
+                                   (300, 180, 180), (1037, 180, 360), (4608, 180, 540),
+                                   (4608, 360, 180), (200, 44, 64), (65, 17, 36), (77, 36, 17)])
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "gelu_pair"])
+def test_gemm_bias_epilogue(gpu, m, k, n, epilogue):
+    args, kw, gp_p = _gemm_case(gpu, m, k, n, epilogue)
+    before = st.gemm_bias_epilogue.launches
+    got = st.gemm_bias_epilogue(*args, **kw)
+    assert st.gemm_bias_epilogue.launches == before + 1
+    _close(got, st._torch_gemm_bias_epilogue(*args, kw["res"], kw["dpm"], None, gp_p), 1e-4)
+    if gp_p is not None:
+        _close(kw["gp"], gp_p, 1e-4)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "gelu_pair"])
+def test_gemm_bias_epilogue_unaligned_pointers(gpu, epilogue):
+    """a, w, res and gp at odd element offsets (views into larger buffers)
+    cannot take float4 accesses: the f32 kernel goes element by element."""
+    args, kw, gp_p = _gemm_case(gpu, 300, 180, 180, epilogue, offset=1)
+    assert args[0].data_ptr() % 16 != 0
+    got = st.gemm_bias_epilogue(*args, **kw)
+    _close(got, st._torch_gemm_bias_epilogue(*args, kw["res"], kw["dpm"], None, gp_p), 1e-4)
+    if gp_p is not None:
+        _close(kw["gp"], gp_p, 1e-4)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "gelu_pair"])
+def test_gemm_bias_epilogue_repeats_bit_for_bit(gpu, epilogue):
+    """One FMA chain per output in a fixed order (no split-K, no atomics):
+    two calls on the same inputs agree exactly, gp included."""
+    args, kw, _ = _gemm_case(gpu, 4608, 180, 360, epilogue)
+    first = st.gemm_bias_epilogue(*args, **kw)
+    gp_first = None if kw["gp"] is None else kw["gp"].clone()
+    second = st.gemm_bias_epilogue(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    if gp_first is not None:
+        assert torch.equal(gp_first, kw["gp"])
+
+
+# the window store (window reverse + roll folded into the residual's store):
+# a small map, the flagship 48x48 crop with window 8, odd widths
+@pytest.mark.parametrize("h,w,ws,k,n", [(8, 12, 4, 24, 16), (48, 48, 8, 180, 180),
+                                        (16, 24, 8, 13, 17)])
 @pytest.mark.parametrize("shift", [0, 2])
-def test_gemm_residual_window_store(gpu, shift):
-    wm = st.WindowMap(8, 12, 4, shift)
-    a, w, b = _rnd(gpu, 2 * 96, 24), _rnd(gpu, 24, 16, s=0.1), _rnd(gpu, 16, s=0.1)
-    res = _rnd(gpu, 2, 8, 12, 16)
+def test_gemm_residual_window_store(gpu, shift, h, w, ws, k, n):
+    wm = st.WindowMap(h, w, ws, shift)
+    a, wt, b = _rnd(gpu, 2 * h * w, k), _rnd(gpu, k, n, s=0.1), _rnd(gpu, n, s=0.1)
+    res = _rnd(gpu, 2, h, w, n)
     dpm = torch.tensor([0.0, 1.25], device="cuda")
-    got = st.gemm_bias_epilogue(a, w, b, "residual", res=res, dpm=dpm, window=wm)
-    _close(got, st._torch_gemm_bias_epilogue(a, w, b, "residual", res, dpm, wm), 1e-4)
+    got = st.gemm_bias_epilogue(a, wt, b, "residual", res=res, dpm=dpm, window=wm)
+    _close(got, st._torch_gemm_bias_epilogue(a, wt, b, "residual", res, dpm, wm), 1e-4)
 
 
 @pytest.mark.parametrize("n,hd", [(16, 8), (64, 30), (49, 32)])
@@ -312,25 +372,6 @@ def test_ln_rows_bf16(gpu, c, shift):
 _BF16_EPILOGUES = ["none", "gelu", "residual", "gelu_pair", "gelu_pair_f32"]
 
 
-def _gemm_bf16_case(g, m, k, n, epilogue, offset=0):
-    """Inputs of one bf16 gemm_bias_epilogue call (``offset``: a, w, res and
-    gp start that many elements into a larger buffer), its kwargs, and the
-    plain version's gp buffer."""
-
-    def buf(*shape, dtype=BF16, s=1.0):
-        numel = int(np.prod(shape))
-        return _rnd(g, numel + offset, s=s).to(dtype)[offset:].view(*shape)
-
-    a, w, b = buf(m, k), buf(k, n, s=0.1), _rnd(g, n, s=0.1)
-    res = buf(m, n) if epilogue == "residual" else None
-    dpm = torch.tensor([0.5, 1.25], device="cuda")[: 2 if m % 2 == 0 else 1] if res is not None else None
-    gp = gp_p = None
-    if epilogue.startswith("gelu_pair"):
-        gp = buf(m, n, dtype=F32 if epilogue.endswith("f32") else BF16)
-        gp_p, epilogue = torch.empty_like(gp), "gelu_pair"
-    return (a, w, b, epilogue), dict(res=res, dpm=dpm, gp=gp), gp_p
-
-
 # bf16 runs on the tensor cores (mma.sync, cp.async): besides the step's
 # widths, the kernel's edges: K or N of 17 or 33 (1-element copies), 8 and
 # 64 (16-byte copies), M not a multiple of the 64-row tile, one valid 16x8
@@ -340,7 +381,7 @@ def _gemm_bf16_case(g, m, k, n, epilogue, offset=0):
                                    (130, 33, 64), (65, 32, 64), (37, 180, 180), (1037, 360, 540)])
 @pytest.mark.parametrize("epilogue", _BF16_EPILOGUES)
 def test_gemm_bias_epilogue_bf16(gpu, m, k, n, epilogue):
-    args, kw, gp_p = _gemm_bf16_case(gpu, m, k, n, epilogue)
+    args, kw, gp_p = _gemm_case(gpu, m, k, n, epilogue, dtype=BF16)
     got = st.gemm_bias_epilogue(*args, **kw)
     _close_bf16(got, st._torch_gemm_bias_epilogue(*args, kw["res"], kw["dpm"], None, gp_p))
     if gp_p is not None:
@@ -362,7 +403,7 @@ _FWD_VARIANTS = {"qkv": (180, 540, "none", False), "proj": (180, 180, "residual"
 def test_gemm_bias_epilogue_mma_step_widths(gpu, variant, images):
     k, n, epilogue, windowed = _FWD_VARIANTS[variant]
     t = images * 48 * 48
-    (a, w, b, epi), kw, gp_p = _gemm_bf16_case(gpu, t, k, n, epilogue)
+    (a, w, b, epi), kw, gp_p = _gemm_case(gpu, t, k, n, epilogue, dtype=BF16)
     wm = st.WindowMap(48, 48, 8, 4) if windowed else None
     if epi == "residual":
         kw["res"] = _bf(gpu, images, 48, 48, n) if windowed else _bf(gpu, t, n)
@@ -379,7 +420,7 @@ def test_gemm_bias_epilogue_mma_step_widths(gpu, variant, images):
 def test_gemm_bias_epilogue_mma_unaligned_pointers(gpu, epilogue):
     """a, w, res and gp at odd element offsets (views into larger buffers)
     cannot take 8- or 16-byte copies: the kernel copies element by element."""
-    args, kw, gp_p = _gemm_bf16_case(gpu, 300, 180, 180, epilogue, offset=1)
+    args, kw, gp_p = _gemm_case(gpu, 300, 180, 180, epilogue, offset=1, dtype=BF16)
     assert args[0].data_ptr() % 4 != 0
     got = st.gemm_bias_epilogue(*args, **kw)
     _close_bf16(got, st._torch_gemm_bias_epilogue(*args, kw["res"], kw["dpm"], None, gp_p))
@@ -391,7 +432,7 @@ def test_gemm_bias_epilogue_mma_unaligned_pointers(gpu, epilogue):
 def test_gemm_bias_epilogue_mma_repeats_bit_for_bit(gpu, epilogue):
     """The mma order is fixed (no split-K, no atomics): two calls on the same
     inputs agree exactly, gp included."""
-    args, kw, _ = _gemm_bf16_case(gpu, 4608, 180, 360, epilogue)
+    args, kw, _ = _gemm_case(gpu, 4608, 180, 360, epilogue, dtype=BF16)
     first = st.gemm_bias_epilogue(*args, **kw)
     gp_first = None if kw["gp"] is None else kw["gp"].clone()
     second = st.gemm_bias_epilogue(*args, **kw)

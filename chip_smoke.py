@@ -45,7 +45,8 @@
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
    the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue`` and ``gemm_dgrad``,
    CUDA-core FMAs for the rest; the f32 ``gemm_bias_epilogue`` in 8x6
-   register tiles fed by ``cp.async``) and carries ``queued_ms``: the
+   register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
+   register tiles fed through registers) and carries ``queued_ms``: the
    device time of the same calls queued behind a sleeping kernel, free of
    the wrapper's host cost; every entry with a library call carries
    ``library_queued_ms``, the same for it.  A line before the kernel line
@@ -826,14 +827,15 @@ PORT_KERNELS = ("ln_rows", "gemm_bias_epilogue", "window_attn_fwd", "gemm_dgrad"
 
 def kernel_split(events) -> dict:
     """Device ms of a profile by kernel: each of the port's kernels (its
-    tensor-core version as ``name[mma]``), then the rest (cuDNN, cuFFT,
-    cuBLAS, PyTorch's reductions and elementwise kernels) as ``other_ms``
-    with its five largest entries by name."""
+    tensor-core version as ``name[mma]``; ``name_f32_kernel`` counts as
+    ``name``), then the rest (cuDNN, cuFFT, cuBLAS, PyTorch's reductions and
+    elementwise kernels) as ``other_ms`` with its five largest entries by
+    name."""
     split, other = {}, {}
     for e in events:
         ms = e.self_device_time_total / 1e3
         name = next((k + ("[mma]" if f"{k}_mma_kernel" in e.key else "") for k in PORT_KERNELS
-                     if f"{k}_kernel" in e.key or f"{k}_mma_kernel" in e.key), None)
+                     if any(f"{k}_{v}kernel" in e.key for v in ("", "f32_", "mma_"))), None)
         if name is None:
             other[e.key[:80]] = other.get(e.key[:80], 0.0) + ms
         else:
@@ -1265,7 +1267,8 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
 DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
            "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
-           "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async"}
+           "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async",
+           "gemm_dgrad": "cuda-core fma, 8x6 register tiles, operands transposed through registers"}
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
 # earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
@@ -1275,7 +1278,8 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "gemm_bias_epilogue[bf16] cuda-core fma 1.2657 ms; "
               "gemm_dgrad[bf16] cuda-core fma 0.8734 ms; "
               "gemm_bias_epilogue cuda-core fma, 4x4 register tiles 2.1481 ms (eval shape), "
-              "0.2782 ms (fc1_gelu_pair T=36864)")
+              "0.2782 ms (fc1_gelu_pair T=36864); "
+              "gemm_dgrad cuda-core fma, 4x4 register tiles 0.9315 ms, 0.9162 queued (T=36864)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1370,8 +1374,10 @@ def main(argv: list[str]) -> int:
     report = ptxas_report(built.log)
     for line in report:
         print(f"  {line}")
-    print("ptxas, f32 forward GEMM: " + " | ".join(
-        line.split(" ", 1)[1] for line in report if "gemm_bias_epilogue_kernel" in line))
+    for label, kernel in (("f32 forward GEMM", "gemm_bias_epilogue_kernel"),
+                          ("f32 data grad", "gemm_dgrad_f32_kernel")):
+        print(f"ptxas, {label}: " + " | ".join(
+            line.split(" ", 1)[1] for line in report if kernel in line))
 
     rows = check_kernels(timed=not quick)
     for name, variants in check_train_kernels(timed=not quick).items():

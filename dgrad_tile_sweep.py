@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Tile sweeps of two GEMM kernels on one card.
+"""Tile sweeps of three GEMM kernels on one card.
 
-    python3 dgrad_tile_sweep.py            # bf16 gemm_dgrad, output tile width
-    python3 dgrad_tile_sweep.py --fwd-f32  # f32 gemm_bias_epilogue, block tile
+    python3 dgrad_tile_sweep.py              # bf16 gemm_dgrad, output tile width
+    python3 dgrad_tile_sweep.py --fwd-f32    # f32 gemm_bias_epilogue, block tile
+    python3 dgrad_tile_sweep.py --dgrad-f32  # f32 gemm_dgrad, block tile
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
 is 64 rows by ``SEI_DGRAD_TN`` columns of K
@@ -27,6 +28,17 @@ timed queued, the builds in turns, on the eval shape's four calls (one
 256x320 image, T = 81920: qkv, proj with the window store, fc1 with GELU,
 fc2 with the residual) and the f32 step's fc1 recompute (``gelu_pair``,
 T = 36864).
+
+With ``--dgrad-f32``: the f32 ``gemm_dgrad`` CUDA-core kernel
+(``sei_tpu_torch/ops/csrc/gemm_bwd.cu``, ``gemm_dgrad_f32_kernel``), its
+block tile BM x BN over (M, K), slice depth BK and blocks per SM
+(``-DSEI_DGRAD_F32_BM``, ``_BN``, ``_BK``, ``_MINB``; 2 BM threads, 8 x BN /
+16 accumulators each).  Each build is held against the plain version
+(1e-4, as ``chip_smoke.py``) and timed queued, the builds in turns, on the
+f32 step's four data-grad calls at both graphs (the SURE forward's 2B = 16
+images, T = 36864, and the EI forward's B = 8, T = 18432); the tile is
+chosen on the sum over the step's launches: 36 SwinBlocks x (the 2B
+graph's four calls + the B graph's).
 """
 
 from __future__ import annotations
@@ -44,6 +56,17 @@ DEFAULT_TN = 96  # the width the port's library is built with
 FWD_TILES = ((128, 96, 12), (64, 96, 12), (128, 192, 12), (64, 192, 12), (128, 96, 8),
              (128, 96, 16), (128, 96, 20))
 DEFAULT_FWD_TILE = (128, 96, 20)  # the f32 forward GEMM's tile in the port's library
+# (BM, BN, BK, blocks per SM or None for the kernel's default): 96 columns
+# (K = 180 in two column tiles) at 96, 128 and 64 rows (64 at 4 and at 3
+# blocks per SM), shallower slices, and 192 columns (K = 180 in one: dy
+# read once per block row); 128x192 at depth 12 (20 would put its two
+# stages over the 48 KB of static shared memory).  At T = 36864 the K = 180
+# calls fill 2.91 waves of the card at 96x96 (768 blocks, 264 slots), 2.18
+# at 128x96 (576 blocks)
+DGRAD_F32_TILES = ((96, 96, 20, None), (128, 96, 20, None), (64, 96, 20, None),
+                   (64, 96, 20, 3), (96, 96, 12, None), (128, 192, 12, None),
+                   (64, 192, 20, 3))
+DEFAULT_DGRAD_F32_TILE = (96, 96, 20, None)  # the f32 data grad's tile in the port's library
 
 
 def main(argv: list[str]) -> int:
@@ -53,28 +76,68 @@ def main(argv: list[str]) -> int:
         print("dgrad_tile_sweep: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 2
-    if "--fwd-f32" in argv:
-        return sweep_fwd_f32()
     from sei_tpu_torch.device import resolve_device
-    from sei_tpu_torch.ops import _build
-    from sei_tpu_torch.ops import swin_trunk as st
 
     smi = cs.nvidia_smi()
     print(f"gpu: {smi}")
     resolve_device("cuda")
-    load = _build.library
-    builds = {}
-    for tn in WIDTHS:
-        built = load(() if tn == DEFAULT_TN else (f"SEI_DGRAD_TN={tn}",))
-        builds[tn] = built
-        print(f"TN={tn}: built in {built.seconds:.2f} s -> {built.path.name}")
-        for line in cs.ptxas_report(built.log):
-            if "gemm_dgrad_mma" in line:
+    if "--fwd-f32" in argv:
+        return sweep_fwd_f32(smi)
+    if "--dgrad-f32" in argv:
+        return sweep_dgrad_f32(smi)
+    return sweep_dgrad_bf16(smi)
+
+
+def build_all(variants: dict, kernel: str) -> dict:
+    """name -> the kernel library built with that variant's ``-D`` macros
+    (one nvcc per source and build, all side by side); prints each build's
+    ptxas lines for ``kernel``."""
+    from sei_tpu_torch.ops import _build
+
+    with ThreadPoolExecutor(len(variants)) as pool:
+        builds = dict(zip(variants, pool.map(_build.library, variants.values())))
+    for name, b in builds.items():
+        print(f"tile {name}: built in {b.seconds:.2f} s -> {b.path.name}")
+        for line in cs.ptxas_report(b.log):
+            if kernel in line:
                 print(f"  {line}")
+    return builds
 
-    def use(tn):  # the kernel wrappers (and check) load this build
-        _build.library = lambda defines=(): builds[tn]
 
+def check_and_time(builds: dict, calls: dict, check) -> dict:
+    """Each build's calls held against their plain versions by ``check(name,
+    variant, call)``, then each call (``call[0]``) timed queued with the
+    builds in turns, forward then backward; the kernel wrappers load the
+    build under test.  Returns name -> {variant: mean ms}, and prints them."""
+    from sei_tpu_torch.ops import _build
+
+    load = _build.library
+    names = list(builds)
+    times = {n: {v: [] for v in calls} for n in names}
+    try:
+        for n in names:
+            _build.library = lambda defines=(), b=builds[n]: b
+            for variant, call in calls.items():
+                check(n, variant, call)
+        for n in names + names[::-1]:
+            _build.library = lambda defines=(), b=builds[n]: b
+            for variant, call in calls.items():
+                times[n][variant].append(cs.queued_ms(call[0]))
+    finally:
+        _build.library = load
+    means = {n: {v: sum(ts) / len(ts) for v, ts in times[n].items()} for n in names}
+    for n in names:
+        print(f"tile {n}: " + ", ".join(f"{v} {ms:.4f}" for v, ms in means[n].items()))
+    return means
+
+
+def sweep_dgrad_bf16(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    builds = build_all({str(tn): () if tn == DEFAULT_TN else (f"SEI_DGRAD_TN={tn}",)
+                        for tn in WIDTHS}, "gemm_dgrad_mma")
     g = torch.Generator(device="cuda").manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
     b = cs.TRAIN_GRAPHS[0]
@@ -97,56 +160,24 @@ def main(argv: list[str]) -> int:
                           st.gemm_dgrad(dy, w, scale=scale, window=wmap, gp=gp,
                                         out_dtype=out_dtype),
                           st._torch_gemm_dgrad(dy, w, scale, wmap, gp, out_dtype))
-    try:
-        for tn in WIDTHS:
-            use(tn)
-            for variant, (fn, want) in calls.items():
-                cs.compare_bf16(f"gemm_dgrad[bf16 TN={tn} {variant} T={t}]", fn(), want,
-                                (1e-4, 1e-4))
-        times = {tn: {v: [] for v in calls} for tn in WIDTHS}
-        for tn in WIDTHS + WIDTHS[::-1]:
-            use(tn)
-            for variant, (fn, _) in calls.items():
-                times[tn][variant].append(cs.queued_ms(fn))
-    finally:
-        _build.library = load
-    result = {}
-    for tn in WIDTHS:
-        per_call = {v: sum(ts) / len(ts) for v, ts in times[tn].items()}
-        result[str(tn)] = {"per_call_queued_ms": per_call,
-                           "per_block_queued_ms": sum(per_call.values()),
-                           "turns": {v: ts for v, ts in times[tn].items()}}
-        print(f"TN={tn}: " + ", ".join(f"{v} {ms:.4f}" for v, ms in per_call.items())
-              + f"; per SwinBlock {result[str(tn)]['per_block_queued_ms']:.4f} ms queued")
+    means = check_and_time(builds, calls, lambda n, v, c: cs.compare_bf16(
+        f"gemm_dgrad[bf16 TN={n} {v} T={t}]", c[0](), c[1], (1e-4, 1e-4)))
+    result = {n: {"per_call_queued_ms": pc, "per_block_queued_ms": sum(pc.values())}
+              for n, pc in means.items()}
+    for n, r in result.items():
+        print(f"TN={n}: per SwinBlock {r['per_block_queued_ms']:.4f} ms queued")
     print(json.dumps({"dgrad_tile_sweep": result, "T": t, "gpu": smi}))
     return 0
 
 
-def sweep_fwd_f32() -> int:
+def sweep_fwd_f32(smi: str) -> int:
     import torch
 
-    from sei_tpu_torch.device import resolve_device
-    from sei_tpu_torch.ops import _build
     from sei_tpu_torch.ops import swin_trunk as st
 
-    smi = cs.nvidia_smi()
-    print(f"gpu: {smi}")
-    resolve_device("cuda")
-    load = _build.library
-    with ThreadPoolExecutor(len(FWD_TILES)) as pool:  # one nvcc per source and build
-        built = pool.map(lambda t: load(() if t == DEFAULT_FWD_TILE else tuple(
-            f"SEI_FWD_F32_{k}={v}" for k, v in zip(("BM", "BN", "BK"), t))), FWD_TILES)
-        builds = {"x".join(map(str, t)): b for t, b in zip(FWD_TILES, built)}
-    tiles = list(builds)
-    for tile, b in builds.items():
-        print(f"tile {tile}: built in {b.seconds:.2f} s -> {b.path.name}")
-        for line in cs.ptxas_report(b.log):
-            if "gemm_bias_epilogue_kernel" in line:
-                print(f"  {line}")
-
-    def use(tile):  # the kernel wrappers (and check) load this build
-        _build.library = lambda defines=(): builds[tile]
-
+    builds = build_all({"x".join(map(str, t)): () if t == DEFAULT_FWD_TILE else tuple(
+        f"SEI_FWD_F32_{k}={v}" for k, v in zip(("BM", "BN", "BK"), t)) for t in FWD_TILES},
+        "gemm_bias_epilogue_kernel")
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rnd(*shape, s=1.0):
@@ -170,30 +201,70 @@ def sweep_fwd_f32() -> int:
         calls[variant] = (lambda a=a, w=w, b=b, epi=epi, res=res, d=d, wmap=wmap, gp=gp:
                           st.gemm_bias_epilogue(a, w, b, epi, res=res, dpm=d, window=wmap, gp=gp),
                           st._torch_gemm_bias_epilogue(a, w, b, epi, res, d, wmap, gp_p), gp, gp_p)
-    try:
-        for tile in tiles:
-            use(tile)
-            for variant, (fn, want, gp, gp_p) in calls.items():
-                cs.compare(f"gemm_bias_epilogue[f32 tile {tile} {variant}]", fn(), want, 1e-4, 1e-4)
-                if gp is not None:
-                    cs.compare(f"gemm_bias_epilogue[f32 tile {tile} {variant} gp]", gp, gp_p,
-                               1e-4, 1e-4)
-        times = {tile: {v: [] for v in calls} for tile in tiles}
-        for tile in tiles + tiles[::-1]:
-            use(tile)
-            for variant, (fn, *_) in calls.items():
-                times[tile][variant].append(cs.queued_ms(fn))
-    finally:
-        _build.library = load
+
+    def check(tile, variant, call):
+        fn, want, gp, gp_p = call
+        cs.compare(f"gemm_bias_epilogue[f32 tile {tile} {variant}]", fn(), want, 1e-4, 1e-4)
+        if gp is not None:
+            cs.compare(f"gemm_bias_epilogue[f32 tile {tile} {variant} gp]", gp, gp_p, 1e-4, 1e-4)
+
     result = {}
-    for tile in tiles:
-        per_call = {v: sum(ts) / len(ts) for v, ts in times[tile].items()}
+    for tile, per_call in check_and_time(builds, calls, check).items():
         eval_block = sum(ms for v, ms in per_call.items() if not v.startswith("fc1_gelu_pair"))
-        result[tile] = {"per_call_queued_ms": per_call, "eval_per_block_queued_ms": eval_block,
-                        "turns": times[tile]}
-        print(f"tile {tile}: " + ", ".join(f"{v} {ms:.4f}" for v, ms in per_call.items())
-              + f"; eval per SwinBlock {eval_block:.4f} ms queued")
+        result[tile] = {"per_call_queued_ms": per_call, "eval_per_block_queued_ms": eval_block}
+        print(f"tile {tile}: eval per SwinBlock {eval_block:.4f} ms queued")
     print(json.dumps({"fwd_f32_tile_sweep": result, "T_eval": cs.T, "T_step": t_step, "gpu": smi}))
+    return 0
+
+
+def sweep_dgrad_f32(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    def defines(t):
+        if t == DEFAULT_DGRAD_F32_TILE:
+            return ()
+        d = tuple(f"SEI_DGRAD_F32_{k}={v}" for k, v in zip(("BM", "BN", "BK"), t))
+        return d + ((f"SEI_DGRAD_F32_MINB={t[3]}",) if t[3] else ())
+
+    builds = build_all({"x".join(map(str, t[:3])) + (f"b{t[3]}" if t[3] else ""): defines(t)
+                        for t in DGRAD_F32_TILES}, "gemm_dgrad_f32_kernel")
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * s
+
+    # the f32 step's four calls per block and graph (chip_smoke's variants)
+    calls = {}
+    for b in cs.TRAIN_GRAPHS:
+        t = b * cs.CROP * cs.CROP
+        wm = st.WindowMap(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)
+        dpm = (torch.rand(b, generator=g, device="cuda") < 0.9).float() / 0.9
+        for variant, kk, nn, scale, wmap, gelu in (
+                ("fc2_gelu_grad", cs.CH, cs.C, dpm, None, True),
+                ("fc1", cs.C, cs.CH, None, None, False),
+                ("proj_window_dpm", cs.C, cs.C, dpm, wm, False),
+                ("qkv", cs.C, 3 * cs.C, None, None, False)):
+            dy = rnd(b, cs.CROP, cs.CROP, nn) if wmap else rnd(t, nn)
+            w, gp = rnd(kk, nn, s=0.05), (rnd(t, kk) if gelu else None)
+            calls[f"{variant} T={t}"] = (
+                lambda dy=dy, w=w, scale=scale, wmap=wmap, gp=gp:
+                st.gemm_dgrad(dy, w, scale=scale, window=wmap, gp=gp),
+                st._torch_gemm_dgrad(dy, w, scale, wmap, gp))
+    means = check_and_time(builds, calls, lambda n, v, c: cs.compare(
+        f"gemm_dgrad[f32 tile {n} {v}]", c[0](), c[1], 1e-4, 1e-4))
+    result = {}
+    for tile, per_call in means.items():
+        per_graph = {f"T={b * cs.CROP * cs.CROP}": sum(
+            ms for v, ms in per_call.items() if v.endswith(f"T={b * cs.CROP * cs.CROP}"))
+            for b in cs.TRAIN_GRAPHS}
+        step = cs.BLOCKS * sum(per_graph.values())
+        result[tile] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_graph,
+                        "step_queued_ms": step}
+        print(f"tile {tile}: per SwinBlock " + ", ".join(f"{k} {ms:.4f}" for k, ms in per_graph.items())
+              + f"; per step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
+    print(json.dumps({"dgrad_f32_tile_sweep": result, "gpu": smi}))
     return 0
 
 

@@ -37,11 +37,45 @@
 // ~200 MB (0.0597 ms at 3.35 TB/s) and the four data grads 266 MB (0.0794
 // ms: f32 dy of fc1 and proj, f32 dh and dz, the bf16 gelu' read by fc2).
 //
-// f32 (gemm_dgrad_kernel, gemm_wgrad_kernel), as gemm_bias_epilogue.cu: 64x64
-// output tiles per 256-thread block, 16-deep reduction slices staged
-// through shared memory as f32, a 4x4 register tile of CUDA-core FMAs per
-// thread; the gather and scale are applied on the load, gp in the epilogue.
-// TF32 stays off, so f32 stays on the CUDA cores.
+// f32 runs on the CUDA cores' FP32 FMAs (TF32 stays off).
+// gemm_wgrad_kernel: 64x64 tiles of dW per 256-thread block, 16-deep slices
+// of M staged through shared memory, a 4x4 register tile of FMAs per thread.
+// gemm_dgrad_f32_kernel: register-blocked, as the f32 forward GEMM
+// (gemm_bias_epilogue.cu):
+// - Tiles.  A block of 2 BM threads owns a BM x BN tile of out over (M, K),
+//   96 x 96 (K = 180 and 360 pad to 192 and 384, 6.7%), each thread 8 rows
+//   x 6 columns of accumulators.  Per n a thread reads two float4 of G and
+//   a float4 and a float2 of W from shared memory for 48 FMAs (the 64x64
+//   kernel this one replaces read 8 floats per 16).  A warp is 4 x 8
+//   threads, so each of those loads is one pass.
+// - Waves.  96 rows, not the forward's 128: at the step's T = 36864 the
+//   K = 180 calls (3 of 4) have 768 blocks for 264 slots (2 per SM), 2.91
+//   waves, where 128 rows gave 576, 2.18 waves, and the last wave ran 18%
+//   full (dgrad_tile_sweep.py --dgrad-f32 chose the tile on the card).
+// - Both operands transposed.  dgrad reduces over N, the contiguous axis of
+//   both dy and W (K, N), but the FMA loop reads float4 along m and k: both
+//   go through registers, read as float4 along n and stored [n][m], [n][k].
+//   Copy c of a slice is row c % rows of column group c / rows, so a warp's
+//   32 lanes store 32 consecutive floats (one pass), and a thread's row of G
+//   is the same in every slice: its pixel (row_to_pixel) and scale are found
+//   once, and the scale is applied as the row is stored.  (Copying both by
+//   cp.async as they lie, [m][n] and [k][n], and reading float4 along n in
+//   the FMA loop frees the 20 staging registers for 3 blocks per SM, but
+//   measured no faster over the step's calls: PERF.md.)
+// - Staging.  N in 20-deep slices (180, 360 and 540 pad nothing; 30,720 B of
+//   static shared memory) through two shared stages with one barrier per
+//   slice: slice s + 1 is read into registers before slice s's FMAs and
+//   stored into the other stage after them.
+// - Epilogue in registers: times gp (read as float4 / float2), then each
+//   row's column groups stored as float4 / float2.
+// - float4 accesses where K and N are multiples of 4 and every pointer is
+//   16-byte aligned (every shape of the step), else one element per access;
+//   ragged edges and the M tail zero-filled.  The tile and the depth are
+//   build defines (-DSEI_DGRAD_F32_BM, _BN, _BK, _MINB; dgrad_tile_sweep.py
+//   --dgrad-f32 sweeps them on the card).
+// - One FMA chain per output over the f32 products s * dy, in ascending n
+//   from 0, times gp after it (no split over N, no atomics): the sums of the
+//   64x64 kernel this one replaces, bit for bit.
 //
 // bf16 runs on the tensor cores (gemm_wgrad_mma_kernel, gemm_dgrad_mma_kernel):
 // - Tiles.  A 128-thread block owns a 64x64 tile of dW over (K, N), or a
@@ -98,72 +132,207 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int kThreads = 256;
 
-// out[m][k] = sum_n s(m) dy[p(m)][n] W[k][n]  (M x K, reduction over N), in f32
-template <bool GP>
-__global__ void __launch_bounds__(kThreads)
-gemm_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ Wt,
-                  const float* __restrict__ scale, const float* __restrict__ gp,
-                  float* __restrict__ out, int M, int N, int K, int rows_per_img, WinMap map) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // As[n][m]
-  __shared__ __align__(16) float Bs[BK][BN + 4];  // Bs[n][k]
+// -- f32 gemm_dgrad on the CUDA cores (see the note at the top) ------------
 
+// The block tile, rows of M x columns of K, and the depth of an N slice;
+// -DSEI_DGRAD_F32_BM=... -DSEI_DGRAD_F32_BN=... -DSEI_DGRAD_F32_BK=... build
+// another (the tile sweep): BM a multiple of 32 from 64 to 128, BN a
+// multiple of 32 from 64, BK a multiple of 4; -DSEI_DGRAD_F32_MINB sets the
+// blocks per SM the register budget is cut for
+#ifndef SEI_DGRAD_F32_BM
+#define SEI_DGRAD_F32_BM 96
+#endif
+#ifndef SEI_DGRAD_F32_BN
+#define SEI_DGRAD_F32_BN 96
+#endif
+#ifndef SEI_DGRAD_F32_BK
+#define SEI_DGRAD_F32_BK 20
+#endif
+constexpr int DF_BM = SEI_DGRAD_F32_BM;
+constexpr int DF_BN = SEI_DGRAD_F32_BN;
+constexpr int DF_BK = SEI_DGRAD_F32_BK;
+constexpr int DF_THREADS = 2 * DF_BM;           // 16 columns x BM / 8 rows of threads
+constexpr int DF_NG4 = DF_BN / 64;              // 4-column groups of a thread, 64 apart
+constexpr int DF_NG2 = (DF_BN % 64) / 32;       // and a 2-column group after them
+constexpr int DF_TN = 4 * DF_NG4 + 2 * DF_NG2;  // a thread's columns (and 8 rows)
+#ifdef SEI_DGRAD_F32_MINB
+constexpr int DF_MIN_BLOCKS = SEI_DGRAD_F32_MINB;
+#else
+constexpr int DF_MIN_BLOCKS = (DF_BN <= 96 ? 512 : 256) / DF_THREADS;
+#endif
+static_assert(DF_BM % 32 == 0 && DF_BM >= 64 && DF_BM <= 128 && DF_BN % 32 == 0 &&
+              DF_BN >= 64 && DF_BK % 4 == 0, "f32 dgrad tile");
+
+// out[m][k] = (sum_n (s(m) dy[p(m)][n]) W[k][n]) gp[m][k]  (M x K, reduction
+// over N) in f32; GP = false: no gp factor.  VEC = elements per global
+// access: 4 (K, N multiples of 4 and every pointer 16-byte aligned) or 1
+template <bool GP, int VEC>
+__global__ void __launch_bounds__(DF_THREADS, DF_MIN_BLOCKS)
+gemm_dgrad_f32_kernel(const float* __restrict__ dy, const float* __restrict__ Wt,
+                      const float* __restrict__ scale, const float* __restrict__ gp,
+                      float* __restrict__ out, int M, int N, int K, int rows_per_img,
+                      WinMap map) {
+  constexpr int BM = DF_BM, BN = DF_BN, BK = DF_BK, TN = DF_TN;
+  // copies per staged row of either operand, and per thread and slice
+  constexpr int CPR = BK / VEC;
+  constexpr int G_N = (CPR * BM + DF_THREADS - 1) / DF_THREADS;
+  constexpr int W_N = (CPR * BN + DF_THREADS - 1) / DF_THREADS;
+  __shared__ __align__(16) float Gs[2][BK][BM];  // Gs[stage][n][m]
+  __shared__ __align__(16) float Ws[2][BK][BN];  // Ws[stage][n][k]
+
+  // a warp is 4 x 8 threads: 4 rows of threads read 4 float4 of Gs and 8
+  // columns of threads 8 float4 (or float2) of Ws per n, one pass each
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // output columns (k) tx*4 .. +3
-  const int ty = tid >> 4;  // output rows    (m) ty*4 .. +3
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // rows ty*4 .. +3 and BM/2 + ty*4 .. +3
+  const int tx = (warp & 1) * 8 + (lane & 7);    // columns tx*4 .. +3 (+ 64 g), then tx*2 .. +1
   const int m0 = blockIdx.y * BM;
   const int k0 = blockIdx.x * BN;
 
-  const int l_row = tid >> 2;  // 64 rows x 4 threads, 4 reduction entries each
-  const int l_n = (tid & 3) * 4;
-  const int am = m0 + l_row;
-  const float* arow = nullptr;
-  float as = 0.f;
-  if (am < M) {
-    arow = dy + row_to_pixel(am, map) * N;
-    as = scale ? scale[am / rows_per_img] : 1.f;
+  // copy c = tid + i * DF_THREADS of a slice is row c % rows of column group
+  // c / rows.  G's rows: this thread's is tid % BM in every copy and slice,
+  // so its pixel and scale are found once (no row past M: zero-filled)
+  const int g_row = tid % BM;
+  const float* grow = nullptr;
+  float gs = 1.f;
+  if (m0 + g_row < M) {
+    grow = dy + row_to_pixel(m0 + g_row, map) * N;
+    if (scale) gs = scale[(m0 + g_row) / rows_per_img];
   }
-  const int bk = k0 + l_row;
-  const float* brow = bk < K ? Wt + (long long)bk * N : nullptr;
 
-  float acc[4][4];
+  // slice n0 of both operands into registers (zero past M, K and N; with
+  // VEC = 4, N is a multiple of 4, so a copy is all in or all out), then
+  // into stage st transposed, G times its row's scale
+  float rg[G_N][VEC], rw[W_N][VEC];
+  auto load = [&](int n0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gn = n0 + l_n + i;
-      As[l_n + i][l_row] = (arow && gn < N) ? as * arow[gn] : 0.f;
-      Bs[l_n + i][l_row] = (brow && gn < N) ? brow[gn] : 0.f;
+    for (int i = 0; i < G_N; ++i) {
+      const int q = tid / BM + 2 * i;
+      const int gn = n0 + q * VEC;
+      const bool ok = q < CPR && grow && gn < N;
+      if constexpr (VEC == 4) {
+        const float4 v = ok ? *reinterpret_cast<const float4*>(grow + gn)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        rg[i][0] = v.x, rg[i][1] = v.y, rg[i][2] = v.z, rg[i][3] = v.w;
+      } else {
+        rg[i][0] = ok ? grow[gn] : 0.f;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < W_N; ++i) {
+      const int c = tid + i * DF_THREADS;
+      const int q = c / BN;
+      const int gk = k0 + c % BN, gn = n0 + q * VEC;
+      const bool ok = q < CPR && gk < K && gn < N;
+      const float* src = Wt + (long long)gk * N + gn;
+      if constexpr (VEC == 4) {
+        const float4 v = ok ? *reinterpret_cast<const float4*>(src)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        rw[i][0] = v.x, rw[i][1] = v.y, rw[i][2] = v.z, rw[i][3] = v.w;
+      } else {
+        rw[i][0] = ok ? *src : 0.f;
+      }
+    }
+  };
+  auto store = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < G_N; ++i) {
+      const int q = tid / BM + 2 * i;
+      if (q < CPR) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) Gs[st][q * VEC + j][g_row] = gs * rg[i][j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < W_N; ++i) {
+      const int c = tid + i * DF_THREADS;
+      if (c / BN < CPR) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) Ws[st][(c / BN) * VEC + j][c % BN] = rw[i][j];
+      }
+    }
+  };
+
+  // one FMA chain per output, ascending n from 0 (no split over N, no
+  // atomics), so repeats are bit for bit equal
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  auto compute = [&](int st) {
 #pragma unroll
     for (int nn = 0; nn < BK; ++nn) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[nn][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[nn][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      float a[8], b[TN];
+      const float4 a0 = *reinterpret_cast<const float4*>(&Gs[st][nn][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&Gs[st][nn][BM / 2 + ty * 4]);
+      a[0] = a0.x, a[1] = a0.y, a[2] = a0.z, a[3] = a0.w;
+      a[4] = a1.x, a[5] = a1.y, a[6] = a1.z, a[7] = a1.w;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int g = 0; g < DF_NG4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(&Ws[st][nn][g * 64 + tx * 4]);
+        b[4 * g] = v.x, b[4 * g + 1] = v.y, b[4 * g + 2] = v.z, b[4 * g + 3] = v.w;
+      }
+      if (DF_NG2) {
+        const float2 v = *reinterpret_cast<const float2*>(&Ws[st][nn][DF_NG4 * 64 + tx * 2]);
+        b[TN - 2] = v.x, b[TN - 1] = v.y;
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
+  };
+
+  // two stages, one barrier per slice: slice s + 1's loads are in flight
+  // while slice s's FMAs run; the barrier after its store frees stage s % 2
+  const int slices = (N + BK - 1) / BK;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int s = 0; s < slices; ++s) {
+    const int st = s & 1;
+    const bool more = s + 1 < slices;
+    if (more) load((s + 1) * BK);
+    compute(st);
+    if (more) {
+      store(st ^ 1);
+      __syncthreads();
+    }
   }
 
+  // epilogue in registers: times gp, then each row's column groups stored
+  // (float4 / float2 with VEC 4: a group is all in or all out, as K % 4 == 0)
+  auto col = [&](int j) {
+    return j < 4 * DF_NG4 ? (j >> 2) * 64 + tx * 4 + (j & 3) : DF_NG4 * 64 + tx * 2 + (j & 1);
+  };
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i >> 2) * (BM / 2) + ty * 4 + (i & 3);
     if (gm >= M) continue;
+    const long long orow = (long long)gm * K;
+    // the group of Wd columns from the thread's column j0
+    auto store_out = [&](int j0, auto wd) {
+      constexpr int Wd = decltype(wd)::value;
+      const int gk = k0 + col(j0);
+      const long long o = orow + gk;
+      if constexpr (VEC == 4) {
+        if (gk >= K) return;
+        Pack<float, Wd> p;
+        if (GP) p = load_pack<float, Wd>(gp + o);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gk = k0 + tx * 4 + j;
-      if (gk >= K) continue;
-      const long long idx = (long long)gm * K + gk;
-      out[idx] = GP ? acc[i][j] * gp[idx] : acc[i][j];
-    }
+        for (int q = 0; q < Wd; ++q) p.v[q] = GP ? acc[i][j0 + q] * p.v[q] : acc[i][j0 + q];
+        store_pack(out + o, p);
+      } else {
+#pragma unroll
+        for (int q = 0; q < Wd; ++q) {
+          if (gk + q < K) out[o + q] = GP ? acc[i][j0 + q] * gp[o + q] : acc[i][j0 + q];
+        }
+      }
+    };
+#pragma unroll
+    for (int g = 0; g < DF_NG4; ++g) store_out(4 * g, std::integral_constant<int, 4>());
+    if (DF_NG2) store_out(TN - 2, std::integral_constant<int, 2>());
   }
 }
 
@@ -249,12 +418,59 @@ gemm_wgrad_kernel(const float* __restrict__ A, const float* __restrict__ dy,
   }
 }
 
+struct DgradArgs {
+  const void* dy;
+  const void* Wt;
+  const float* scale;
+  const void* gp;
+  void* out;
+  int M, N, K, rows_per_img;
+  WinMap map;
+};
+
+bool aligned(const void* p, size_t bytes) { return (size_t)p % bytes == 0; }
+
+template <bool GP, int VEC>
+void launch_dgrad_f32_vec(dim3 grid, cudaStream_t s, const DgradArgs& a) {
+  SEI_LAUNCH(grid, DF_THREADS, s, gemm_dgrad_f32_kernel<GP, VEC>)(
+      static_cast<const float*>(a.dy), static_cast<const float*>(a.Wt), a.scale,
+      static_cast<const float*>(a.gp), static_cast<float*>(a.out), a.M, a.N, a.K,
+      a.rows_per_img, a.map);
+}
+
+// float4 accesses where K, N and every pointer allow them, else one element
+cudaError_t launch_dgrad_f32(cudaStream_t s, const DgradArgs& a) {
+  const dim3 grid((a.K + DF_BN - 1) / DF_BN, (a.M + DF_BM - 1) / DF_BM);
+  if (grid.y > 65535u) return cudaErrorInvalidValue;
+  const bool vec4 = a.K % 4 == 0 && a.N % 4 == 0 && aligned(a.dy, 16) && aligned(a.Wt, 16) &&
+                    aligned(a.gp, 16) && aligned(a.out, 16);
+  if (a.gp != nullptr)
+    vec4 ? launch_dgrad_f32_vec<true, 4>(grid, s, a) : launch_dgrad_f32_vec<true, 1>(grid, s, a);
+  else
+    vec4 ? launch_dgrad_f32_vec<false, 4>(grid, s, a) : launch_dgrad_f32_vec<false, 1>(grid, s, a);
+  return cudaGetLastError();
+}
+
+void launch_wgrad_f32(dim3 grid, cudaStream_t s, const void* A, const void* dy,
+                      const float* scale, float* dw_part, float* db_part, int M, int K,
+                      int N, int chunk, int rows_per_img, WinMap map) {
+  SEI_LAUNCH(grid, kThreads, s, gemm_wgrad_kernel)(static_cast<const float*>(A),
+                                                   static_cast<const float*>(dy), scale,
+                                                   dw_part, db_part, M, K, N, chunk,
+                                                   rows_per_img, map);
+}
+
 // -- bf16 gemm_wgrad on the tensor cores (see the note at the top) ---------
 
 // a block's dW tile is BM x BN (K x N), as in the f32 kernel
 constexpr int WG_SL = 32;        // token rows (M) per staged slice
 constexpr int WG_PITCH = BN + 8;  // shared row pitch in bf16
 constexpr int WG_THREADS = 128;  // 4 warps, 2 x 2 over the tile, 32x32 each
+
+// The tensor-core kernels below are built by nvcc only: a host compiler
+// (the f32 kernels' index logic on the CPU, tests/cuda_emulation.py) stops
+// here, and the bf16 entry points then refuse
+#ifdef __CUDACC__
 
 // dW[k][n] = sum_m A[m][k] round_bf16(s(m) dy[p(m)][n]) over this split's
 // rows m; blocks of the first k tile also sum db[n] over the same rows, of
@@ -601,29 +817,6 @@ gemm_dgrad_mma_kernel(const TDY* __restrict__ dy, const bf16* __restrict__ Wt,
   }
 }
 
-struct DgradArgs {
-  const void* dy;
-  const void* Wt;
-  const float* scale;
-  const void* gp;
-  void* out;
-  int M, N, K, rows_per_img;
-  WinMap map;
-};
-
-void launch_dgrad_f32(dim3 grid, cudaStream_t s, const DgradArgs& a) {
-  const float* d = static_cast<const float*>(a.dy);
-  const float* w = static_cast<const float*>(a.Wt);
-  const float* g = static_cast<const float*>(a.gp);
-  float* o = static_cast<float*>(a.out);
-  if (g != nullptr)
-    gemm_dgrad_kernel<true><<<grid, kThreads, 0, s>>>(d, w, a.scale, g, o, a.M, a.N, a.K,
-                                                      a.rows_per_img, a.map);
-  else
-    gemm_dgrad_kernel<false><<<grid, kThreads, 0, s>>>(d, w, a.scale, g, o, a.M, a.N, a.K,
-                                                       a.rows_per_img, a.map);
-}
-
 template <typename TDY, typename TOUT, typename TGP, int VEC>
 cudaError_t launch_dgrad_mma_vec(dim3 grid, cudaStream_t s, const DgradArgs& a) {
   const auto kernel = gemm_dgrad_mma_kernel<TDY, TOUT, TGP, VEC>;
@@ -660,16 +853,6 @@ cudaError_t launch_dgrad_mma(int out_bf16, int gp_bf16, bool vec4, dim3 grid, cu
                   : launch_dgrad_mma_out<TDY, float>(gp_bf16, vec4, grid, s, a);
 }
 
-bool aligned(const void* p, size_t bytes) { return (size_t)p % bytes == 0; }
-
-void launch_wgrad_f32(dim3 grid, cudaStream_t s, const void* A, const void* dy,
-                      const float* scale, float* dw_part, float* db_part, int M, int K,
-                      int N, int chunk, int rows_per_img, WinMap map) {
-  gemm_wgrad_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(A),
-                                              static_cast<const float*>(dy), scale, dw_part,
-                                              db_part, M, K, N, chunk, rows_per_img, map);
-}
-
 template <typename TDY>
 void launch_wgrad_mma(bool vec4, dim3 grid, cudaStream_t s, const void* A, const void* dy,
                       const float* scale, float* dw_part, float* db_part, int M, int K,
@@ -684,6 +867,8 @@ void launch_wgrad_mma(bool vec4, dim3 grid, cudaStream_t s, const void* A, const
         a, d, scale, dw_part, db_part, M, K, N, chunk, rows_per_img, db_rounded, map);
 }
 
+#endif  // __CUDACC__
+
 }  // namespace
 
 extern "C" int sei_gemm_dgrad(int device, int is_bf16, const void* dy, int dy_bf16,
@@ -695,19 +880,15 @@ extern "C" int sei_gemm_dgrad(int device, int is_bf16, const void* dy, int dy_bf
   if (scale != nullptr && rows_per_img <= 0) return (int)cudaErrorInvalidValue;
   if (!is_bf16 && (dy_bf16 || out_bf16 || gp_bf16)) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  // both kernels' tiles are DG_BM = BM rows high; the f32 tile is BN wide
-  const int tn = is_bf16 ? DG_TN : BN;
-  const dim3 grid((K + tn - 1) / tn, (M + BM - 1) / BM);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const DgradArgs a{dy, Wt, scale, gp, out, M, N, K, rows_per_img,
                     WinMap{windowed, H, W, ws, shift}};
   cudaStream_t s = (cudaStream_t)stream;
-  if (!is_bf16) {
-    launch_dgrad_f32(grid, s, a);
-    return (int)cudaGetLastError();
-  }
+  if (!is_bf16) return (int)launch_dgrad_f32(s, a);
+#ifdef __CUDACC__
+  const dim3 grid((K + DG_TN - 1) / DG_TN, (M + DG_BM - 1) / DG_BM);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   // 4-element packs: 8 bytes of bf16, 16 of f32, at every row start
   const auto pack = [](int is_bf) { return 4 * (is_bf ? sizeof(bf16) : sizeof(float)); };
   const bool vec4 = K % 4 == 0 && N % 4 == 0 && aligned(dy, pack(dy_bf16)) &&
@@ -717,6 +898,9 @@ extern "C" int sei_gemm_dgrad(int device, int is_bf16, const void* dy, int dy_bf
                 : launch_dgrad_mma<float>(out_bf16, gp_bf16, vec4, grid, s, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
 }
 
 extern "C" int sei_gemm_wgrad(int device, int is_bf16, const void* A, const void* dy,
@@ -745,11 +929,16 @@ extern "C" int sei_gemm_wgrad(int device, int is_bf16, const void* A, const void
   if (!is_bf16)  // f32 rounds nothing: db_rounded changes no sum
     launch_wgrad_f32(grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk, rows_per_img,
                      map);
+#ifdef __CUDACC__
   else if (dy_bf16)
     launch_wgrad_mma<bf16>(vec4, grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
                            rows_per_img, db_rounded, map);
   else
     launch_wgrad_mma<float>(vec4, grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
                             rows_per_img, db_rounded, map);
+#else
+  else
+    return (int)cudaErrorInvalidValue;
+#endif
   return (int)cudaGetLastError();
 }

@@ -94,6 +94,7 @@ _EPS = 1e-5
 _EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
 _TILE = 64  # rows of the GEMM tiles (BM in csrc/gemm_*.cu; BN too, but bf16 dgrad is 96 wide and
 #              the f32 forward GEMM 128 x 96, for which the grid check below is conservative)
+_DGRAD_F32_ROWS = 96  # rows of the f32 data grad's tile (DF_BM in csrc/gemm_bwd.cu)
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -378,11 +379,14 @@ def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, gp=None
     products of the TPU trunk's backward (``sei_tpu/ops/swin_trunk.py``
     ``_block_bwd_image`` :665-666, :669, :740-741, :803).  Bound by FP32
     operations in f32, by bytes in bf16; the gather, scale and rounding on
-    the load and gp in the epilogue.  f32 runs on the CUDA cores (64x64
-    tiles, 4x4 register tiles); bf16 on the tensor cores (``mma.sync``
-    m16n8k16, f32 accumulators, 64x96 tiles, 32-deep slices of the rounded
-    operand staged through registers and of w copied by ``cp.async``, two
-    shared buffers).  Both tiles are ``_TILE`` rows high.
+    the load and gp in the epilogue.  f32 runs on the CUDA cores: 96x96
+    output tiles, 8x6 register tiles of FMAs per thread, 20-deep slices of
+    both operands read as float4 along N into registers and stored
+    transposed into two shared stages, the epilogue in registers and float4
+    stores; its tile is ``_DGRAD_F32_ROWS`` rows high.  bf16 runs on the
+    tensor cores (``mma.sync`` m16n8k16, f32 accumulators, 64x96 tiles,
+    32-deep slices of the rounded operand staged through registers and of w
+    copied by ``cp.async``, two shared buffers), ``_TILE`` rows high.
     """
     k, n = w.shape
     if dy.shape[-1] != n:
@@ -402,7 +406,7 @@ def gemm_dgrad(dy, w, *, scale=None, window: Optional[WindowMap] = None, gp=None
                  scale=(scale, F32))
     if out_dtype not in (cdt, F32):
         raise ValueError(f"gemm_dgrad: out_dtype {out_dtype} with {cdt} weights")
-    if m > 65535 * _TILE:
+    if m > 65535 * (_TILE if cdt == BF16 else _DGRAD_F32_ROWS):
         raise ValueError(f"gemm_dgrad: M={m} exceeds the kernel's grid")
     out = torch.empty((m, k), device=dy.device, dtype=out_dtype)
     wm = window or WindowMap(0, 0, 0, 0)

@@ -1,13 +1,10 @@
 """The f32 forward GEMM kernel's index logic, run on the CPU.
 
 ``sei_tpu_torch/ops/csrc/gemm_bias_epilogue.cu`` is compiled as it is by the
-host's ``g++`` against a small stub of the CUDA features its f32 path uses
-(written below as ``cuda_runtime.h``): each CUDA thread of a block runs as a
-``std::thread`` (the blocks one after another, so ``__shared__`` arrays are
-plain statics), ``__syncthreads`` is a barrier, ``cp.async`` a synchronous
-copy (zero-filled where the kernel asks for none), and ``float4`` and
-``erff`` come from the host.  The shared library is loaded with ``ctypes``
-in a subprocess, called through its C entry point ``sei_gemm_bias_epilogue``
+host's ``g++`` against the stub of ``tests/cuda_emulation.py`` (each CUDA
+thread a ``std::thread``, ``__syncthreads`` a barrier, ``cp.async`` a
+synchronous copy).  The shared library is loaded with ``ctypes`` in a
+subprocess, called through its C entry point ``sei_gemm_bias_epilogue``
 on seeded inputs, and its outputs are held against the plain version
 ``_torch_gemm_bias_epilogue`` at 1e-4 (abs and rel, as ``chip_smoke.py``).
 
@@ -16,16 +13,9 @@ K and N (tails of the block tile and of the 20-deep slice), odd widths and a
 view at an odd offset (the one-element path), and the window store with and
 without shift; the library is built at the shipped tile and at other tiles
 and slice depths of the tile sweep (``-DSEI_FWD_F32_BM``, ``_BN``, ``_BK``).
-This checks the kernel's tiling, staging, masks and strides, not its timing
-or the GPU compiler: ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` do
-that on the card.
 """
 
-import shutil
-import subprocess
-import sys
 import textwrap
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,125 +23,10 @@ import torch
 
 from sei_tpu_torch.ops import swin_trunk as st
 
-CSRC = Path(st.__file__).resolve().parent / "csrc"
-TIMEOUT_S = 120
+from . import cuda_emulation as emu
+
 RTOL = ATOL = 1e-4
 EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
-
-STUB = r"""
-// Host stand-ins for the CUDA features of the f32 kernels (one block at a
-// time, one std::thread per CUDA thread)
-#pragma once
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-#include <stdlib.h>
-#include <string.h>
-
-#include <condition_variable>
-#include <mutex>
-#include <thread>
-#include <vector>
-
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
-};
-struct alignas(16) float4 { float x, y, z, w; };
-struct alignas(8) float2 { float x, y; };
-struct alignas(16) uint4 { unsigned x, y, z, w; };
-struct alignas(8) uint2 { unsigned x, y; };
-inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
-
-struct __nv_bfloat16 { uint16_t bits; };
-inline float __bfloat162float(__nv_bfloat16 v) {
-  const uint32_t u = uint32_t(v.bits) << 16;
-  float f;
-  memcpy(&f, &u, 4);
-  return f;
-}
-inline __nv_bfloat16 __float2bfloat16_rn(float f) {
-  uint32_t u;
-  memcpy(&u, &f, 4);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return {uint16_t(u >> 16)};
-}
-
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-typedef struct CUstream_st* cudaStream_t;
-inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-
-inline thread_local dim3 threadIdx, blockIdx;
-
-struct SeiBarrier {
-  std::mutex m;
-  std::condition_variable cv;
-  unsigned n = 0, waiting = 0;
-  unsigned long gen = 0;
-  void wait() {
-    std::unique_lock<std::mutex> lock(m);
-    const unsigned long g = gen;
-    if (++waiting == n) {
-      waiting = 0;
-      ++gen;
-      cv.notify_all();
-    } else {
-      cv.wait(lock, [&] { return gen != g; });
-    }
-  }
-};
-inline SeiBarrier sei_barrier;
-inline void __syncthreads() { sei_barrier.wait(); }
-
-template <int BYTES>
-inline void cp_async(void* dst, const void* src, bool valid) {
-  if (valid)
-    memcpy(dst, src, BYTES);
-  else
-    memset(dst, 0, BYTES);
-}
-inline void cp_async_commit() {}
-template <int N>
-inline void cp_async_wait() {}
-
-// the tensor-core and warp-shuffle paths are not emulated
-[[noreturn]] inline void sei_not_emulated() { abort(); }
-inline void ldmatrix_x4(unsigned (&)[4], const void*) { sei_not_emulated(); }
-inline void ldmatrix_x4_trans(unsigned (&)[4], const void*) { sei_not_emulated(); }
-inline void mma_bf16_16816(float (&)[4], const unsigned (&)[4], unsigned, unsigned) {
-  sei_not_emulated();
-}
-inline float __shfl_xor_sync(unsigned, float, int) { sei_not_emulated(); }
-
-template <typename... P>
-auto sei_host_launch(dim3 grid, dim3 block, void (*kernel)(P...)) {
-  return [=](auto... args) {
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        sei_barrier.n = block.x;
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < block.x; ++t)
-          threads.emplace_back([=] {
-            blockIdx = dim3(bx, by);
-            threadIdx = dim3(t);
-            kernel(args...);
-          });
-        for (auto& th : threads) th.join();
-      }
-  };
-}
-#define SEI_LAUNCH(grid, block, stream, ...) ((void)(stream), sei_host_launch(grid, block, __VA_ARGS__))
-"""
 
 # loads the library, calls the entry point on each case of inputs.npz, saves
 # the outputs (and gelu') to outputs.npz
@@ -263,37 +138,14 @@ def _plain(case, arrs):
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """tile -> the emulated kernel's outputs for that tile's cases."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the kernel source for the CPU")
     root = tmp_path_factory.mktemp("gemm_f32_emu")
-    (root / "stub").mkdir()
-    (root / "stub" / "cuda_runtime.h").write_text(STUB)
-    (root / "stub" / "cuda_bf16.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
-    (root / "runner.py").write_text(RUNNER)
+    libs = emu.build(root, "gemm_bias_epilogue.cu", {
+        tile: [f"SEI_FWD_F32_{k}={v}" for k, v in zip(("BM", "BN", "BK"), tile.split("x"))]
+        for tile in TILES})
     by_name = {c[0]: c for c in CASES}
-    builds = {}
-    for tile, names in TILES.items():
-        lib = root / f"lib_{tile}.so"
-        bm, bn, bk = tile.split("x")
-        cmd = ["g++", "-std=c++17", "-O1", "-fno-strict-aliasing", "-fPIC", "-shared",
-               "-pthread", "-x", "c++", f"-DSEI_FWD_F32_BM={bm}", f"-DSEI_FWD_F32_BN={bn}",
-               f"-DSEI_FWD_F32_BK={bk}",
-               "-I", str(root / "stub"),
-               "-I", str(CSRC), str(CSRC / "gemm_bias_epilogue.cu"), "-o", str(lib)]
-        builds[tile] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT, text=True))
-    results = {}
-    for tile, (lib, proc) in builds.items():
-        log = proc.communicate(timeout=TIMEOUT_S)[0]
-        assert proc.returncode == 0, f"g++ failed on gemm_bias_epilogue.cu ({tile}):\n{log}"
-        inp, out = root / f"in_{lib.stem}.npz", root / f"out_{lib.stem}.npz"
-        np.savez(inp, **{f"{name}/{key}": v for name in TILES[tile]
-                         for key, v in _inputs(by_name[name]).items()})
-        run = subprocess.run([sys.executable, str(root / "runner.py"), str(lib), str(inp), str(out)],
-                             capture_output=True, text=True, timeout=TIMEOUT_S)
-        assert run.returncode == 0, f"emulated run ({tile}) failed:\n{run.stdout}\n{run.stderr}"
-        results[tile] = dict(np.load(out))
-    return results
+    return {tile: emu.run(root, RUNNER, lib, {f"{name}/{key}": v for name in TILES[tile]
+                                              for key, v in _inputs(by_name[name]).items()})
+            for tile, lib in libs.items()}
 
 
 @pytest.mark.parametrize("tile,name", [(t, n) for t, names in TILES.items() for n in names])

@@ -9,7 +9,9 @@ the port, so it runs on the GPU machine without JAX:
 
 The f32 forward GEMM (CUDA cores, 128x96 tiles) is held at the step's and
 the eval's widths, on ragged shapes, odd widths and unaligned views, with
-and without the window store, and repeats bit for bit.
+and without the window store, and repeats bit for bit; the f32 data grad
+(96x96 tiles) at the f32 step's four calls on both graphs (one launch
+each), on ragged, odd and unaligned operands, and repeats bit for bit.
 Small and ragged shapes (M, K, N not multiples of the tiles; C = 16 and 256;
 windows of 16 tokens, hd 8; window counts that are not multiples of the
 partial count) that the flagship checks in ``chip_smoke.py`` do not reach.
@@ -254,6 +256,61 @@ def test_gemm_dgrad(gpu, m, k, n, variant):
     gp = _rnd(gpu, m, k) if variant == "gelu" else None  # gelu'(h) of the fc1 pre-activation
     got = st.gemm_dgrad(dy, w, scale=scale, gp=gp)
     _close(got, st._torch_gemm_dgrad(dy, w, scale, None, gp), 1e-4)
+
+
+# f32 gemm_dgrad on the CUDA cores (96x96 tiles, 20-deep slices): the f32
+# step's four calls at the flagship widths on both graphs (T = 16 or 8
+# images of 48x48): (K, N, drop-path scale, gelu', window map)
+_DGRAD_F32_VARIANTS = {"fc2": (360, 180, True, True, False),
+                       "fc1": (180, 360, False, False, False),
+                       "proj": (180, 180, True, False, True),
+                       "qkv": (180, 540, False, False, False)}
+
+
+def _dgrad_f32_case(g, variant, images):
+    k, n, scaled, gelu, windowed = _DGRAD_F32_VARIANTS[variant]
+    t = images * 48 * 48
+    wm = st.WindowMap(48, 48, 8, 4) if windowed else None
+    dy = _rnd(g, images, 48, 48, n) if windowed else _rnd(g, t, n)
+    scale = ((torch.rand(images, generator=g, device="cuda") < 0.9).float() / 0.9
+             if scaled else None)
+    gp = _rnd(g, t, k) if gelu else None
+    return (dy, _rnd(g, k, n, s=0.05)), dict(scale=scale, window=wm, gp=gp)
+
+
+@pytest.mark.parametrize("variant", list(_DGRAD_F32_VARIANTS))
+@pytest.mark.parametrize("images", [16, 8])
+def test_gemm_dgrad_f32_step_widths(gpu, variant, images):
+    (dy, w), kw = _dgrad_f32_case(gpu, variant, images)
+    before = st.gemm_dgrad.launches
+    got = st.gemm_dgrad(dy, w, **kw)
+    assert st.gemm_dgrad.launches == before + 1
+    _close(got, st._torch_gemm_dgrad(dy, w, kw["scale"], kw["window"], kw["gp"]), 1e-4)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 180, 180), (129, 44, 36), (65, 17, 33)])
+@pytest.mark.parametrize("gelu", [False, True])
+def test_gemm_dgrad_f32_unaligned_pointers(gpu, m, k, n, gelu):
+    """dy, w and gp at odd element offsets (views into larger buffers), or
+    odd widths, cannot take float4 accesses: the f32 kernel goes element by
+    element."""
+    dy = _rnd(gpu, m * n + 1)[1:].view(m, n)
+    w = _rnd(gpu, k * n + 1, s=0.1)[1:].view(k, n)
+    gp = _rnd(gpu, m * k + 1)[1:].view(m, k) if gelu else None
+    assert dy.data_ptr() % 16 != 0
+    got = st.gemm_dgrad(dy, w, gp=gp)
+    _close(got, st._torch_gemm_dgrad(dy, w, None, None, gp), 1e-4)
+
+
+@pytest.mark.parametrize("variant", ["fc2", "proj"])
+def test_gemm_dgrad_f32_repeats_bit_for_bit(gpu, variant):
+    """One FMA chain per output in a fixed order (no split over N, no
+    atomics): two calls on the same inputs agree exactly."""
+    (dy, w), kw = _dgrad_f32_case(gpu, variant, 2)
+    first = st.gemm_dgrad(dy, w, **kw)
+    second = st.gemm_dgrad(dy, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("m,k,n", [(100, 20, 33), (192, 180, 540), (4000, 360, 180)])

@@ -14,7 +14,11 @@
    -> 1280 windows), the backward kernels (and the forward GEMM's
    pre-activation epilogue) at the flagship training shapes (batch 8 of
    48x48 crops: the SURE forward on 2B = 16 images, T = 36864, 576 windows;
-   the EI forward on B = 8 images, T = 18432, 288 windows).
+   the EI forward on B = 8 images, T = 18432, 288 windows).  The f32
+   attention backward is also checked as the trunk's recompute backward
+   calls it (strided from the qkv and proj buffers, att written from the
+   same p: ``att_out``), and the script prints which backend SDPA's
+   backward, its library call, ran.
 3. Eval path: ``get_model`` (flagship SwinIR, weights from seed 0) ->
    ``get_physics`` (deblurring, Gaussian_R2, noise 5) -> ``evaluate`` on 4
    seeded 256x320 images; checks the kernels' launch counts, the metrics,
@@ -46,7 +50,8 @@
    the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue`` and ``gemm_dgrad``,
    CUDA-core FMAs for the rest; the f32 ``gemm_bias_epilogue`` in 8x6
    register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
-   register tiles fed through registers) and carries ``queued_ms``: the
+   register tiles fed through registers, the f32 ``window_attn_bwd`` in
+   4x4 register tiles fed by ``cp.async``) and carries ``queued_ms``: the
    device time of the same calls queued behind a sleeping kernel, free of
    the wrapper's host cost; every entry with a library call carries
    ``library_queued_ms``, the same for it.  A line before the kernel line
@@ -88,8 +93,9 @@ BATCH, CROP, DATA_CROP = 8, 48, 256
 TRAIN_GRAPHS = (2 * BATCH, BATCH)
 TRAIN_IMAGES, TRAIN_EPOCHS = 16, 3
 # launches per SwinBlock per graph: forward, then backward (recompute of
-# LN1, qkv, attention, LN2, fc1 + the backward kernels)
-PER_BLOCK_TRAIN = {"ln_rows": 2 + 2, "gemm_bias_epilogue": 4 + 2, "window_attn_fwd": 1 + 1,
+# LN1, qkv, LN2, fc1 + the backward kernels; the attention backward writes
+# att from the p it recomputes, so no attention forward is launched again)
+PER_BLOCK_TRAIN = {"ln_rows": 2 + 2, "gemm_bias_epilogue": 4 + 2, "window_attn_fwd": 1,
                    "gemm_dgrad": 4, "gemm_wgrad": 4, "window_attn_bwd": 1, "ln_rows_bwd": 2}
 # one step's gradients, kernel path vs plain path: max |diff| per tensor
 # over max |plain grad| of that tensor (f32 sums in other orders through 2 x
@@ -336,6 +342,24 @@ def check_kernels(timed: bool) -> dict:
     return rows
 
 
+def sdpa_backend(out, inputs, grad) -> str:
+    """Which backend SDPA's backward ran on the card: the device kernels of
+    one ``torch.autograd.grad`` through its output, by time (torch.profiler),
+    and the backend they name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total)]
+    text = " ".join(names).lower()
+    kind = next((k for k, tags in (("flash", ("flash",)), ("efficient", ("fmha", "efficient")),
+                                   ("cudnn", ("cudnn",))) if any(t in text for t in tags)),
+                "math (matmuls and softmax)")
+    return f"{kind}; kernels {[n[:60] for n in names[:3]]}"
+
+
 def check_train_kernels(timed: bool) -> dict:
     """The backward kernels (and the fc1 pre-activation epilogue) against
     their plain versions at the flagship training shapes, both graphs; the
@@ -430,13 +454,22 @@ def check_train_kernels(timed: bool) -> dict:
                    4.0 * (t * kk + t * nn + kk * nn + nn), main)
             del a, dy, dy2
 
-        # attention backward, with and without the shift mask
+        # attention backward, with and without the shift mask; then as the
+        # trunk's recompute backward calls it: q, k, v and do strided from its
+        # qkv and proj buffers, dq, dk, dv into one qkv-shaped buffer, and att
+        # written from the same p (one more 64x64x30 product per pair)
         q = rnd(b_, NH, N, HD, s=HD ** -0.5)
         kt, v, do = rnd(b_, NH, N, HD), rnd(b_, NH, N, HD), rnd(b_, NH, N, HD, s=0.1)
         bias = rnd(NH, N, N, s=0.1)
         mask = torch.from_numpy(shift_attn_mask(CROP, CROP, WS, WS // 2)).to(dev)
+        qkv = rnd(b_, N, 3, NH, HD)
+        qkv[:, :, 0] *= HD ** -0.5
+        qv, kv, vv = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        dov = do.transpose(1, 2).contiguous().transpose(1, 2)
+        dqkv = torch.empty_like(qkv)
+        att = torch.empty(b_, N, NH, HD, device=dev)
+        scale = HD ** -0.5
         for variant, m in (("no_mask", None), ("shift_mask", mask)):
-            scale = HD ** -0.5
             errs = cmp_all(f"window_attn_bwd[{variant} T={t}]",
                            at.window_attn_bwd(q, kt, v, bias, m, do, scale=scale),
                            at._torch_attention_bwd(q, kt, v, bias, m, do, scale),
@@ -445,14 +478,32 @@ def check_train_kernels(timed: bool) -> dict:
                     (bias[None] + m[:, None]).repeat(b_ // m.shape[0], 1, 1, 1)).expand(b_, NH, N, N)
             ql, kl, vl = (u.detach().clone().requires_grad_() for u in (q, kt, v))
             out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=full, scale=scale)
+            if main and m is None:
+                print(f"    SDPA backward (library call) ran: {sdpa_backend(out, (ql, kl, vl), do)}")
             nbytes = 4.0 * (7 * b_ * NH * N * HD + 2 * NH * N * N + (0 if m is None else m.numel()))
             record("window_attn_bwd", f"{variant} T={t}", errs,
                    lambda: at.window_attn_bwd(q, kt, v, bias, m, do, scale=scale),
                    lambda: at._torch_attention_bwd(q, kt, v, bias, m, do, scale),
                    lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
                    10.0 * b_ * NH * N * N * HD, nbytes, main)
+
+            def fused(m=m):  # the trunk's call: grads into dqkv's views, att beside them
+                return (*at.window_attn_bwd(qv, kv, vv, bias, m, dov, scale=scale,
+                                            out=tuple(dqkv[:, :, i].transpose(1, 2)
+                                                      for i in range(3)),
+                                            att_out=att.transpose(1, 2)),
+                        att.transpose(1, 2))
+
+            errs = cmp_all(f"window_attn_bwd[{variant} att_out trunk_views T={t}]", fused(),
+                           at._torch_attention_bwd(qv, kv, vv, bias, m, dov, scale,
+                                                   with_att=True),
+                           [(2e-5, 1e-4)] * 3 + [(1e-4, 1e-4), (2e-5, 1e-5)])
+            record("window_attn_bwd", f"{variant} att_out trunk_views T={t}", errs, fused,
+                   lambda m=m: at._torch_attention_bwd(qv, kv, vv, bias, m, dov, scale,
+                                                       with_att=True),
+                   None, 12.0 * b_ * NH * N * N * HD, nbytes + 4.0 * b_ * NH * N * HD, False)
             del ql, kl, vl, out, full
-        del q, kt, v, do
+        del q, kt, v, do, qkv, qv, kv, vv, dov, dqkv, att
 
         # LayerNorm backward: LN1 (window scatter + residual), LN2 (residual)
         gamma = 1.0 + rnd(C, s=0.1)
@@ -1268,7 +1319,9 @@ DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
            "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async",
-           "gemm_dgrad": "cuda-core fma, 8x6 register tiles, operands transposed through registers"}
+           "gemm_dgrad": "cuda-core fma, 8x6 register tiles, operands transposed through registers",
+           "window_attn_bwd": "cuda-core fma, 4x4 register tiles of S/P/dP/dS, shuffle row "
+                              "reductions, P/dS tiles in shared memory, cp.async"}
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
 # earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
@@ -1279,7 +1332,9 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "gemm_dgrad[bf16] cuda-core fma 0.8734 ms; "
               "gemm_bias_epilogue cuda-core fma, 4x4 register tiles 2.1481 ms (eval shape), "
               "0.2782 ms (fc1_gelu_pair T=36864); "
-              "gemm_dgrad cuda-core fma, 4x4 register tiles 0.9315 ms, 0.9162 queued (T=36864)")
+              "gemm_dgrad cuda-core fma, 4x4 register tiles 0.9315 ms, 0.9162 queued (T=36864); "
+              "window_attn_bwd cuda-core fma, operands from shared memory 0.5821 ms, 0.5729 "
+              "queued (T=36864, mean of the masks)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1375,7 +1430,8 @@ def main(argv: list[str]) -> int:
     for line in report:
         print(f"  {line}")
     for label, kernel in (("f32 forward GEMM", "gemm_bias_epilogue_kernel"),
-                          ("f32 data grad", "gemm_dgrad_f32_kernel")):
+                          ("f32 data grad", "gemm_dgrad_f32_kernel"),
+                          ("f32 attention backward", "window_attn_bwd_f32_kernel")):
         print(f"ptxas, {label}: " + " | ".join(
             line.split(" ", 1)[1] for line in report if kernel in line))
 

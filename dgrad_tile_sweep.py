@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Tile sweeps of three GEMM kernels on one card.
+"""Tile sweeps of three GEMM kernels and the f32 attention backward on one card.
 
-    python3 dgrad_tile_sweep.py              # bf16 gemm_dgrad, output tile width
-    python3 dgrad_tile_sweep.py --fwd-f32    # f32 gemm_bias_epilogue, block tile
-    python3 dgrad_tile_sweep.py --dgrad-f32  # f32 gemm_dgrad, block tile
+    python3 dgrad_tile_sweep.py                 # bf16 gemm_dgrad, output tile width
+    python3 dgrad_tile_sweep.py --fwd-f32       # f32 gemm_bias_epilogue, block tile
+    python3 dgrad_tile_sweep.py --dgrad-f32     # f32 gemm_dgrad, block tile
+    python3 dgrad_tile_sweep.py --attn-bwd-f32  # f32 window_attn_bwd, block shape
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
 is 64 rows by ``SEI_DGRAD_TN`` columns of K
@@ -39,6 +40,20 @@ f32 step's four data-grad calls at both graphs (the SURE forward's 2B = 16
 images, T = 36864, and the EI forward's B = 8, T = 18432); the tile is
 chosen on the sum over the step's launches: 36 SwinBlocks x (the 2B
 graph's four calls + the B graph's).
+
+With ``--attn-bwd-f32``: the f32 ``window_attn_bwd`` CUDA-core kernel
+(``sei_tpu_torch/ops/csrc/window_attn_bwd.cu``, ``window_attn_bwd_f32_kernel``),
+its threads per block, which set the micro-tile (256: 4 x 4 scores per
+thread, 4 x 4 outputs of each 64 x 32 product; 128: 8 x 4 and 8 x 4), and
+the blocks per SM it is compiled for, which cap its registers (2 blocks of
+256 threads: 128; 1: 255; the 104 KB of shared memory allow 2)
+(``-DSEI_ATTN_BWD_F32_THREADS``, ``_MINB``; the wrapper sizes its groups
+from the occupancy each build reaches).  Each build is held
+against the plain version (``chip_smoke.py``'s tolerances) and timed queued,
+the builds in turns, at both graphs with and without the shift mask, as
+the trunk calls it (strided, att written beside dq, dk, dv) and without
+att; the block is chosen on the f32 step's sum: 36 SwinBlocks per graph,
+half of them masked, each one call with att.
 """
 
 from __future__ import annotations
@@ -67,6 +82,11 @@ DGRAD_F32_TILES = ((96, 96, 20, None), (128, 96, 20, None), (64, 96, 20, None),
                    (64, 96, 20, 3), (96, 96, 12, None), (128, 192, 12, None),
                    (64, 192, 20, 3))
 DEFAULT_DGRAD_F32_TILE = (96, 96, 20, None)  # the f32 data grad's tile in the port's library
+# (threads per block, blocks per SM compiled for): 256 threads (4 x 4
+# micro-tiles) at 2 blocks (the library's, 128 registers) and at 1 (255),
+# 128 threads (8 x 4) at 2 (255)
+ATTN_BWD_F32_BLOCKS = ((256, 2), (256, 1), (128, 2))
+DEFAULT_ATTN_BWD_F32_BLOCK = (256, 2)
 
 
 def main(argv: list[str]) -> int:
@@ -85,6 +105,8 @@ def main(argv: list[str]) -> int:
         return sweep_fwd_f32(smi)
     if "--dgrad-f32" in argv:
         return sweep_dgrad_f32(smi)
+    if "--attn-bwd-f32" in argv:
+        return sweep_attn_bwd_f32(smi)
     return sweep_dgrad_bf16(smi)
 
 
@@ -265,6 +287,69 @@ def sweep_dgrad_f32(smi: str) -> int:
         print(f"tile {tile}: per SwinBlock " + ", ".join(f"{k} {ms:.4f}" for k, ms in per_graph.items())
               + f"; per step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
     print(json.dumps({"dgrad_f32_tile_sweep": result, "gpu": smi}))
+    return 0
+
+
+def sweep_attn_bwd_f32(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import attention as at
+
+    default = DEFAULT_ATTN_BWD_F32_BLOCK
+    builds = build_all({"x".join(map(str, blk)): () if blk == default else tuple(
+        f"SEI_ATTN_BWD_F32_{k}={v}" for k, v in zip(("THREADS", "MINB"), blk))
+        for blk in ATTN_BWD_F32_BLOCKS}, "window_attn_bwd_f32_kernel")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n, nh, hd, scale = cs.N, cs.NH, cs.HD, cs.HD ** -0.5
+    mask = torch.from_numpy(shift_attn_mask(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)).cuda()
+    bias = torch.randn((nh, n, n), generator=g, device="cuda") * 0.1
+
+    def views(buf):
+        return tuple(buf[:, :, i].transpose(1, 2) for i in range(3))
+
+    # the f32 step's calls per graph, as the trunk makes them (with att) and
+    # as chip_smoke's table row times them (without)
+    calls = {}
+    for b in cs.TRAIN_GRAPHS:
+        t = b * cs.CROP * cs.CROP
+        b_ = t // n
+        qkv = torch.randn((b_, n, 3, nh, hd), generator=g, device="cuda")
+        do = (torch.randn((b_, n, nh, hd), generator=g, device="cuda") * 0.1).transpose(1, 2)
+        dqkv, att = torch.empty_like(qkv), torch.empty((b_, n, nh, hd), device="cuda")
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            want = at._torch_attention_bwd(*views(qkv), bias, m, do, scale, with_att=True)
+            for with_att in (False, True):
+                calls[f"{variant}{' att_out' if with_att else ''} T={t}"] = (
+                    lambda qkv=qkv, do=do, dqkv=dqkv, att=att, m=m, with_att=with_att: (
+                        *at.window_attn_bwd(*views(qkv), bias, m, do, scale=scale,
+                                            out=views(dqkv),
+                                            att_out=att.transpose(1, 2) if with_att else None),
+                        att.transpose(1, 2)),
+                    want, with_att)
+
+    def check(blk, variant, call):
+        fn, want, with_att = call
+        got = fn()
+        tols = [(2e-5, 1e-4)] * 3 + [(1e-4, 1e-4)] + [(2e-5, 1e-5)] * with_att
+        for i, tol in enumerate(tols):
+            cs.compare(f"window_attn_bwd[f32 block {blk} {variant}][{i}]", got[i], want[i], *tol)
+
+    result = {}
+    for blk, per_call in check_and_time(builds, calls, check).items():
+        per_graph = {}
+        for b in cs.TRAIN_GRAPHS:
+            t = b * cs.CROP * cs.CROP
+            for att_key in ("", " att_out"):
+                per_graph[f"T={t}{att_key}"] = 0.5 * sum(
+                    per_call[f"{v}{att_key} T={t}"] for v in ("no_mask", "shift_mask"))
+        step = cs.BLOCKS * sum(ms for k, ms in per_graph.items() if k.endswith("att_out"))
+        result[blk] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_graph,
+                       "step_queued_ms": step}
+        print(f"block {blk}: per SwinBlock (mean of the masks) "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in per_graph.items())
+              + f"; per step ({cs.BLOCKS} blocks x both graphs, with att) {step:.2f} ms queued")
+    print(json.dumps({"attn_bwd_f32_sweep": result, "gpu": smi}))
     return 0
 
 

@@ -6,7 +6,8 @@ epochs, so each (x, y) pair is synthesized once, on the device, and the
 whole dataset stays there as padded tensors.  A step's batch is then a
 gather of images and an aligned random crop, with no host round trip for
 pixels.  Image loading, the dataset registry and fresh (non-frozen)
-measurements are not ported yet (ROADMAP, Queue 1 item 17).
+measurements are not ported yet (ROADMAP, Queue 1: data and the main-path
+CLI).
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ generators (:class:`sei_tpu_torch.rng.Streams`: ``crop``, ``probe``,
 explicitly instead (the golden tests hand both packages the same draws).
 The pre-loss aligned 48-px crop of the reference is applied first.  The R2R
 alternative, the ``normal`` scaling kind, the SR crop ratio and rate hotfix
-and the supervised L1 variant are not ported yet (ROADMAP, Queue 1 items 14,
-18 and 20).
+and the supervised L1 variant are not ported yet (ROADMAP, Queue 1: R2R-EI,
+the SR task, and the remaining methods and training modes).
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class LossConfig:
         if self.sure_alternative is not None:
             raise NotImplementedError(
                 f"sure_alternative={self.sure_alternative!r}: not ported yet "
-                "(ROADMAP, Queue 1 item 20: R2R)")
+                "(ROADMAP, Queue 1: R2R-EI)")
 
         if method in ("supervised", "css", "noise2inverse"):
 

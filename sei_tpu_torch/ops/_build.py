@@ -42,7 +42,8 @@ _SIGNATURES = {
     "sei_ln_rows": [_I, _I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
     "sei_gemm_bias_epilogue": [_I, _I, *[_P] * 5, _I, _P, _P, *[_I] * 10, _P],
     "sei_window_attn_fwd": [_I, _I, *[_P] * 7, _L, _I, _I, _I, _I, *[_L] * 12, _F, _P],
-    "sei_window_attn_bwd": [_I, _I, *[_P] * 11, _L, *[_I] * 5, *[_L] * 21, _F, _P],
+    "sei_window_attn_bwd": [_I, _I, *[_P] * 12, _L, *[_I] * 5, *[_L] * 24, _F, _P],
+    "sei_window_attn_bwd_f32_blocks_per_sm": [_I, _I],
     "sei_ln_rows_bwd": [_I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _L, _I, _F,
                         *[_I] * 6, _P],
     "sei_gemm_dgrad": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _I, *[_I] * 9, _P],

@@ -30,11 +30,15 @@ Kernel ``window_attn_bwd`` (``csrc/window_attn_bwd.cu``):
     ``with_saved=True``: no q k^T, no softmax);
   * bound on the H100: ~23 flops per byte of q/k/v/do/dq/dk/dv in f32, at the
     FP32 ridge again; bytes in bf16;
-  * design: one block per (head, group of windows), p recomputed in shared
-    memory (bit-identical to the forward's) or loaded, dbias summed over the
+  * design: one block per (head, group of windows), p recomputed with the
+    forward's softmax or loaded, dbias summed over the
     group's windows in registers and written as one partial per block; the
     wrapper sums the partials (no atomics, so the gradient repeats run to
-    run).
+    run).  f32 (``window_attn_bwd_f32_kernel``): register micro-tiles of
+    S, P, dP and dS on 256 threads, the 64x32 products two at a time from
+    shared P / dS tiles, each window staged by ``cp.async``; it can also
+    write att = P.V from the p it recomputes (``att_out``), so the trunk's
+    f32 recompute backward launches no attention forward.
 
 :func:`window_attention` is the differentiable op (a ``torch.autograd.Function``
 whose forward is ``window_attn_fwd`` and whose backward is
@@ -47,6 +51,7 @@ kernels round; on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -85,20 +90,27 @@ def _torch_attention(q, k, v, bias, mask, scale: float = 1.0, p_out=None):
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def _torch_attention_bwd(q, k, v, bias, mask, do, scale: float = 1.0, p=None):
+def _torch_attention_bwd(q, k, v, bias, mask, do, scale: float = 1.0, p=None,
+                         with_att: bool = False):
     """Plain version of the backward (the mirror of ``_bwd_kernel`` and of
     the trunk backward's attention, :754-805): (dq, dk, dv, dbias) with p
-    recomputed, or the saved ``p``, and dbias summed over windows."""
+    recomputed, or the saved ``p``, and dbias summed over windows; with
+    ``with_att`` also att = P.V from the same p, as :func:`_torch_attention`
+    computes it (the TPU trunk's ``t_parts``, :768-772)."""
     cdt = q.dtype
     p32 = _probs(q, k, bias, mask, scale) if p is None else p.float()
+    pc = _round(p32, cdt)
     do32 = do.float()
-    dv = torch.matmul(_round(p32, cdt).transpose(-2, -1), do32)
+    dv = torch.matmul(pc.transpose(-2, -1), do32)
     dp = torch.matmul(do32, v.float().transpose(-2, -1))
     ds = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
     dsc = _round(ds, cdt)
     dq = torch.matmul(dsc, k.float()) * scale
     dk = torch.matmul(dsc.transpose(-2, -1), q.float()) * scale
-    return dq.to(cdt), dk.to(cdt), dv.to(cdt), ds.sum(0)
+    grads = (dq.to(cdt), dk.to(cdt), dv.to(cdt), ds.sum(0))
+    if not with_att:
+        return grads
+    return (*grads, torch.matmul(pc, v.float()).to(cdt))
 
 
 def _as_mask(mask, like: torch.Tensor) -> Optional[torch.Tensor]:
@@ -171,16 +183,19 @@ def window_attn_fwd(q, k, v, bias, mask=None, *, scale: float = 1.0, out=None, p
 window_attn_fwd.launches = 0
 
 
-def window_attn_bwd(q, k, v, bias, mask, do, *, scale: float = 1.0, out=None, p=None):
+def window_attn_bwd(q, k, v, bias, mask, do, *, scale: float = 1.0, out=None, p=None,
+                    att_out=None):
     """Gradients of :func:`window_attn_fwd` given ``do`` = dL/d(output):
     (dq, dk, dv, dbias), dbias (nh, N, N) f32, summed over all windows.
 
     q, k, v, do and the (dq, dk, dv) buffers of ``out`` may be strided views
     (head-dim stride 1); ``out`` is written in place when given.  ``p``: the
     forward's saved probabilities (``p_out``), read in place of recomputing
-    them from q, k, bias and mask.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which writes one dbias partial per block; the
-    partials are summed here.
+    them from q, k, bias and mask.  ``att_out`` (f32 only; q's shape, may be
+    strided) receives the attention output P.V from the same p, what
+    :func:`window_attn_fwd` returns for these inputs.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel, which writes one dbias
+    partial per block; the partials are summed here.
     """
     mask = _as_mask(mask, q)
     b_, nh, n, hd = _check_shapes("window_attn_bwd", q, k, v, bias, mask)
@@ -189,8 +204,14 @@ def window_attn_bwd(q, k, v, bias, mask, do, *, scale: float = 1.0, out=None, p=
         raise ValueError(f"window_attn_bwd: do shape {tuple(do.shape)}")
     if out is not None and any(t.shape != q.shape for t in out):
         raise ValueError("window_attn_bwd: out buffers must have q's shape")
+    if att_out is not None and att_out.shape != q.shape:
+        raise ValueError(f"window_attn_bwd: att_out shape {tuple(att_out.shape)}")
     if q.device.type == "cpu":
-        dq, dk, dv, dbias = _torch_attention_bwd(q, k, v, bias, mask, do, scale, p)
+        res = _torch_attention_bwd(q, k, v, bias, mask, do, scale, p,
+                                   with_att=att_out is not None)
+        if att_out is not None:
+            att_out.copy_(res[4])
+        dq, dk, dv, dbias = res[:4]
         if out is None:
             return dq, dk, dv, dbias
         for buf, g in zip(out, (dq, dk, dv)):
@@ -203,26 +224,43 @@ def window_attn_bwd(q, k, v, bias, mask, do, *, scale: float = 1.0, out=None, p=
     bias = bias.contiguous()
     mask = None if mask is None else mask.contiguous()
     cdt = q.dtype
+    if att_out is not None and cdt != F32:
+        raise ValueError("window_attn_bwd: att_out is f32 only on CUDA")
     require_cuda("window_attn_bwd", q=(q, KERNEL_DTYPES), k=(k, cdt), v=(v, cdt), do=(do, cdt),
-                 dq=(dq, cdt), dk=(dk, cdt), dv=(dv, cdt), p=(p, cdt), bias=(bias, F32),
-                 mask=(mask, F32))
+                 dq=(dq, cdt), dk=(dk, cdt), dv=(dv, cdt), p=(p, cdt), att_out=(att_out, F32),
+                 bias=(bias, F32), mask=(mask, F32))
     if n > 64 or hd > 32:
         raise ValueError(f"window_attn_bwd: kernel takes N <= 64, hd <= 32; got {n}, {hd}")
-    groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=3)
+    built = _build.library()
+    if cdt == torch.bfloat16:  # the bf16 kernel: 3 blocks of 128 threads per SM
+        per_sm = 3
+    else:  # as many blocks as the f32 kernel fits on an SM: one wave
+        per_sm = _f32_blocks_per_sm(built, q.device.index, att_out is not None)
+    groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=per_sm)
     part = torch.empty((groups, nh, n, n), device=q.device, dtype=torch.float32)
-    code = _build.library().lib.sei_window_attn_bwd(
+    strided = (q, k, v, do, dq, dk, dv, q if att_out is None else att_out)
+    code = built.lib.sei_window_attn_bwd(
         q.device.index, int(cdt == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), _build.ptr(mask), _build.ptr(p), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), part.data_ptr(), b_, nh, n, hd,
+        dk.data_ptr(), dv.data_ptr(), _build.ptr(att_out), part.data_ptr(), b_, nh, n, hd,
         0 if mask is None else mask.shape[0], groups,
-        *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]),
-        float(scale), _build.stream_of(q))
+        *(s for t in strided for s in t.stride()[:3]), float(scale), _build.stream_of(q))
     _build.check(code, "window_attn_bwd")
     window_attn_bwd.launches += 1
     return dq, dk, dv, part.sum(0)
 
 
 window_attn_bwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_blocks_per_sm(built: _build.Built, device: int, with_att: bool) -> int:
+    """Blocks of the f32 backward kernel (with or without the att store)
+    that one SM of ``device`` holds, from the CUDA occupancy calculator."""
+    n = built.lib.sei_window_attn_bwd_f32_blocks_per_sm(device, int(with_att))
+    if n <= 0:
+        raise RuntimeError("window_attn_bwd: the f32 kernel fits no block on an SM")
+    return n
 
 
 class _WindowAttentionFn(torch.autograd.Function):

@@ -223,8 +223,12 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
 }
 
 // kernel<<<grid, block, 0, stream>>>(...), written SEI_LAUNCH(grid, block,
-// stream, kernel)(...)
+// stream, kernel)(...); with `smem` bytes of dynamic shared memory,
+// SEI_LAUNCH_SMEM(grid, block, smem, stream, kernel)(...), which the kernel
+// names by SEI_DYNAMIC_SMEM(type, name)
 #define SEI_LAUNCH(grid, block, stream, ...) __VA_ARGS__<<<grid, block, 0, stream>>>
+#define SEI_LAUNCH_SMEM(grid, block, smem, stream, ...) __VA_ARGS__<<<grid, block, smem, stream>>>
+#define SEI_DYNAMIC_SMEM(type, name) extern __shared__ __align__(16) type name[]
 
 #endif  // __CUDACC__
 

@@ -64,8 +64,8 @@ def padded_scaling_transform(x: torch.Tensor, rates: torch.Tensor,
     """
     if antialias:
         raise NotImplementedError(
-            "antialiased scaling transform: not ported yet (ROADMAP, Queue 1 item 14: "
-            "the antialias and normal scaling kinds)")
+            "antialiased scaling transform: not ported yet (ROADMAP, Queue 1: data and "
+            "the main-path CLI: the antialiased resize)")
     b, c, h, w = x.shape
     if h != w:
         raise ValueError("the reference grid is only defined for square images")

@@ -28,8 +28,11 @@ Backward (:class:`_TrunkFn`), per block in reverse.  With saves (mode
 x2, gelu(h), gelu'(h), p and att per block, and the backward recomputes only
 a (LN1), qkv and z (LN2) -- three launches, the recompute of
 ``_block_bwd_image`` with saves (:638, :649-653, :735).  Without saves (mode
-``xs``, the f32 default) it kept x and x2 and recomputes a, qkv, att, z and
-(gelu(h), gelu'(h)) with the forward kernels (five launches).  Then
+``xs``, the f32 default) it kept x and x2 and recomputes a, qkv, z and
+(gelu(h), gelu'(h)) with the forward kernels (four launches); att comes back
+with the attention backward, which writes it from the p it recomputes, as
+the TPU kernel derives att and ds from one p (:768-783).  (bf16 in mode
+``xs`` recomputes att with a ``window_attn_fwd`` launch instead.)  Then
 
     gemm_dgrad(dout * dpm_mlp, fc2_w) * gelu'(h)      -> dh   (T, 2C)  f32
     gemm_wgrad(gelu(h), dout * dpm_mlp)               -> d fc2_w, fc2_b
@@ -37,8 +40,9 @@ a (LN1), qkv and z (LN2) -- three launches, the recompute of
     gemm_dgrad(dh, fc1_w)                             -> dz   (T, C)   f32
     ln_rows_bwd(x2, dz, + dout)                       -> dx2, d ln2    f32
     gemm_dgrad(dx2[window rows] * dpm_attn, proj_w)   -> datt (T, C)
-    gemm_wgrad(att, dx2[window rows] * dpm_attn)      -> d proj_w, proj_b
     window_attn_bwd(q, k, v, datt, saved p or rpb + mask) -> dq, dk, dv, drpb
+                                                 [+ att (T, C), f32 mode xs]
+    gemm_wgrad(att, dx2[window rows] * dpm_attn)      -> d proj_w, proj_b
     gemm_wgrad(a, dqkv)                               -> d qkv_w, qkv_b
     gemm_dgrad(dqkv, qkv_w)                           -> da   (T, C)
     ln_rows_bwd(x[window rows], da, + dx2)            -> dx, d ln1
@@ -692,15 +696,17 @@ def _block_backward(dout, s: _Saved, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm:
     c, t = dm.c, dm.t
     # recompute with the forward kernels
     a = ln_rows(x, p["ln1_s"], p["ln1_b"], window=wm)
-    if s.p is None:  # mode xs: attention and fc1 again, gelu' in f32
+    att = s.att
+    if s.p is None and x.dtype != F32:  # bf16 mode xs: the attention forward again
         qkv, att = _attention(a, p, rpb_i, mask_i, dm)
-        z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
+    else:  # mode full, and f32 mode xs, whose attention backward writes att
+        qkv = gemm_bias_epilogue(a, p["qkv_w"], p["qkv_b"])
+    z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
+    if s.p is None:  # mode xs: fc1 again, gelu' in f32
         gp = torch.empty((t, p["fc1_w"].shape[1]), device=x.device, dtype=F32)
         hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu_pair", gp=gp)
     else:  # mode full: only the GEMM operands a, qkv and z
-        qkv = gemm_bias_epilogue(a, p["qkv_w"], p["qkv_b"])
-        z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
-        att, hid, gp = s.att, s.gelu, s.gelu_grad
+        hid, gp = s.gelu, s.gelu_grad
     g = {}
     # MLP branch: out = x2 + dpm_mlp * fc2(gelu(fc1(LN2(x2))))
     dmlp = dout.view(t, c)
@@ -713,12 +719,17 @@ def _block_backward(dout, s: _Saved, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm:
     dx2 = dx2.view(x.shape)
     # attention branch: x2 = x + dpm_attn * unwindow(proj(attention(LN1(x))))
     datt = gemm_dgrad(dx2, p["proj_w"], scale=dpm_i[0], window=wm)
-    g["proj_w"], g["proj_b"] = gemm_wgrad(att, dx2, scale=dpm_i[0], window=wm, db_rounded=True)
+    att_out = None
+    if att is None:  # att from the p the attention backward recomputes
+        att = torch.empty((dm.b_, dm.n, dm.nh, dm.hd), device=x.device, dtype=x.dtype)
+        att_out = att.transpose(1, 2)
+        att = att.view(-1, c)
     dqkv = torch.empty_like(qkv)
     *_, drpb = window_attn_bwd(
         *_qkv_views(qkv, dm), rpb_i, mask_i,
         datt.view(dm.b_, dm.n, dm.nh, dm.hd).transpose(1, 2), scale=dm.scale,
-        out=_qkv_views(dqkv, dm), p=s.p)
+        out=_qkv_views(dqkv, dm), p=s.p, att_out=att_out)
+    g["proj_w"], g["proj_b"] = gemm_wgrad(att, dx2, scale=dpm_i[0], window=wm, db_rounded=True)
     g["qkv_w"], g["qkv_b"] = gemm_wgrad(a, dqkv)
     da = gemm_dgrad(dqkv, p["qkv_w"])
     dx, g["ln1_s"], g["ln1_b"] = ln_rows_bwd(x, p["ln1_s"], da, window=wm, dres=dx2)

@@ -4,7 +4,8 @@
 ``ScalingTransform`` with ``kind="padded"`` is the paper's random rescaling
 (per-image rate in {0.75, 0.5} and center, same-size output).  The
 ``normal`` kind, the antialiased pre-resize and the shift/rotate groups are
-not ported yet (ROADMAP, Queue 1 items 14 and 18).
+not ported yet (ROADMAP, Queue 1: data (the antialiased resize), and the
+remaining methods and training modes).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ class ScalingTransform:
     def __post_init__(self):
         if self.kind != "padded":
             raise NotImplementedError(
-                f"scaling kind {self.kind!r}: not ported yet (ROADMAP, Queue 1 item 14)")
+                f"scaling kind {self.kind!r}: not ported yet "
+                "(ROADMAP, Queue 1: remaining methods and training modes)")
 
     def sample_params(self, generator: torch.Generator, batch: int):
         """Per-image (rates, rate_idx, centers) with the reference
@@ -65,5 +67,6 @@ def get_ei_transform(name: str, *, kind: str = "padded", antialias: bool = False
         return ScalingTransform(kind=kind, antialias=antialias)
     if name in ("Rotations+Shifts", "Rotations", "Shifts"):
         raise NotImplementedError(
-            f"{name}: not ported yet (ROADMAP, Queue 1 item 18: shift/rotate transforms)")
+            f"{name}: not ported yet (ROADMAP, Queue 1: remaining methods and training "
+            "modes: shift/rotate transforms)")
     raise ValueError(f"Unknown transforms: {name}")

@@ -7,7 +7,7 @@ in), and the crops are one gather built from them, the counterpart of
 ``jax.lax.dynamic_slice`` under ``vmap`` (:56-92): no offset reaches the
 host, so a CUDA graph of the training step can hold the crops.  The SR crop
 ratio (x cropped ``size * rate`` at the scaled offset) comes with the SR
-task (ROADMAP, Queue 1 item 18).
+task (ROADMAP, Queue 1: SR task end to end).
 """
 
 from __future__ import annotations

@@ -4,9 +4,11 @@ A source under ``sei_tpu_torch/ops/csrc`` is compiled as it is by the host's
 ``g++`` against a small stub of the CUDA features the f32 kernels use
 (:data:`STUB`, written as ``cuda_runtime.h``): each CUDA thread of a block
 runs as a ``std::thread`` (the blocks one after another, so ``__shared__``
-arrays are plain statics), ``__syncthreads`` is a barrier, ``cp.async`` a
-synchronous copy (zero-filled where the kernel asks for none), and
-``float4`` and ``erff`` come from the host.  Without ``__CUDACC__`` the
+arrays are plain statics and dynamic shared memory one NaN-filled buffer),
+``__syncthreads`` is a barrier, ``__shfl_xor_sync`` an exchange between the
+32 threads of a warp at a barrier of their own, ``cp.async`` a synchronous
+copy (zero-filled where the kernel asks for none), and ``float4``, ``erff``,
+``expf`` and ``INFINITY`` come from the host.  Without ``__CUDACC__`` the
 sources leave out their tensor-core kernels, whose entry points then refuse.
 The shared library is loaded with ``ctypes`` in a subprocess (a fault there
 fails the test instead of the worker), called on inputs from an ``.npz``
@@ -63,6 +65,8 @@ struct alignas(8) float2 { float x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 using std::max;
 using std::min;
 
@@ -82,9 +86,17 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+template <typename F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx;
 
@@ -119,18 +131,46 @@ inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
 
-// the tensor-core and warp-shuffle paths are not emulated
+// __shfl_xor_sync: the 32 lanes of a warp (threads 32 w .. 32 w + 31 of a
+// one-dimensional block) meet at the warp's own barrier, each leaves its
+// value in its slot, meet again, and read the partner's slot; every lane
+// of the warp must call it, as with a full mask on the card
+struct SeiWarps {
+  SeiBarrier bar[32];
+  uint64_t slot[32][32];
+};
+inline SeiWarps sei_warps;
+template <typename V>
+inline V __shfl_xor_sync(unsigned, V v, int lane_mask) {
+  static_assert(sizeof(V) <= sizeof(uint64_t), "one slot per lane");
+  const unsigned warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  memcpy(&sei_warps.slot[warp][lane], &v, sizeof(V));
+  sei_warps.bar[warp].wait();
+  V out;
+  memcpy(&out, &sei_warps.slot[warp][lane ^ lane_mask], sizeof(V));
+  sei_warps.bar[warp].wait();
+  return out;
+}
+
+// dynamic shared memory: one buffer for the block that runs, NaN-filled at
+// each launch so that a read of an element no thread wrote shows
+inline std::vector<float4> sei_dynamic_smem;
+#define SEI_DYNAMIC_SMEM(type, name) \
+  type* name = reinterpret_cast<type*>(sei_dynamic_smem.data())
+
+// the tensor-core paths are not emulated
 [[noreturn]] inline void sei_not_emulated() { abort(); }
 inline void ldmatrix_x4(unsigned (&)[4], const void*) { sei_not_emulated(); }
 inline void ldmatrix_x4_trans(unsigned (&)[4], const void*) { sei_not_emulated(); }
 inline void mma_bf16_16816(float (&)[4], const unsigned (&)[4], unsigned, unsigned) {
   sei_not_emulated();
 }
-inline float __shfl_xor_sync(unsigned, float, int) { sei_not_emulated(); }
 
 template <typename... P>
 auto sei_host_launch(dim3 grid, dim3 block, void (*kernel)(P...)) {
   return [=](auto... args) {
+    for (unsigned w = 0; w * 32 < block.x; ++w)
+      sei_warps.bar[w].n = std::min(32u, block.x - 32 * w);
     for (unsigned bz = 0; bz < grid.z; ++bz)
       for (unsigned by = 0; by < grid.y; ++by)
         for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -147,6 +187,12 @@ auto sei_host_launch(dim3 grid, dim3 block, void (*kernel)(P...)) {
   };
 }
 #define SEI_LAUNCH(grid, block, stream, ...) ((void)(stream), sei_host_launch(grid, block, __VA_ARGS__))
+inline void sei_dynamic_smem_alloc(size_t bytes) {
+  const float nan = NAN;
+  sei_dynamic_smem.assign((bytes + 15) / 16, float4{nan, nan, nan, nan});
+}
+#define SEI_LAUNCH_SMEM(grid, block, smem, stream, ...) \
+  ((void)(stream), sei_dynamic_smem_alloc(smem), sei_host_launch(grid, block, __VA_ARGS__))
 """
 
 

@@ -11,7 +11,11 @@ The f32 forward GEMM (CUDA cores, 128x96 tiles) is held at the step's and
 the eval's widths, on ragged shapes, odd widths and unaligned views, with
 and without the window store, and repeats bit for bit; the f32 data grad
 (96x96 tiles) at the f32 step's four calls on both graphs (one launch
-each), on ragged, odd and unaligned operands, and repeats bit for bit.
+each), on ragged, odd and unaligned operands, and repeats bit for bit; the
+f32 attention backward (register tiles) at the trunk's calls on both graphs,
+strided as the trunk lays out q, k, v, do and dq, dk, dv, with and without
+the att store (att also equal to the forward kernel's within 2e-5), on odd
+head dims and offsets, and repeats bit for bit.
 Small and ragged shapes (M, K, N not multiples of the tiles; C = 16 and 256;
 windows of 16 tokens, hd 8; window counts that are not multiples of the
 partial count) that the flagship checks in ``chip_smoke.py`` do not reach.
@@ -365,6 +369,91 @@ def test_window_attn_bwd(gpu, n, hd, b_, masked):
         _close(x, y, 1e-4)
 
 
+# f32 window_attn_bwd on the CUDA cores (4x4 register tiles, cp.async
+# stages): the trunk's calls at both graphs of the f32 step (2B = 16 and B =
+# 8 images of 48x48: 576 and 288 windows, 6 heads, hd 30), q, k, v strided
+# from the (B_, N, 3, nh, hd) qkv buffer, do from the (B_, N, nh, hd) proj
+# buffer, dq, dk, dv into one qkv-shaped buffer, att beside them
+def _attn_trunk_case(g, b_, n=64, hd=30, nh=6):
+    qkv = _rnd(g, b_, n, 3, nh, hd)
+    do = _rnd(g, b_, n, nh, hd, s=0.1).transpose(1, 2)
+    bias = _rnd(g, nh, n, n, s=0.1)
+    mask = torch.from_numpy(shift_attn_mask(48, 48, 8, 4)).cuda() if n == 64 else None
+    return qkv, do, bias, mask
+
+
+def _views(buf):
+    return tuple(buf[:, :, i].transpose(1, 2) for i in range(3))
+
+
+@pytest.mark.parametrize("b_", [576, 288])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("with_att", [False, True])
+def test_window_attn_bwd_f32_trunk_shapes(gpu, b_, masked, with_att):
+    qkv, do, bias, mask = _attn_trunk_case(gpu, b_)
+    m = mask if masked else None
+    dqkv = torch.full_like(qkv, float("nan"))
+    att = torch.full((b_, 64, 6, 30), float("nan"), device="cuda")
+    before = at.window_attn_bwd.launches
+    got = at.window_attn_bwd(*_views(qkv), bias, m, do, scale=30 ** -0.5, out=_views(dqkv),
+                             att_out=att.transpose(1, 2) if with_att else None)
+    assert at.window_attn_bwd.launches == before + 1
+    want = at._torch_attention_bwd(*_views(qkv), bias, m, do, 30 ** -0.5, with_att=True)
+    for i, (x, y) in enumerate(zip(got, want[:4])):
+        _close(x, y, 1e-4, 2e-5 if i < 3 else 1e-4)
+    if with_att:
+        _close(att.transpose(1, 2), want[4], 1e-5, 2e-5)
+        _close(att.transpose(1, 2), at.window_attn_fwd(*_views(qkv), bias, m, scale=30 ** -0.5),
+               1e-5, 2e-5)
+    else:
+        assert torch.isnan(att).all()
+
+
+@pytest.mark.parametrize("n,hd,offset", [(64, 15, 0), (49, 30, 1), (16, 7, 1)])
+@pytest.mark.parametrize("with_att", [False, True])
+def test_window_attn_bwd_f32_odd_strides(gpu, n, hd, offset, with_att):
+    """An odd head dim or views at an odd element offset cannot take 8-byte
+    copies: the kernel goes element by element."""
+    b_, nh = 30, 3
+    size = b_ * nh * n * hd
+
+    def view(s=1.0):
+        return (_rnd(gpu, size + offset, s=s)[offset:]).view(b_, nh, n, hd)
+
+    q, k, v, do = view(hd ** -0.5), view(), view(), view()
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((6, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    att = view() if with_att else None
+    got = at.window_attn_bwd(q, k, v, bias, mask, do, scale=1.5, att_out=att)
+    want = at._torch_attention_bwd(q, k, v, bias, mask, do, 1.5, with_att=True)
+    for i, (x, y) in enumerate(zip(got, want[:4])):
+        _close(x, y, 1e-4, 2e-5 if i < 3 else 1e-4)
+    if with_att:
+        _close(att, want[4], 1e-5, 2e-5)
+
+
+@pytest.mark.parametrize("with_att", [False, True])
+def test_window_attn_bwd_f32_repeats_bit_for_bit(gpu, with_att):
+    """One FMA chain per output and dbias partials in a fixed order: two
+    calls on the same inputs agree exactly."""
+    qkv, do, bias, mask = _attn_trunk_case(gpu, 144)
+    runs = []
+    for _ in range(2):
+        att = torch.empty(144, 64, 6, 30, device="cuda")
+        res = at.window_attn_bwd(*_views(qkv), bias, mask, do, scale=30 ** -0.5,
+                                 att_out=att.transpose(1, 2) if with_att else None)
+        runs.append((*res, att) if with_att else res)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_window_attn_bwd_att_out_is_f32_only(gpu):
+    q = _rnd(gpu, 4, 2, 16, 8).to(BF16)
+    bias = _rnd(gpu, 2, 16, 16, s=0.1)
+    with pytest.raises(ValueError, match="att_out"):
+        at.window_attn_bwd(q, q, q, bias, None, q, att_out=torch.empty_like(q))
+
+
 def test_window_attention_grad_uses_kernels(gpu):
     q, k, v = (_rnd(gpu, 12, 2, 16, 8).requires_grad_() for _ in range(3))
     bias = _rnd(gpu, 2, 16, 16, s=0.1).requires_grad_()
@@ -402,7 +491,7 @@ def test_trunk_grads_match_reference(gpu):
     st.reset_launch_counts()
     got = grads(st.swin_trunk)
     assert st.launch_counts() == {"ln_rows": 4 * d, "gemm_bias_epilogue": 6 * d,
-                                  "window_attn_fwd": 2 * d, "gemm_dgrad": 4 * d,
+                                  "window_attn_fwd": d, "gemm_dgrad": 4 * d,
                                   "gemm_wgrad": 4 * d, "window_attn_bwd": d,
                                   "ln_rows_bwd": 2 * d}
     for a, b_ in zip(got, grads(st.trunk_reference)):
@@ -782,8 +871,9 @@ def test_trunk_grads_saves_match_reference(gpu, dtype, saves):
     st.reset_launch_counts()
     got = grads(st.swin_trunk, saves=saves)
     full = saves if saves is not None else dtype == BF16
+    # the f32 recompute backward gets att from the attention backward
     assert st.launch_counts() == {"ln_rows": 4 * d, "gemm_bias_epilogue": (5 if full else 6) * d,
-                                  "window_attn_fwd": (1 if full else 2) * d,
+                                  "window_attn_fwd": (1 if full or dtype == F32 else 2) * d,
                                   "gemm_dgrad": 4 * d, "gemm_wgrad": 4 * d,
                                   "window_attn_bwd": d, "ln_rows_bwd": 2 * d}
     for a, b_ in zip(got, grads(st.trunk_reference)):
@@ -840,7 +930,7 @@ def test_trunk_skeleton(gpu, dtype, variant, flags):
 
 TINY = dict(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=4)
 TINY_BLOCKS, TINY_CROP = 4, 16
-PER_BLOCK_STEP = {F32: {"ln_rows": 4, "gemm_bias_epilogue": 6, "window_attn_fwd": 2,
+PER_BLOCK_STEP = {F32: {"ln_rows": 4, "gemm_bias_epilogue": 6, "window_attn_fwd": 1,
                         "gemm_dgrad": 4, "gemm_wgrad": 4, "window_attn_bwd": 1, "ln_rows_bwd": 2},
                   BF16: {"ln_rows": 4, "gemm_bias_epilogue": 5, "window_attn_fwd": 1,
                          "gemm_dgrad": 4, "gemm_wgrad": 4, "window_attn_bwd": 1, "ln_rows_bwd": 2}}

@@ -50,10 +50,12 @@
    the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue`` and ``gemm_dgrad``,
    CUDA-core FMAs for the rest; the f32 ``gemm_bias_epilogue`` in 8x6
    register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
-   register tiles fed through registers, the f32 ``window_attn_bwd`` in
-   4x4 register tiles fed by ``cp.async``) and carries ``queued_ms``: the
-   device time of the same calls queued behind a sleeping kernel, free of
-   the wrapper's host cost; every entry with a library call carries
+   register tiles fed through registers, the f32 ``gemm_wgrad`` in 8x6
+   register tiles, A by ``cp.async`` and dy gathered through registers, the
+   f32 ``window_attn_bwd`` in 4x4 register tiles fed by ``cp.async``) and
+   carries ``queued_ms``: the device time of the same calls queued behind
+   a sleeping kernel, free of the wrapper's host cost; every entry with a
+   library call carries
    ``library_queued_ms``, the same for it.  A line before the kernel line
    gives the replaced versions' earlier times, marked as not measured in
    this run; each profiled step prints its device time by kernel.
@@ -368,6 +370,7 @@ def check_train_kernels(timed: bool) -> dict:
     import torch.nn.functional as F
 
     from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import _build
     from sei_tpu_torch.ops import attention as at
     from sei_tpu_torch.ops import swin_trunk as st
 
@@ -437,10 +440,15 @@ def check_train_kernels(timed: bool) -> dict:
                    4.0 * (t * nn + kk * nn + t * kk * (2 if gelu else 1)), main)
             del dy, w, gp, dy2
 
-        # weight-grad products (sums over T tokens in another order: 1e-3)
+        # weight-grad products (sums over T tokens in another order: 1e-3),
+        # each written as partials over splits of T that the wrapper sums
         for variant, kk, nn, scale, wmap in (
                 ("fc2_dpm", CH, C, dpm, None), ("fc1", C, CH, None, None),
                 ("proj_window_dpm", C, C, dpm, wm), ("qkv", C, 3 * C, None, None)):
+            splits = st._wgrad_f32_splits(_build.library(), torch.cuda.current_device(), t, kk,
+                                          nn)
+            print(f"  gemm_wgrad[{variant} T={t}]: {splits} splits, partials "
+                  f"{4 * splits * (kk * nn + nn)} bytes")
             a = rnd(t, kk)
             dy = x4[..., :nn].contiguous() if wmap else rnd(t, nn)
             dy2 = dy.reshape(t, nn)
@@ -1320,6 +1328,8 @@ DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async",
            "gemm_dgrad": "cuda-core fma, 8x6 register tiles, operands transposed through registers",
+           "gemm_wgrad": "cuda-core fma, 8x6 register tiles, A by cp.async, dy gathered through "
+                         "registers, splits from the kernel's occupancy",
            "window_attn_bwd": "cuda-core fma, 4x4 register tiles of S/P/dP/dS, shuffle row "
                               "reductions, P/dS tiles in shared memory, cp.async"}
 DESIGN_CUDA_CORES = "cuda-core fma"
@@ -1334,7 +1344,8 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "0.2782 ms (fc1_gelu_pair T=36864); "
               "gemm_dgrad cuda-core fma, 4x4 register tiles 0.9315 ms, 0.9162 queued (T=36864); "
               "window_attn_bwd cuda-core fma, operands from shared memory 0.5821 ms, 0.5729 "
-              "queued (T=36864, mean of the masks)")
+              "queued (T=36864, mean of the masks); "
+              "gemm_wgrad cuda-core fma, 4x4 register tiles 1.0928 ms, 1.0794 queued (T=36864)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1431,6 +1442,7 @@ def main(argv: list[str]) -> int:
         print(f"  {line}")
     for label, kernel in (("f32 forward GEMM", "gemm_bias_epilogue_kernel"),
                           ("f32 data grad", "gemm_dgrad_f32_kernel"),
+                          ("f32 weight grad", "gemm_wgrad_f32_kernel"),
                           ("f32 attention backward", "window_attn_bwd_f32_kernel")):
         print(f"ptxas, {label}: " + " | ".join(
             line.split(" ", 1)[1] for line in report if kernel in line))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Tile sweeps of three GEMM kernels and the f32 attention backward on one card.
+"""Tile sweeps of four GEMM kernels and the f32 attention backward on one card.
 
     python3 dgrad_tile_sweep.py                 # bf16 gemm_dgrad, output tile width
     python3 dgrad_tile_sweep.py --fwd-f32       # f32 gemm_bias_epilogue, block tile
     python3 dgrad_tile_sweep.py --dgrad-f32     # f32 gemm_dgrad, block tile
+    python3 dgrad_tile_sweep.py --wgrad-f32     # f32 gemm_wgrad, block and thread tile
     python3 dgrad_tile_sweep.py --attn-bwd-f32  # f32 window_attn_bwd, block shape
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
@@ -40,6 +41,18 @@ f32 step's four data-grad calls at both graphs (the SURE forward's 2B = 16
 images, T = 36864, and the EI forward's B = 8, T = 18432); the tile is
 chosen on the sum over the step's launches: 36 SwinBlocks x (the 2B
 graph's four calls + the B graph's).
+
+With ``--wgrad-f32``: the f32 ``gemm_wgrad`` CUDA-core kernel
+(``sei_tpu_torch/ops/csrc/gemm_bwd.cu``, ``gemm_wgrad_f32_kernel``), its
+block tile BM x BN over (K, N), slice depth BK, thread tile TM x TN and
+blocks per SM (``-DSEI_WGRAD_F32_BM``, ``_BN``, ``_BK``, ``_TM``, ``_TN``,
+``_MINB``; (BM / TM) x (BN / TN) threads; the wrapper's split count follows
+each build's tile and occupancy).  Each build is held against the plain
+version (dW and db, 1e-3 + 1e-4 x |plain|, as ``chip_smoke.py``) and timed
+queued (the wrapper's call: the kernel and the two sums of its partials),
+the builds in turns, on the f32 step's four weight-grad calls at both
+graphs; the tile is chosen on the sum over the step's launches: 36
+SwinBlocks x (the 2B graph's four calls + the B graph's).
 
 With ``--attn-bwd-f32``: the f32 ``window_attn_bwd`` CUDA-core kernel
 (``sei_tpu_torch/ops/csrc/window_attn_bwd.cu``, ``window_attn_bwd_f32_kernel``),
@@ -82,6 +95,15 @@ DGRAD_F32_TILES = ((96, 96, 20, None), (128, 96, 20, None), (64, 96, 20, None),
                    (64, 96, 20, 3), (96, 96, 12, None), (128, 192, 12, None),
                    (64, 192, 20, 3))
 DEFAULT_DGRAD_F32_TILE = (96, 96, 20, None)  # the f32 data grad's tile in the port's library
+# (BM, BN, BK, TM, TN, blocks per SM or None for the kernel's default):
+# 96x96 of 8x6 (180, 360, 540 pad to 192, 384, 576) at depths 16 to 28 (32
+# would put the two stages over the 48 KB of static shared memory), 64x96
+# of 8x6 at depth 32, and the two tiles with a 60 edge (6 x 6 thread tiles,
+# 160 threads), which pad K or N not at all
+WGRAD_F32_TILES = ((96, 96, 28, 8, 6, None), (96, 96, 16, 8, 6, None), (96, 96, 20, 8, 6, None),
+                   (96, 96, 24, 8, 6, None), (64, 96, 32, 8, 6, None), (60, 96, 24, 6, 6, None),
+                   (96, 60, 24, 6, 6, None))
+DEFAULT_WGRAD_F32_TILE = (96, 96, 28, 8, 6, None)  # the f32 weight grad's in the port's library
 # (threads per block, blocks per SM compiled for): 256 threads (4 x 4
 # micro-tiles) at 2 blocks (the library's, 128 registers) and at 1 (255),
 # 128 threads (8 x 4) at 2 (255)
@@ -105,6 +127,8 @@ def main(argv: list[str]) -> int:
         return sweep_fwd_f32(smi)
     if "--dgrad-f32" in argv:
         return sweep_dgrad_f32(smi)
+    if "--wgrad-f32" in argv:
+        return sweep_wgrad_f32(smi)
     if "--attn-bwd-f32" in argv:
         return sweep_attn_bwd_f32(smi)
     return sweep_dgrad_bf16(smi)
@@ -287,6 +311,58 @@ def sweep_dgrad_f32(smi: str) -> int:
         print(f"tile {tile}: per SwinBlock " + ", ".join(f"{k} {ms:.4f}" for k, ms in per_graph.items())
               + f"; per step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
     print(json.dumps({"dgrad_f32_tile_sweep": result, "gpu": smi}))
+    return 0
+
+
+def sweep_wgrad_f32(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    def defines(t):
+        if t == DEFAULT_WGRAD_F32_TILE:
+            return ()
+        d = tuple(f"SEI_WGRAD_F32_{k}={v}" for k, v in zip(("BM", "BN", "BK", "TM", "TN"), t))
+        return d + ((f"SEI_WGRAD_F32_MINB={t[5]}",) if t[5] else ())
+
+    builds = build_all({"x".join(map(str, t[:3])) + f"_{t[3]}x{t[4]}" + (f"b{t[5]}" if t[5] else "")
+                        : defines(t) for t in WGRAD_F32_TILES}, "gemm_wgrad_f32_kernel")
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * s
+
+    # the f32 step's four calls per block and graph (chip_smoke's variants)
+    calls = {}
+    for b in cs.TRAIN_GRAPHS:
+        t = b * cs.CROP * cs.CROP
+        wm = st.WindowMap(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)
+        dpm = (torch.rand(b, generator=g, device="cuda") < 0.9).float() / 0.9
+        for variant, kk, nn, scale, wmap in (
+                ("fc2_dpm", cs.CH, cs.C, dpm, None), ("fc1", cs.C, cs.CH, None, None),
+                ("proj_window_dpm", cs.C, cs.C, dpm, wm), ("qkv", cs.C, 3 * cs.C, None, None)):
+            a = rnd(t, kk)
+            dy = rnd(b, cs.CROP, cs.CROP, nn) if wmap else rnd(t, nn)
+            calls[f"{variant} T={t}"] = (
+                lambda a=a, dy=dy, scale=scale, wmap=wmap:
+                st.gemm_wgrad(a, dy, scale=scale, window=wmap),
+                st._torch_gemm_wgrad(a, dy, scale, wmap))
+
+    def check(n, v, c):
+        for i, (got, want) in enumerate(zip(c[0](), c[1])):
+            cs.compare(f"gemm_wgrad[f32 tile {n} {v}][{i}]", got, want, 1e-3, 1e-4)
+
+    result = {}
+    for tile, per_call in check_and_time(builds, calls, check).items():
+        per_graph = {f"T={b * cs.CROP * cs.CROP}": sum(
+            ms for v, ms in per_call.items() if v.endswith(f"T={b * cs.CROP * cs.CROP}"))
+            for b in cs.TRAIN_GRAPHS}
+        step = cs.BLOCKS * sum(per_graph.values())
+        result[tile] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_graph,
+                        "step_queued_ms": step}
+        print(f"tile {tile}: per SwinBlock " + ", ".join(f"{k} {ms:.4f}" for k, ms in per_graph.items())
+              + f"; per step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
+    print(json.dumps({"wgrad_f32_tile_sweep": result, "gpu": smi}))
     return 0
 
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
                         *[_I] * 6, _P],
     "sei_gemm_dgrad": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _I, *[_I] * 9, _P],
     "sei_gemm_wgrad": [_I, _I, _P, _P, _I, _P, _P, _P, *[_I] * 11, _P],
+    "sei_gemm_wgrad_f32_splits": [_I, _I, _I, _I],
     "sei_copy_probe": [_I, _I, _P, _P, _L, _I, _I, _P],
     "sei_trunk_skeleton": [_I, _I, *[_P] * 19, _L, _L, *[_I] * 4, _P],
 }

@@ -37,9 +37,42 @@
 // ~200 MB (0.0597 ms at 3.35 TB/s) and the four data grads 266 MB (0.0794
 // ms: f32 dy of fc1 and proj, f32 dh and dz, the bf16 gelu' read by fc2).
 //
-// f32 runs on the CUDA cores' FP32 FMAs (TF32 stays off).
-// gemm_wgrad_kernel: 64x64 tiles of dW per 256-thread block, 16-deep slices
-// of M staged through shared memory, a 4x4 register tile of FMAs per thread.
+// f32 runs on the CUDA cores' FP32 FMAs (TF32 stays off), register-blocked
+// as the f32 forward GEMM (gemm_bias_epilogue.cu).
+// gemm_wgrad_f32_kernel:
+// - Tiles.  A block owns a BM x BN tile of dW over (K, N), 96 x 96 of 192
+//   threads (180, 360 and 540 pad to 192, 384 and 576), each thread 8 rows
+//   x 6 columns of accumulators: per m it reads two float4 of A and a
+//   float4 and a float2 of G from shared memory for 48 FMAs (the 64x64
+//   kernel this one replaces read 8 floats per 16).  A warp is 4 x 8
+//   threads, so each of those reads is one pass.  Tiles with a 60 edge
+//   (180, 360 and 540 pad nothing) take 6 x 6 thread tiles
+//   (dgrad_tile_sweep.py --wgrad-f32).
+// - No transpose.  wgrad reduces over M, the row axis of both operands: a
+//   slice of BK rows is [m][k] in A and [m][n] in G as the FMA loop reads
+//   them.  A goes to shared memory as it lies, by 16-byte cp.async (a row
+//   of 180 floats is 720 B).  G needs the gather and the scale: its rows
+//   go through registers as float4, times the row's scale, into shared
+//   memory.  Each slice's row pixels (row_to_pixel) and scales are found
+//   once per block, by BK threads, into a small shared table two slices
+//   ahead, not by every thread that copies the row.
+// - Two stages, one barrier per slice: slice s + 1's cp.async and G loads
+//   are in flight during slice s's FMAs; G is stored after them.
+// - Bias sums: in the blocks of the first K tile, thread n adds column n of
+//   each staged G slice after the slice's FMAs, ascending m.
+// - Splits.  M is split over gridDim.z, each split a whole number of
+//   slices; each writes one dW and one db partial (zeros for a split with
+//   no rows), which the caller sums in split order.  sei_gemm_wgrad_f32_splits
+//   sizes the split count from the kernel's own occupancy and tile: one
+//   wave of blocks on the card's SMs.
+// - float4 accesses where K and N are multiples of 4 and A and dy are
+//   16-byte aligned (every shape of the step), else one element per access
+//   (cp.async of 4 bytes for A).  The tile, the depth and the minimum
+//   blocks per SM are build defines (-DSEI_WGRAD_F32_BM, _BN, _BK, _TM,
+//   _TN, _MINB).
+// - One FMA chain per output over ascending m within its split, so repeats
+//   are bit for bit equal; a split count other than the old kernel's moves
+//   dW and db in the last bits.
 // gemm_dgrad_f32_kernel: register-blocked, as the f32 forward GEMM
 // (gemm_bias_epilogue.cu):
 // - Tiles.  A block of 2 BM threads owns a BM x BN tile of out over (M, K),
@@ -126,11 +159,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int kThreads = 256;
 
 // -- f32 gemm_dgrad on the CUDA cores (see the note at the top) ------------
 
@@ -336,86 +364,248 @@ gemm_dgrad_f32_kernel(const float* __restrict__ dy, const float* __restrict__ Wt
   }
 }
 
-// dW[k][n] = sum_m A[m][k] s(m) dy[p(m)][n] over this split's rows m, in
-// f32; blocks of the first k tile also sum db[n] over the same rows.
-__global__ void __launch_bounds__(kThreads)
-gemm_wgrad_kernel(const float* __restrict__ A, const float* __restrict__ dy,
-                  const float* __restrict__ scale, float* __restrict__ dw_part,
-                  float* __restrict__ db_part, int M, int K, int N, int chunk,
-                  int rows_per_img, WinMap map) {
-  __shared__ __align__(16) float As[BK][BM];  // As[m][k]
-  __shared__ __align__(16) float Bs[BK][BN];  // Bs[m][n]
+// -- f32 gemm_wgrad on the CUDA cores (see the note at the top) ------------
 
+// The block tile, rows of K x columns of N, the depth of an M slice and a
+// thread's accumulator tile; -DSEI_WGRAD_F32_BM=... _BN, _BK, _TM, _TN build
+// another (the tile sweep): TM and TN even, BM a multiple of TM and of 4, BN
+// of TN and of 4, whole warps of (BM / TM) x (BN / TN) threads, BK at most
+// the thread count; -DSEI_WGRAD_F32_MINB sets the blocks per SM the register
+// budget is cut for
+#ifndef SEI_WGRAD_F32_BM
+#define SEI_WGRAD_F32_BM 96
+#endif
+#ifndef SEI_WGRAD_F32_BN
+#define SEI_WGRAD_F32_BN 96
+#endif
+#ifndef SEI_WGRAD_F32_BK
+#define SEI_WGRAD_F32_BK 28
+#endif
+#ifndef SEI_WGRAD_F32_TM
+#define SEI_WGRAD_F32_TM 8
+#endif
+#ifndef SEI_WGRAD_F32_TN
+#define SEI_WGRAD_F32_TN 6
+#endif
+constexpr int WF_BM = SEI_WGRAD_F32_BM, WF_BN = SEI_WGRAD_F32_BN, WF_BK = SEI_WGRAD_F32_BK;
+constexpr int WF_TM = SEI_WGRAD_F32_TM, WF_TN = SEI_WGRAD_F32_TN;
+constexpr int WF_TY = WF_BM / WF_TM;  // rows of threads
+constexpr int WF_TX = WF_BN / WF_TN;  // columns of threads
+constexpr int WF_THREADS = WF_TY * WF_TX;
+#ifdef SEI_WGRAD_F32_MINB
+constexpr int WF_MIN_BLOCKS = SEI_WGRAD_F32_MINB;
+#else
+constexpr int WF_MIN_BLOCKS = 512 / WF_THREADS > 0 ? 512 / WF_THREADS : 1;
+#endif
+static_assert(WF_TM % 2 == 0 && WF_TN % 2 == 0 && WF_BM % WF_TM == 0 && WF_BN % WF_TN == 0 &&
+              WF_BM % 4 == 0 && WF_BN % 4 == 0 && WF_THREADS % 32 == 0 &&
+              WF_BK <= WF_THREADS, "f32 wgrad tile");
+
+// Element i of a thread's T rows (or columns) of the tile, the thread
+// being t of THREADS_ALONG along that axis: groups of 4 spaced 4 x
+// THREADS_ALONG apart, then one group of 2 after them
+template <int T, int THREADS_ALONG>
+__device__ __forceinline__ int tile_index(int i, int t) {
+  constexpr int G4 = T / 4;
+  return i < 4 * G4 ? (i >> 2) * 4 * THREADS_ALONG + t * 4 + (i & 3)
+                    : G4 * 4 * THREADS_ALONG + t * 2 + (i & 1);
+}
+
+// those T values from a staged row: a float4 per group of 4, a float2 for
+// the group of 2
+template <int T, int THREADS_ALONG>
+__device__ __forceinline__ void read_tile(float (&v)[T], const float* row, int t) {
+#pragma unroll
+  for (int g = 0; g < T / 4; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(row + g * 4 * THREADS_ALONG + t * 4);
+    v[4 * g] = x.x, v[4 * g + 1] = x.y, v[4 * g + 2] = x.z, v[4 * g + 3] = x.w;
+  }
+  if (T % 4) {
+    const float2 x = *reinterpret_cast<const float2*>(row + T / 4 * 4 * THREADS_ALONG + t * 2);
+    v[T - 2] = x.x, v[T - 1] = x.y;
+  }
+}
+
+// dW[k][n] = sum_m A[m][k] s(m) dy[p(m)][n] over this split's rows m (split
+// z: rows z chunk .. + chunk, chunk a whole number of slices) into partial
+// z, in f32; blocks of the first k tile also sum db[n] over the same rows.
+// VEC = elements per global access: 4 (K, N multiples of 4, A and dy
+// 16-byte aligned) or 1
+template <int VEC>
+__global__ void __launch_bounds__(WF_THREADS, WF_MIN_BLOCKS)
+gemm_wgrad_f32_kernel(const float* __restrict__ A, const float* __restrict__ dy,
+                      const float* __restrict__ scale, float* __restrict__ dw_part,
+                      float* __restrict__ db_part, int M, int K, int N, int chunk,
+                      int rows_per_img, WinMap map) {
+  constexpr int BM = WF_BM, BN = WF_BN, BK = WF_BK, TM = WF_TM, TN = WF_TN;
+  constexpr int TY = WF_TY, TX = WF_TX;
+  // copies per staged row of A and of G, and per thread and slice
+  constexpr int A_CPR = BM / VEC, G_CPR = BN / VEC;
+  constexpr int A_N = (BK * A_CPR + WF_THREADS - 1) / WF_THREADS;
+  constexpr int G_N = (BK * G_CPR + WF_THREADS - 1) / WF_THREADS;
+  __shared__ __align__(16) float As[2][BK][BM];  // As[stage][m][k]
+  __shared__ __align__(16) float Gs[2][BK][BN];  // Gs[stage][m][n], scaled
+  __shared__ int row_pix[2][BK];                 // a slice's pixels (-1 past the split)
+  __shared__ float row_scale[2][BK];             // and scales
+
+  // a warp is 4 x 8 threads where the tile allows it (4 rows of threads
+  // read 4 float4 of As and 8 columns 8 float4 of Gs per m, one pass
+  // each), else TX consecutive threads per row of threads
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // output columns (n) tx*4 .. +3
-  const int ty = tid >> 4;  // output rows    (k) ty*4 .. +3
+  constexpr bool W48 = TY % 4 == 0 && TX % 8 == 0;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ty = W48 ? warp / (TX / 8) * 4 + (lane >> 3) : tid / TX;
+  const int tx = W48 ? warp % (TX / 8) * 8 + (lane & 7) : tid % TX;
   const int k0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int z = blockIdx.z;
   const int m_begin = z * chunk;
   const int m_end = min(M, m_begin + chunk);
+  const int slices = m_end > m_begin ? (m_end - m_begin + BK - 1) / BK : 0;
   const bool with_bias = blockIdx.y == 0;
 
-  const int l_m = tid >> 4;        // 16 rows x 16 threads, 4 columns each
-  const int l_c = (tid & 15) * 4;
-
-  float acc[4][4];
-  float bsum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int mb = m_begin; mb < m_end; mb += BK) {
-    const int gm = mb + l_m;
-    const bool ok = gm < m_end;
-    const float* arow = ok ? A + (long long)gm * K : nullptr;
-    const float* drow = ok ? dy + row_to_pixel(gm, map) * N : nullptr;
-    const float s = (ok && scale) ? scale[gm / rows_per_img] : 1.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = k0 + l_c + i;
-      const int gn = n0 + l_c + i;
-      As[l_m][l_c + i] = (ok && gk < K) ? arow[gk] : 0.f;
-      Bs[l_m][l_c + i] = (ok && gn < N) ? s * drow[gn] : 0.f;
+  // slice s's row table, by the first BK threads: each row's pixel and
+  // scale are found once per block, not by every thread that copies the row
+  auto rows = [&](int s) {
+    if (tid < BK) {
+      const int gm = m_begin + s * BK + tid;
+      const bool ok = gm < m_end;
+      row_pix[s & 1][tid] = ok ? (int)row_to_pixel(gm, map) : -1;
+      row_scale[s & 1][tid] = ok && scale ? scale[gm / rows_per_img] : 1.f;
     }
-    __syncthreads();
+  };
+  // slice s: A straight into stage s % 2 by cp.async, G's rows (the
+  // gather) into registers; zero past the split, K and N (with VEC = 4, K
+  // and N are multiples of 4, so a copy is all in or all out)
+  float rg[G_N][VEC], rs[G_N];
+  auto load = [&](int s) {
+    const int st = s & 1, mb = m_begin + s * BK;
 #pragma unroll
-    for (int mm = 0; mm < BK; ++mm) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[mm][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[mm][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if (with_bias && ty == 0) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bsum[j] += Bs[mm][tx * 4 + j];
+    for (int i = 0; i < A_N; ++i) {
+      const int c = tid + i * WF_THREADS;
+      if (c < BK * A_CPR) {
+        const int r = c / A_CPR, q = c % A_CPR;
+        const int gm = mb + r, gk = k0 + q * VEC;
+        const bool ok = gm < m_end && gk < K;
+        cp_async<VEC * (int)sizeof(float)>(&As[st][r][q * VEC],
+                                           ok ? A + (long long)gm * K + gk : A, ok);
       }
     }
+#pragma unroll
+    for (int i = 0; i < G_N; ++i) {
+      const int c = tid + i * WF_THREADS;
+      const int r = c / G_CPR, q = c % G_CPR;
+      const int pix = c < BK * G_CPR ? row_pix[st][r] : -1;
+      const int gn = n0 + q * VEC;
+      const bool ok = pix >= 0 && gn < N;
+      const float* src = dy + (long long)pix * N + gn;
+      if constexpr (VEC == 4) {
+        const float4 v = ok ? *reinterpret_cast<const float4*>(src)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        rg[i][0] = v.x, rg[i][1] = v.y, rg[i][2] = v.z, rg[i][3] = v.w;
+      } else {
+        rg[i][0] = ok ? *src : 0.f;
+      }
+      rs[i] = pix >= 0 ? row_scale[st][r] : 0.f;
+    }
+  };
+  // G times its row's scale into stage st
+  auto store = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < G_N; ++i) {
+      const int c = tid + i * WF_THREADS;
+      if (c < BK * G_CPR) {
+        float* dst = &Gs[st][c / G_CPR][(c % G_CPR) * VEC];
+        if constexpr (VEC == 4)
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(rs[i] * rg[i][0], rs[i] * rg[i][1], rs[i] * rg[i][2], rs[i] * rg[i][3]);
+        else
+          *dst = rs[i] * rg[i][0];
+      }
+    }
+  };
+
+  // one FMA chain per output, ascending m within the split (the caller sums
+  // the splits in a fixed order; no atomics)
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  auto compute = [&](int st) {
+#pragma unroll
+    for (int mm = 0; mm < BK; ++mm) {
+      float a[TM], b[TN];
+      read_tile<TM, TY>(a, &As[st][mm][0], ty);
+      read_tile<TN, TX>(b, &Gs[st][mm][0], tx);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+  // the bias: thread n of a first-k-tile block sums column n of each
+  // staged slice, outside the FMA loop, ascending m
+  float bsum = 0.f;
+
+  // two stages, one barrier per slice: slice s + 1's copies and loads are
+  // in flight while slice s's FMAs run, its G is stored after them, and the
+  // barrier frees stage s % 2 and row table s % 2 (slice s + 2's, written
+  // during slice s: its readers, slice s's loads, passed the last barrier)
+  if (slices > 0) {
+    rows(0);
+    if (slices > 1) rows(1);
+    __syncthreads();
+    load(0);
+    cp_async_commit();
+    store(0);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int s = 0; s < slices; ++s) {
+    const int st = s & 1;
+    const bool more = s + 1 < slices;
+    if (more) load(s + 1);
+    cp_async_commit();
+    if (s + 2 < slices) rows(s + 2);
+    compute(st);
+    if (with_bias && tid < BN) {
+#pragma unroll
+      for (int r = 0; r < BK; ++r) bsum += Gs[st][r][tid];
+    }
+    if (more) store(st ^ 1);
+    cp_async_wait<0>();
     __syncthreads();
   }
 
+  // partial z (zeros for a split without rows): the thread's rows in float4
+  // / float2 groups (with VEC = 4, N % 4 == 0, so a group is all in or all
+  // out), else element by element
   float* part = dw_part + (long long)z * K * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + ty * 4 + i;
+  for (int i = 0; i < TM; ++i) {
+    const int gk = k0 + tile_index<TM, TY>(i, ty);
     if (gk >= K) continue;
+    float* prow = part + (long long)gk * N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) part[(long long)gk * N + gn] = acc[i][j];
+    for (int j = 0; j < TN; j += j < TN / 4 * 4 ? 4 : 2) {
+      const int gn = n0 + tile_index<TN, TX>(j, tx);
+      const bool four = j < TN / 4 * 4;
+      if constexpr (VEC == 4) {
+        if (gn >= N) continue;
+        if (four)
+          *reinterpret_cast<float4*>(prow + gn) =
+              make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+        else
+          *reinterpret_cast<float2*>(prow + gn) = make_float2(acc[i][j], acc[i][j + 1]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < (four ? 4 : 2) && gn + q < N) prow[gn + q] = acc[i][j + q];
+      }
     }
   }
-  if (with_bias && ty == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) db_part[(long long)z * N + gn] = bsum[j];
-    }
-  }
+  if (with_bias && tid < BN && n0 + tid < N) db_part[(long long)z * N + n0 + tid] = bsum;
 }
 
 struct DgradArgs {
@@ -451,20 +641,28 @@ cudaError_t launch_dgrad_f32(cudaStream_t s, const DgradArgs& a) {
   return cudaGetLastError();
 }
 
-void launch_wgrad_f32(dim3 grid, cudaStream_t s, const void* A, const void* dy,
-                      const float* scale, float* dw_part, float* db_part, int M, int K,
-                      int N, int chunk, int rows_per_img, WinMap map) {
-  SEI_LAUNCH(grid, kThreads, s, gemm_wgrad_kernel)(static_cast<const float*>(A),
-                                                   static_cast<const float*>(dy), scale,
-                                                   dw_part, db_part, M, K, N, chunk,
-                                                   rows_per_img, map);
+// float4 accesses where K, N and both operands allow them, else one element
+void launch_wgrad_f32(cudaStream_t s, const void* A, const void* dy, const float* scale,
+                      float* dw_part, float* db_part, int M, int K, int N, int splits,
+                      int rows_per_img, WinMap map) {
+  const int chunk = ((M + splits - 1) / splits + WF_BK - 1) / WF_BK * WF_BK;
+  const dim3 grid((N + WF_BN - 1) / WF_BN, (K + WF_BM - 1) / WF_BM, splits);
+  const float* a = static_cast<const float*>(A);
+  const float* d = static_cast<const float*>(dy);
+  if (K % 4 == 0 && N % 4 == 0 && aligned(A, 16) && aligned(dy, 16))
+    SEI_LAUNCH(grid, WF_THREADS, s, gemm_wgrad_f32_kernel<4>)(a, d, scale, dw_part, db_part, M,
+                                                               K, N, chunk, rows_per_img, map);
+  else
+    SEI_LAUNCH(grid, WF_THREADS, s, gemm_wgrad_f32_kernel<1>)(a, d, scale, dw_part, db_part, M,
+                                                               K, N, chunk, rows_per_img, map);
 }
 
 // -- bf16 gemm_wgrad on the tensor cores (see the note at the top) ---------
 
-// a block's dW tile is BM x BN (K x N), as in the f32 kernel
+// a block's dW tile is WG_TILE x WG_TILE (K x N)
+constexpr int WG_TILE = 64;
 constexpr int WG_SL = 32;        // token rows (M) per staged slice
-constexpr int WG_PITCH = BN + 8;  // shared row pitch in bf16
+constexpr int WG_PITCH = WG_TILE + 8;  // shared row pitch in bf16
 constexpr int WG_THREADS = 128;  // 4 warps, 2 x 2 over the tile, 32x32 each
 
 // The tensor-core kernels below are built by nvcc only: a host compiler
@@ -483,21 +681,20 @@ gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,
                       const float* __restrict__ scale, float* __restrict__ dw_part,
                       float* __restrict__ db_part, int M, int K, int N, int chunk,
                       int rows_per_img, int db_rounded, WinMap map) {
-  static_assert(BM == BN, "A and G tiles share one load layout");
-  constexpr int CPR = BN / VEC;        // packs per staged row
+  constexpr int CPR = WG_TILE / VEC;   // packs per staged row (A and G alike)
   constexpr int RSTEP = WG_THREADS / CPR;  // rows between one thread's packs
   constexpr int NP = WG_SL / RSTEP;       // packs per thread and operand per slice
   static_assert(WG_THREADS % CPR == 0 && WG_SL % RSTEP == 0, "load layout");
   __shared__ __align__(16) bf16 As[2][WG_SL][WG_PITCH];  // As[m][k]
   __shared__ __align__(16) bf16 Gs[2][WG_SL][WG_PITCH];  // Gs[m][n]
-  __shared__ float red[RSTEP][BN];                    // bias partial sums
+  __shared__ float red[RSTEP][WG_TILE];               // bias partial sums
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wk = (tid >> 5) >> 1;  // this warp's 32 rows (k) of the tile
   const int wn = (tid >> 5) & 1;   // and 32 columns (n)
-  const int k0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.y * WG_TILE;
+  const int n0 = blockIdx.x * WG_TILE;
   const int z = blockIdx.z;
   const int m_begin = z * chunk;
   const int m_end = min(M, m_begin + chunk);
@@ -612,7 +809,7 @@ gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) red[lr][lc + j] = bsum[j];
     __syncthreads();
-    if (tid < BN) {
+    if (tid < WG_TILE) {
       float b = 0.f;
 #pragma unroll
       for (int r = 0; r < RSTEP; ++r) b += red[r][tid];
@@ -629,7 +826,7 @@ gemm_wgrad_mma_kernel(const bf16* __restrict__ A, const TDY* __restrict__ dy,
 #ifndef SEI_DGRAD_TN
 #define SEI_DGRAD_TN 96
 #endif
-constexpr int DG_BM = BM;             // output rows (tokens) per block
+constexpr int DG_BM = 64;             // output rows (tokens) per block
 constexpr int DG_TN = SEI_DGRAD_TN;
 constexpr int DG_SL = 32;             // reduction depth (N) of one staged slice
 constexpr int DG_THREADS = 128;       // 4 warps, 2 x 2 over the tile
@@ -912,33 +1109,53 @@ extern "C" int sei_gemm_wgrad(int device, int is_bf16, const void* A, const void
     return (int)cudaErrorInvalidValue;
   if (scale != nullptr && rows_per_img <= 0) return (int)cudaErrorInvalidValue;
   if (dy_bf16 && !is_bf16) return (int)cudaErrorInvalidValue;
-  // each split takes a whole number of staged slices (BK rows in f32,
-  // WG_SL in bf16)
-  const int slice = is_bf16 ? WG_SL : BK;
-  const int chunk = ((M + splits - 1) / splits + slice - 1) / slice * slice;
-  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  const int tile_k = is_bf16 ? WG_TILE : WF_BM, tile_n = is_bf16 ? WG_TILE : WF_BN;
+  if ((K + tile_k - 1) / tile_k > 65535 || (N + tile_n - 1) / tile_n > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const WinMap map{windowed, H, W, ws, shift};
   cudaStream_t s = (cudaStream_t)stream;
+  if (!is_bf16) {  // f32 rounds nothing: db_rounded changes no sum
+    launch_wgrad_f32(s, A, dy, scale, dw_part, db_part, M, K, N, splits, rows_per_img, map);
+    return (int)cudaGetLastError();
+  }
+#ifdef __CUDACC__
+  // each split takes a whole number of staged slices
+  const int chunk = ((M + splits - 1) / splits + WG_SL - 1) / WG_SL * WG_SL;
+  const dim3 grid((N + WG_TILE - 1) / WG_TILE, (K + WG_TILE - 1) / WG_TILE, splits);
   // 4-element packs: 8 bytes of bf16 A and dy, 16 of f32 dy, at every row start
   const size_t dy_pack = 4 * (dy_bf16 ? sizeof(bf16) : sizeof(float));
   const bool vec4 = K % 4 == 0 && N % 4 == 0 && (size_t)A % 8 == 0 &&
                     (size_t)dy % dy_pack == 0;
-  if (!is_bf16)  // f32 rounds nothing: db_rounded changes no sum
-    launch_wgrad_f32(grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk, rows_per_img,
-                     map);
-#ifdef __CUDACC__
-  else if (dy_bf16)
+  if (dy_bf16)
     launch_wgrad_mma<bf16>(vec4, grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
                            rows_per_img, db_rounded, map);
   else
     launch_wgrad_mma<float>(vec4, grid, s, A, dy, scale, dw_part, db_part, M, K, N, chunk,
                             rows_per_img, db_rounded, map);
-#else
-  else
-    return (int)cudaErrorInvalidValue;
-#endif
   return (int)cudaGetLastError();
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
+// How many partials the f32 weight grad of an (M, K) x (M, N) product
+// should write: as many splits of M as fill the card's SMs with one wave of
+// its blocks (from the kernel's own occupancy and tile), each a whole
+// number of slices; 0 on a CUDA error
+extern "C" int sei_gemm_wgrad_f32_splits(int device, int M, int K, int N) {
+  if (M <= 0 || K <= 0 || N <= 0) return 0;
+  int sms = 0, per_sm = 0;
+  if (cudaSetDevice(device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_wgrad_f32_kernel<4>,
+                                                    WF_THREADS, 0) != cudaSuccess)
+    return 0;
+  const long long tiles = (long long)((K + WF_BM - 1) / WF_BM) * ((N + WF_BN - 1) / WF_BN);
+  const long long slices = (M + WF_BK - 1) / WF_BK;
+  long long splits = (long long)sms * per_sm / tiles;
+  if (splits > slices) splits = slices;
+  if (splits > 65535) splits = 65535;
+  return splits > 1 ? (int)splits : 1;
 }

@@ -77,6 +77,7 @@ which the kernel chain and its backward are held against.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -96,8 +97,9 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 _EPS = 1e-5
 _EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
-_TILE = 64  # rows of the GEMM tiles (BM in csrc/gemm_*.cu; BN too, but bf16 dgrad is 96 wide and
-#              the f32 forward GEMM 128 x 96, for which the grid check below is conservative)
+_TILE = 64  # rows of the bf16 GEMM tiles (csrc/gemm_*.cu; the weight grad's columns too; bf16
+#              dgrad is 96 wide and the f32 forward GEMM 128 x 96, for which the grid check below
+#              is conservative; the f32 weight grad's kernel sizes its own grid)
 _DGRAD_F32_ROWS = 96  # rows of the f32 data grad's tile (DF_BM in csrc/gemm_bwd.cu)
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -449,10 +451,14 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
     products of the TPU trunk's backward (``_block_bwd_image`` :663-668,
     :786-802) and its per-group partials (``_bwd_pallas`` :1153-1176,
     summed at :1198-1203).  Bound by FP32 operations in f32, by bytes in
-    bf16; 64x64 tiles over (K, N), the token axis split over the grid into
-    partials that are summed here (no atomics), the bias column sums taken
-    from the same staged tiles.  f32 runs on the CUDA cores; bf16 on the
-    tensor cores (``mma.sync`` m16n8k16, f32 accumulators, 32-row slices
+    bf16; the token axis split over the grid into partials that are summed
+    here in split order (no atomics), the bias column sums taken from the
+    same staged slices.  f32 runs on the CUDA cores: 96x96 tiles over (K, N),
+    8x6 register tiles of FMAs per thread, 28-row slices of a (by
+    ``cp.async``) and of the gathered, scaled g (through registers) in two
+    shared stages; as many splits as fill the card with one wave of its
+    blocks (:func:`_wgrad_f32_splits`).  bf16 runs on the tensor cores
+    (``mma.sync`` m16n8k16, f32 accumulators, 64x64 tiles, 32-row slices
     staged in two shared buffers).
     """
     m, k = a.shape
@@ -465,12 +471,16 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
     a, dy = a.contiguous(), dy.contiguous()
     scale = None if scale is None else scale.contiguous()
     require_cuda("gemm_wgrad", a=(a, KERNEL_DTYPES), dy=(dy, (a.dtype, F32)), scale=(scale, F32))
-    tiles = -(-k // _TILE) * -(-n // _TILE)
-    splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
+    built = _build.library()
+    if a.dtype == F32:
+        splits = _wgrad_f32_splits(built, a.device.index, m, k, n)
+    else:
+        tiles = -(-k // _TILE) * -(-n // _TILE)
+        splits = _build.partial_count(-(-m // 256), blocks_per_partial=tiles, per_sm=4)
     dw = torch.empty((splits, k, n), device=a.device, dtype=F32)
     db = torch.empty((splits, n), device=a.device, dtype=F32)
     wm = window or WindowMap(0, 0, 0, 0)
-    code = _build.library().lib.sei_gemm_wgrad(
+    code = built.lib.sei_gemm_wgrad(
         a.device.index, _is_bf16(a), a.data_ptr(), dy.data_ptr(), _is_bf16(dy),
         _build.ptr(scale), dw.data_ptr(), db.data_ptr(), m, k, n, splits,
         m // scale.shape[0] if scale is not None else 0, int(db_rounded),
@@ -481,6 +491,18 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
 
 
 gemm_wgrad.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_f32_splits(built: _build.Built, device: int, m: int, k: int, n: int) -> int:
+    """Partials the f32 weight grad of an (m, k) x (m, n) product writes: as
+    many splits of m as fill ``device`` with one wave of the kernel's blocks,
+    from the tile and the occupancy of the library ``built`` (the C entry
+    ``sei_gemm_wgrad_f32_splits``), at most one per slice of m."""
+    splits = built.lib.sei_gemm_wgrad_f32_splits(device, m, k, n)
+    if splits <= 0:
+        raise RuntimeError(f"gemm_wgrad: no split count for M={m}, K={k}, N={n}")
+    return splits
 
 
 def _torch_ln_rows_bwd(x, gamma, dz, window: Optional[WindowMap] = None, dres=None,

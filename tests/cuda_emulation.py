@@ -7,8 +7,9 @@ runs as a ``std::thread`` (the blocks one after another, so ``__shared__``
 arrays are plain statics and dynamic shared memory one NaN-filled buffer),
 ``__syncthreads`` is a barrier, ``__shfl_xor_sync`` an exchange between the
 32 threads of a warp at a barrier of their own, ``cp.async`` a synchronous
-copy (zero-filled where the kernel asks for none), and ``float4``, ``erff``,
-``expf`` and ``INFINITY`` come from the host.  Without ``__CUDACC__`` the
+copy (zero-filled where the kernel asks for none), the card has 132 SMs
+that hold one block of any kernel each, and ``float4``, ``erff``, ``expf``
+and ``INFINITY`` come from the host.  Without ``__CUDACC__`` the
 sources leave out their tensor-core kernels, whose entry points then refuse.
 The shared library is loaded with ``ctypes`` in a subprocess (a fault there
 fails the test instead of the worker), called on inputs from an ``.npz``
@@ -87,6 +88,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -95,6 +97,11 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cuda
 template <typename F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
   *n = 1;
+  return cudaSuccess;
+}
+// the emulated card has the H100's 132 SMs
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;
   return cudaSuccess;
 }
 

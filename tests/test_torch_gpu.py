@@ -12,6 +12,8 @@ the eval's widths, on ragged shapes, odd widths and unaligned views, with
 and without the window store, and repeats bit for bit; the f32 data grad
 (96x96 tiles) at the f32 step's four calls on both graphs (one launch
 each), on ragged, odd and unaligned operands, and repeats bit for bit; the
+f32 weight grad (96x96 tiles) likewise, and with a split that has no rows;
+the
 f32 attention backward (register tiles) at the trunk's calls on both graphs,
 strided as the trunk lays out q, k, v, do and dq, dk, dv, with and without
 the att store (att also equal to the forward kernel's within 2e-5), on odd
@@ -339,6 +341,81 @@ def test_gemm_bwd_window_gather(gpu, shift):
     for x, y in zip(st.gemm_wgrad(a, dy, scale=scale, window=wm),
                     st._torch_gemm_wgrad(a, dy, scale, wm)):
         _close(x, y, 1e-4)
+
+
+# f32 gemm_wgrad on the CUDA cores (96x96 tiles of 8x6, 28-row slices, the
+# split count from the kernel's occupancy): the f32 step's four calls at the
+# flagship widths on both graphs (T = 16 or 8 images of 48x48), (K, N,
+# drop-path scale, window map); dW and db to chip_smoke's 1e-3 + 1e-4 x
+# |plain| (sums over up to 36864 tokens in another order)
+_WGRAD_F32_VARIANTS = {"fc2": (360, 180, True, False), "fc1": (180, 360, False, False),
+                       "proj": (180, 180, True, True), "qkv": (180, 540, False, False)}
+
+
+def _wgrad_f32_case(g, variant, images):
+    k, n, scaled, windowed = _WGRAD_F32_VARIANTS[variant]
+    t = images * 48 * 48
+    wm = st.WindowMap(48, 48, 8, 4) if windowed else None
+    dy = _rnd(g, images, 48, 48, n) if windowed else _rnd(g, t, n)
+    scale = ((torch.rand(images, generator=g, device="cuda") < 0.9).float() / 0.9
+             if scaled else None)
+    return _rnd(g, t, k), dy, scale, wm
+
+
+@pytest.mark.parametrize("variant", list(_WGRAD_F32_VARIANTS))
+@pytest.mark.parametrize("images", [16, 8])
+def test_gemm_wgrad_f32_step_widths(gpu, variant, images):
+    a, dy, scale, wm = _wgrad_f32_case(gpu, variant, images)
+    before = st.gemm_wgrad.launches
+    got = st.gemm_wgrad(a, dy, scale=scale, window=wm)
+    assert st.gemm_wgrad.launches == before + 1
+    for x, y in zip(got, st._torch_gemm_wgrad(a, dy, scale, wm)):
+        _close(x, y, 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 180, 180), (129, 44, 36), (65, 17, 33)])
+def test_gemm_wgrad_f32_unaligned_pointers(gpu, m, k, n):
+    """a and dy at odd element offsets (views into larger buffers), or odd
+    widths, cannot take float4 accesses: the f32 kernel goes element by
+    element."""
+    a = _rnd(gpu, m * k + 1)[1:].view(m, k)
+    dy = _rnd(gpu, m * n + 1)[1:].view(m, n)
+    scale = torch.tensor([0.5, 1.25, 1 / 0.9], device="cuda")[: 3 if m % 3 == 0 else 1]
+    assert a.data_ptr() % 16 != 0
+    for x, y in zip(st.gemm_wgrad(a, dy, scale=scale), st._torch_gemm_wgrad(a, dy, scale)):
+        _close(x, y, 1e-4, 1e-3)
+
+
+def test_gemm_wgrad_f32_empty_split(gpu):
+    """Three splits of 32 rows in 28-row slices: the third has no rows and
+    writes zeros; the partials sum to the plain version."""
+    from sei_tpu_torch.ops import _build
+
+    m, k, n, splits = 32, 24, 20, 3
+    a, dy = _rnd(gpu, m, k), _rnd(gpu, m, n)
+    dw = torch.full((splits, k, n), float("nan"), device="cuda")
+    db = torch.full((splits, n), float("nan"), device="cuda")
+    code = _build.library().lib.sei_gemm_wgrad(
+        a.device.index, 0, a.data_ptr(), dy.data_ptr(), 0, None, dw.data_ptr(), db.data_ptr(),
+        m, k, n, splits, 0, 0, 0, 0, 0, 0, 0, _build.stream_of(a))
+    _build.check(code, "gemm_wgrad")
+    torch.cuda.synchronize()
+    assert not dw[-1].any() and not db[-1].any()
+    for x, y in zip((dw.sum(0), db.sum(0)), st._torch_gemm_wgrad(a, dy)):
+        _close(x, y, 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("variant", ["fc2", "proj"])
+def test_gemm_wgrad_f32_repeats_bit_for_bit(gpu, variant):
+    """One FMA chain per output over each split's rows, the splits summed
+    in a fixed order (no atomics): two calls on the same inputs agree
+    exactly."""
+    a, dy, scale, wm = _wgrad_f32_case(gpu, variant, 16)
+    first = st.gemm_wgrad(a, dy, scale=scale, window=wm)
+    second = st.gemm_wgrad(a, dy, scale=scale, window=wm)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_gemm_gelu_pre_epilogue(gpu):

@@ -18,7 +18,11 @@
    attention backward is also checked as the trunk's recompute backward
    calls it (strided from the qkv and proj buffers, att written from the
    same p: ``att_out``), and the script prints which backend SDPA's
-   backward, its library call, ran.
+   backward, its library call, ran.  The f32 attention forward is also
+   checked and timed as the trunk calls it at both training graphs (q, k, v
+   strided from the qkv buffer, the output into the proj buffer; SDPA on
+   the same views as its library call), and the script prints whether its
+   output equals the backward's ``att_out`` bit for bit.
 3. Eval path: ``get_model`` (flagship SwinIR, weights from seed 0) ->
    ``get_physics`` (deblurring, Gaussian_R2, noise 5) -> ``evaluate`` on 4
    seeded 256x320 images; checks the kernels' launch counts, the metrics,
@@ -52,7 +56,8 @@
    register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
    register tiles fed through registers, the f32 ``gemm_wgrad`` in 8x6
    register tiles, A by ``cp.async`` and dy gathered through registers, the
-   f32 ``window_attn_bwd`` in 4x4 register tiles fed by ``cp.async``) and
+   f32 ``window_attn_bwd`` and ``window_attn_fwd`` in 4x4 register tiles
+   fed by ``cp.async``) and
    carries ``queued_ms``: the device time of the same calls queued behind
    a sleeping kernel, free of the wrapper's host cost; every entry with a
    library call carries
@@ -510,8 +515,31 @@ def check_train_kernels(timed: bool) -> dict:
                    lambda m=m: at._torch_attention_bwd(qv, kv, vv, bias, m, dov, scale,
                                                        with_att=True),
                    None, 12.0 * b_ * NH * N * N * HD, nbytes + 4.0 * b_ * NH * N * HD, False)
+
+            # the f32 forward as the trunk calls it: q, k, v strided from the
+            # qkv buffer, the output into the (B_, N, nh, hd) proj buffer;
+            # then against the backward's att from the same inputs
+            fwd_out = torch.empty(b_, N, NH, HD, device=dev)
+
+            def fwd(m=m):
+                return at.window_attn_fwd(qv, kv, vv, bias, m, scale=scale,
+                                          out=fwd_out.transpose(1, 2))
+
+            err = compare(f"window_attn_fwd[{variant} trunk_views T={t}]", fwd(),
+                          at._torch_attention(qv, kv, vv, bias, m, scale), 2e-5, 1e-5)
+            fused()
+            torch.cuda.synchronize()
+            print(f"    window_attn_fwd[{variant} trunk_views T={t}] against window_attn_bwd's "
+                  f"att_out: bit for bit {torch.equal(fwd_out, att)}, max |d| "
+                  f"{float((fwd_out - att).abs().max()):.3e}")
+            record("window_attn_fwd", f"{variant} trunk_views T={t}", [err], fwd,
+                   lambda m=m: at._torch_attention(qv, kv, vv, bias, m, scale),
+                   lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=full, scale=scale),
+                   4.0 * b_ * NH * N * N * HD,
+                   4.0 * (4 * b_ * NH * N * HD + NH * N * N + (0 if m is None else m.numel())),
+                   False)
             del ql, kl, vl, out, full
-        del q, kt, v, do, qkv, qv, kv, vv, dov, dqkv, att
+        del q, kt, v, do, qkv, qv, kv, vv, dov, dqkv, att, fwd_out
 
         # LayerNorm backward: LN1 (window scatter + residual), LN2 (residual)
         gamma = 1.0 + rnd(C, s=0.1)
@@ -1331,7 +1359,10 @@ DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_wgrad": "cuda-core fma, 8x6 register tiles, A by cp.async, dy gathered through "
                          "registers, splits from the kernel's occupancy",
            "window_attn_bwd": "cuda-core fma, 4x4 register tiles of S/P/dP/dS, shuffle row "
-                              "reductions, P/dS tiles in shared memory, cp.async"}
+                              "reductions, P/dS tiles in shared memory, cp.async",
+           "window_attn_fwd": "cuda-core fma, 4x4 register tiles of S/P, shuffle row "
+                              "reductions, P tile in shared memory, one head per block, "
+                              "two cp.async stages"}
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
 # earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
@@ -1345,7 +1376,9 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "gemm_dgrad cuda-core fma, 4x4 register tiles 0.9315 ms, 0.9162 queued (T=36864); "
               "window_attn_bwd cuda-core fma, operands from shared memory 0.5821 ms, 0.5729 "
               "queued (T=36864, mean of the masks); "
-              "gemm_wgrad cuda-core fma, 4x4 register tiles 1.0928 ms, 1.0794 queued (T=36864)")
+              "gemm_wgrad cuda-core fma, 4x4 register tiles 1.0928 ms, 1.0794 queued (T=36864); "
+              "window_attn_fwd cuda-core fma, operands from shared memory 0.4818 ms, 0.4775 "
+              "queued (eval shape, mean of the masks)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1443,7 +1476,8 @@ def main(argv: list[str]) -> int:
     for label, kernel in (("f32 forward GEMM", "gemm_bias_epilogue_kernel"),
                           ("f32 data grad", "gemm_dgrad_f32_kernel"),
                           ("f32 weight grad", "gemm_wgrad_f32_kernel"),
-                          ("f32 attention backward", "window_attn_bwd_f32_kernel")):
+                          ("f32 attention backward", "window_attn_bwd_f32_kernel"),
+                          ("f32 attention forward", "window_attn_fwd_f32_kernel")):
         print(f"ptxas, {label}: " + " | ".join(
             line.split(" ", 1)[1] for line in report if kernel in line))
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Tile sweeps of four GEMM kernels and the f32 attention backward on one card.
+"""Tile sweeps of four GEMM kernels and the f32 attention kernels on one card.
 
     python3 dgrad_tile_sweep.py                 # bf16 gemm_dgrad, output tile width
     python3 dgrad_tile_sweep.py --fwd-f32       # f32 gemm_bias_epilogue, block tile
     python3 dgrad_tile_sweep.py --dgrad-f32     # f32 gemm_dgrad, block tile
     python3 dgrad_tile_sweep.py --wgrad-f32     # f32 gemm_wgrad, block and thread tile
     python3 dgrad_tile_sweep.py --attn-bwd-f32  # f32 window_attn_bwd, block shape
+    python3 dgrad_tile_sweep.py --attn-fwd-f32  # f32 window_attn_fwd, block shape, stages
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
 is 64 rows by ``SEI_DGRAD_TN`` columns of K
@@ -67,6 +68,22 @@ the builds in turns, at both graphs with and without the shift mask, as
 the trunk calls it (strided, att written beside dq, dk, dv) and without
 att; the block is chosen on the f32 step's sum: 36 SwinBlocks per graph,
 half of them masked, each one call with att.
+
+With ``--attn-fwd-f32``: the f32 ``window_attn_fwd`` CUDA-core kernel
+(``sei_tpu_torch/ops/csrc/window_attn_fwd.cu``, ``window_attn_fwd_f32_kernel``),
+its threads per block (256: 4 x 4 scores per thread; 128: 8 x 4), the blocks
+per SM it is compiled for (2 blocks of 256: 128 registers; 3: 80), its
+stages (two: the next window copied during this one; one) and the threads
+that run the P.V product (all: 4 x 2 outputs each at 256; half: 4 x 4)
+(``-DSEI_ATTN_FWD_F32_THREADS``, ``_MINB``, ``_STAGES``, ``_PV``; the
+wrapper sizes its groups from the occupancy each build reaches).  Each
+build is held against the plain version (2e-5 abs, 1e-5 rel, as
+``chip_smoke.py``) and timed queued, the builds in turns, as the trunk
+calls it (q, k, v strided from the qkv buffer, the output into the proj
+buffer) at the eval shape (one 256x320 image, T = 81920) and at both graphs
+of the f32 step, with and without the shift mask; the block is chosen on
+the sum of one image's forward and one f32 step: 36 SwinBlocks at the eval
+shape and 36 per graph of the step, half of them masked.
 """
 
 from __future__ import annotations
@@ -109,6 +126,15 @@ DEFAULT_WGRAD_F32_TILE = (96, 96, 28, 8, 6, None)  # the f32 weight grad's in th
 # 128 threads (8 x 4) at 2 (255)
 ATTN_BWD_F32_BLOCKS = ((256, 2), (256, 1), (128, 2))
 DEFAULT_ATTN_BWD_F32_BLOCK = (256, 2)
+# (threads per block, blocks per SM compiled for, stages, threads of the P.V
+# product): 256 threads at 2 blocks (128 registers) with two stages, P.V on
+# half of them (4 x 4 outputs each; the library's) or on all (4 x 2), with
+# one stage; at 3 blocks (80 registers; 3 x 71 KB of shared memory fit an
+# SM) with two and one; 128 threads at 4 blocks (128 registers), P.V on
+# half (8 x 4) or all
+ATTN_FWD_F32_BLOCKS = ((256, 2, 2, 128), (256, 2, 2, 256), (256, 2, 1, 128), (256, 3, 2, 128),
+                       (256, 3, 1, 128), (128, 4, 1, 64), (128, 4, 1, 128))
+DEFAULT_ATTN_FWD_F32_BLOCK = (256, 2, 2, 128)
 
 
 def main(argv: list[str]) -> int:
@@ -131,6 +157,8 @@ def main(argv: list[str]) -> int:
         return sweep_wgrad_f32(smi)
     if "--attn-bwd-f32" in argv:
         return sweep_attn_bwd_f32(smi)
+    if "--attn-fwd-f32" in argv:
+        return sweep_attn_fwd_f32(smi)
     return sweep_dgrad_bf16(smi)
 
 
@@ -426,6 +454,59 @@ def sweep_attn_bwd_f32(smi: str) -> int:
               + ", ".join(f"{k} {ms:.4f}" for k, ms in per_graph.items())
               + f"; per step ({cs.BLOCKS} blocks x both graphs, with att) {step:.2f} ms queued")
     print(json.dumps({"attn_bwd_f32_sweep": result, "gpu": smi}))
+    return 0
+
+
+def sweep_attn_fwd_f32(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import attention as at
+
+    default = DEFAULT_ATTN_FWD_F32_BLOCK
+    builds = build_all({"x".join(map(str, blk[:3])) + f"_pv{blk[3]}": () if blk == default else
+                        tuple(f"SEI_ATTN_FWD_F32_{k}={v}"
+                              for k, v in zip(("THREADS", "MINB", "STAGES", "PV"), blk))
+                        for blk in ATTN_FWD_F32_BLOCKS}, "window_attn_fwd_f32_kernel")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    n, nh, hd, scale = cs.N, cs.NH, cs.HD, cs.HD ** -0.5
+    bias = torch.randn((nh, n, n), generator=g, device="cuda") * 0.1
+
+    def views(buf):
+        return tuple(buf[:, :, i].transpose(1, 2) for i in range(3))
+
+    # the trunk's calls: one image at the eval shape, both graphs of the step
+    shapes = {"eval": (cs.T, cs.H, cs.W)}
+    shapes.update({f"step T={b * cs.CROP * cs.CROP}": (b * cs.CROP * cs.CROP, cs.CROP, cs.CROP)
+                   for b in cs.TRAIN_GRAPHS})
+    calls = {}
+    for shape, (t, hh, ww) in shapes.items():
+        b_ = t // n
+        mask = torch.from_numpy(shift_attn_mask(hh, ww, cs.WS, cs.WS // 2)).cuda()
+        qkv = torch.randn((b_, n, 3, nh, hd), generator=g, device="cuda")
+        out = torch.empty((b_, n, nh, hd), device="cuda")
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            calls[f"{variant} T={t}"] = (
+                lambda qkv=qkv, out=out, m=m: at.window_attn_fwd(
+                    *views(qkv), bias, m, scale=scale, out=out.transpose(1, 2)),
+                at._torch_attention(*views(qkv), bias, m, scale))
+
+    means = check_and_time(builds, calls, lambda blk, v, c: cs.compare(
+        f"window_attn_fwd[f32 block {blk} {v}]", c[0](), c[1], 2e-5, 1e-5))
+    result = {}
+    for blk, per_call in means.items():
+        per_block = {shape: 0.5 * sum(per_call[f"{v} T={t}"] for v in ("no_mask", "shift_mask"))
+                     for shape, (t, _, _) in shapes.items()}
+        image = cs.BLOCKS * per_block["eval"]
+        step = cs.BLOCKS * sum(ms for k, ms in per_block.items() if k != "eval")
+        result[blk] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_block,
+                       "image_queued_ms": image, "step_queued_ms": step,
+                       "image_plus_step_queued_ms": image + step}
+        print(f"block {blk}: per SwinBlock (mean of the masks) "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in per_block.items())
+              + f"; per image ({cs.BLOCKS} blocks) {image:.2f} ms, per f32 step ({cs.BLOCKS} "
+              f"blocks x both graphs) {step:.2f} ms, sum {image + step:.2f} ms queued")
+    print(json.dumps({"attn_fwd_f32_sweep": result, "gpu": smi}))
     return 0
 
 

@@ -17,10 +17,15 @@ Kernel ``window_attn_fwd`` (``csrc/window_attn_fwd.cu``):
   * bound on the H100: at N = 64, hd = 30 about 16 flops per byte of q/k/v/out
     in f32, near the FP32 ridge (67 TFLOP/s over 3.35 TB/s = 20), so both the
     CUDA-core FMAs and the bytes count; in bf16 (989 TFLOP/s) bytes bound it;
-  * design: one block per (window, head), scores and probabilities kept in
-    shared memory (in device memory only when saved), f32 max-subtracted
-    softmax, strided q/k/v/out so the trunk reads them straight from its qkv
-    GEMM.
+  * design: scores and probabilities kept on chip (in device memory only
+    when saved), f32 max-subtracted softmax, strided q/k/v/out so the trunk
+    reads them straight from its qkv GEMM.  bf16: one block per (window,
+    head).  f32 (``window_attn_fwd_f32_kernel``): the f32 backward's register
+    micro-tiles of S and P on 256 threads and its P.V product from a shared
+    P tile, one block per (head, group of windows), each window by
+    ``cp.async`` into one of two stages while the one before computes; its
+    p and its output equal the f32 backward's recomputed p and ``att_out``
+    bit for bit.
 
 Kernel ``window_attn_bwd`` (``csrc/window_attn_bwd.cu``):
   * replaces ``sei_tpu/ops/attention.py:155`` ``_bwd_pallas`` ->
@@ -168,11 +173,15 @@ def window_attn_fwd(q, k, v, bias, mask=None, *, scale: float = 1.0, out=None, p
         raise ValueError(f"window_attn_fwd: out shape {tuple(out.shape)}")
     if n > 64 or hd > 32:
         raise ValueError(f"window_attn_fwd: kernel takes N <= 64, hd <= 32; got {n}, {hd}")
-    lib = _build.library().lib
-    code = lib.sei_window_attn_fwd(
+    built = _build.library()
+    groups = 0  # bf16: one block per (window, head)
+    if cdt == F32:  # one block per (head, group of windows), one wave
+        per_sm = _f32_blocks_per_sm(built, q.device.index, "fwd")
+        groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=per_sm)
+    code = built.lib.sei_window_attn_fwd(
         q.device.index, int(cdt == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), _build.ptr(mask), out.data_ptr(), _build.ptr(p_out),
-        b_, nh, n, hd, 0 if mask is None else mask.shape[0],
+        b_, nh, n, hd, 0 if mask is None else mask.shape[0], groups,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(scale), _build.stream_of(q))
     _build.check(code, "window_attn_fwd")
@@ -235,7 +244,7 @@ def window_attn_bwd(q, k, v, bias, mask, do, *, scale: float = 1.0, out=None, p=
     if cdt == torch.bfloat16:  # the bf16 kernel: 3 blocks of 128 threads per SM
         per_sm = 3
     else:  # as many blocks as the f32 kernel fits on an SM: one wave
-        per_sm = _f32_blocks_per_sm(built, q.device.index, att_out is not None)
+        per_sm = _f32_blocks_per_sm(built, q.device.index, "bwd", int(att_out is not None))
     groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=per_sm)
     part = torch.empty((groups, nh, n, n), device=q.device, dtype=torch.float32)
     strided = (q, k, v, do, dq, dk, dv, q if att_out is None else att_out)
@@ -254,12 +263,13 @@ window_attn_bwd.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _f32_blocks_per_sm(built: _build.Built, device: int, with_att: bool) -> int:
-    """Blocks of the f32 backward kernel (with or without the att store)
-    that one SM of ``device`` holds, from the CUDA occupancy calculator."""
-    n = built.lib.sei_window_attn_bwd_f32_blocks_per_sm(device, int(with_att))
+def _f32_blocks_per_sm(built: _build.Built, device: int, kernel: str, *args: int) -> int:
+    """Blocks of the f32 ``kernel`` (``"fwd"``, or ``"bwd"`` with or without
+    the att store) that one SM of ``device`` holds, from the CUDA occupancy
+    calculator."""
+    n = getattr(built.lib, f"sei_window_attn_{kernel}_f32_blocks_per_sm")(device, *args)
     if n <= 0:
-        raise RuntimeError("window_attn_bwd: the f32 kernel fits no block on an SM")
+        raise RuntimeError(f"window_attn_{kernel}: the f32 kernel fits no block on an SM")
     return n
 
 

@@ -49,10 +49,10 @@
 //   (c < 4): S, then P, then dP and dS stay in its registers, and per 4-deep
 //   step of the head dim it reads 4 + 4 float4 of q and k (do and v) for 64
 //   FMAs.  A row's 64 columns sit on 16 lanes of one warp, so row max, row
-//   sum and rowsum(dp p) are __shfl_xor_sync butterflies over those lanes,
-//   taken in window_attn_fwd's order: p is the forward's bit for bit
-//   wherever the mask is 0 (bias + mask is added as one value; where the
-//   mask is -100, p is about e^-100 either way).
+//   sum and rowsum(dp p) are __shfl_xor_sync butterflies over those lanes.
+//   The scores and the softmax are window_attn_f32.cuh's, which the f32
+//   forward (window_attn_fwd_f32_kernel) runs too: p is the forward's bit
+//   for bit, and so is att.
 // - The 64x32 products read P or dS from shared memory as the transposed
 //   operand [k][row]: the owner threads write both row-major (for dv and
 //   dk) and transposed (for dq and att) before one barrier.  Two
@@ -77,15 +77,12 @@
 //   whose rewrite cost a barrier and registers.)
 
 #include <climits>
-#include <cmath>
 #include <initializer_list>
 
-#include "common.cuh"
+#include "window_attn_f32.cuh"
 
 namespace {
 
-constexpr int AN = 64;  // max tokens per window (ws <= 8)
-constexpr int AD = 32;  // max head dim (padded)
 constexpr int kThreads = 128;
 constexpr int kRows = AN / 2;  // score rows per thread (half, half + 2, ...)
 
@@ -276,8 +273,6 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int FT = SEI_ATTN_BWD_F32_THREADS;  // threads per block
 constexpr int FTY = FT / 16;                  // score row groups, 16 lanes per row
 constexpr int FRA = AN / FTY;                 // score rows per thread
-constexpr int SP = AD + 4;                    // row pitch of the staged q, k, v, do
-constexpr int PP = AN + 4;                    // row pitch of the P / dS tiles
 constexpr int STAGE = 4 * AN * SP;            // floats of one staged window
 constexpr int TILE = AN * PP;                 // floats of one P / dS tile
 constexpr int F_SMEM = (STAGE + 4 * TILE) * (int)sizeof(float);
@@ -289,65 +284,6 @@ static_assert(FT == 128 || FT == 256, "16 lanes per score row, 4 or 8 rows each"
 struct Strides32 {
   int w, h, n;
 };
-
-// x, opaque to the optimizer: the window and head offsets (w * stride, h *
-// stride) of eight tensors, hoisted out of the window loop or carried
-// through it, would hold sixteen registers; recomputed where used, they
-// cost two multiplies each
-__device__ __forceinline__ int opaque(int x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-// the output tile of a 64 x 32 product over P threads: RC rows x CC columns
-// each, CX column groups (a warp is 32 / CX row groups by CX)
-template <int P>
-struct ProdTile {
-  static constexpr int CC = P <= 128 ? 4 : 2;
-  static constexpr int RC = AN * AD / (P * CC);
-  static constexpr int CX = AD / CC;
-};
-
-// acc[r][c] = sum over k = 0..63, ascending, of At[k][r0 + r] * B[k][c0 + c]:
-// At is a P / dS tile read as [k][row], B a staged tile [k][d]
-template <int P>
-__device__ __forceinline__ void tile_product(const float* At, const float* Bm, int local,
-                                             float (&acc)[ProdTile<P>::RC][ProdTile<P>::CC]) {
-  typedef ProdTile<P> TL;
-  const float* a_col = At + (local / TL::CX) * TL::RC;
-  const float* b_col = Bm + (local % TL::CX) * TL::CC;
-#pragma unroll
-  for (int r = 0; r < TL::RC; ++r)
-#pragma unroll
-    for (int c = 0; c < TL::CC; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < AN; ++k) {
-    float a[TL::RC], b[TL::CC];
-#pragma unroll
-    for (int r = 0; r < TL::RC; r += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(a_col + k * PP + r);
-      a[r] = t.x;
-      a[r + 1] = t.y;
-      a[r + 2] = t.z;
-      a[r + 3] = t.w;
-    }
-    if constexpr (TL::CC == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(b_col + k * SP);
-      b[0] = t.x;
-      b[1] = t.y;
-      b[2] = t.z;
-      b[3] = t.w;
-    } else {
-      const float2 t = *reinterpret_cast<const float2*>(b_col + k * SP);
-      b[0] = t.x;
-      b[1] = t.y;
-    }
-#pragma unroll
-    for (int r = 0; r < TL::RC; ++r)
-#pragma unroll
-      for (int c = 0; c < TL::CC; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-  }
-}
 
 // the tile's rows < N and columns < hd, times mul, into out[w][h][row][d]
 template <int P, int VEC>
@@ -474,51 +410,11 @@ window_attn_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict_
           const int i = ty + FTY * r, j = tx + 16 * c;
           bm[r][c] = -INFINITY;
           if (i < N && j < N) bm[r][c] = mw ? bh[i * N + j] + mw[i * N + j] : bh[i * N + j];
-          p[r][c] = 0.f;
         }
       cp_async_wait<0>();
       __syncthreads();
-#pragma unroll 1  // 64 independent FMAs a step; unrolled, hoisted loads spill
-      for (int d = 0; d < AD; d += 4) {
-        float4 a[FRA], b[4];
-#pragma unroll
-        for (int r = 0; r < FRA; ++r)
-          a[r] = *reinterpret_cast<const float4*>(qs + (ty + FTY * r) * SP + d);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          b[c] = *reinterpret_cast<const float4*>(ks + (tx + 16 * c) * SP + d);
-#pragma unroll
-        for (int r = 0; r < FRA; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            float s = p[r][c];
-            s = fmaf(a[r].x, b[c].x, s);
-            s = fmaf(a[r].y, b[c].y, s);
-            s = fmaf(a[r].z, b[c].z, s);
-            p[r][c] = fmaf(a[r].w, b[c].w, s);
-          }
-      }
-#pragma unroll
-      for (int r = 0; r < FRA; ++r) {
-        float m = -INFINITY;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          p[r][c] = p[r][c] * scale + bm[r][c];
-          m = fmaxf(m, p[r][c]);
-        }
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        float e[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) e[c] = p[r][c] == -INFINITY ? 0.f : expf(p[r][c] - m);
-        // window_attn_fwd's lane l holds columns l and l + 32, and its first
-        // butterfly step adds lanes l and l + 16
-        float sum = (e[0] + e[2]) + (e[1] + e[3]);
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) p[r][c] = e[c] == 0.f ? 0.f : e[c] / sum;
-      }
+      window_scores<FTY>(qs, ks, ty, tx, p);
+      window_softmax(p, bm, scale);
     }
 
     // dP = do v^T, then dS = P (dP - rowsum(dP P)) in place, the row sums

@@ -17,7 +17,11 @@ the
 f32 attention backward (register tiles) at the trunk's calls on both graphs,
 strided as the trunk lays out q, k, v, do and dq, dk, dv, with and without
 the att store (att also equal to the forward kernel's within 2e-5), on odd
-head dims and offsets, and repeats bit for bit.
+head dims and offsets, and repeats bit for bit; the f32 attention forward
+(the backward's register tiles) at the trunk's calls on both graphs, equal
+to the backward's att bit for bit, with its f32 probability save, on odd
+head dims and offsets, at window counts below and not divided by its
+groups, and repeats bit for bit.
 Small and ragged shapes (M, K, N not multiples of the tiles; C = 16 and 256;
 windows of 16 tokens, hd 8; window counts that are not multiples of the
 partial count) that the flagship checks in ``chip_smoke.py`` do not reach.
@@ -522,6 +526,84 @@ def test_window_attn_bwd_f32_repeats_bit_for_bit(gpu, with_att):
         runs.append((*res, att) if with_att else res)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# f32 window_attn_fwd on the CUDA cores (the backward's register tiles, one
+# head per block walking a group of windows, two cp.async stages)
+@pytest.mark.parametrize("b_", [576, 288])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attn_fwd_f32_trunk_views(gpu, b_, masked):
+    """The trunk's call at both graphs of the f32 step: q, k, v strided from
+    the qkv buffer, the output into the (B_, N, nh, hd) buffer; it equals
+    the f32 backward's att_out bit for bit (the same scores, softmax and
+    P.V code)."""
+    qkv, do, bias, mask = _attn_trunk_case(gpu, b_)
+    m = mask if masked else None
+    out = torch.full((b_, 64, 6, 30), float("nan"), device="cuda")
+    before = at.window_attn_fwd.launches
+    got = at.window_attn_fwd(*_views(qkv), bias, m, scale=30 ** -0.5, out=out.transpose(1, 2))
+    assert at.window_attn_fwd.launches == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    _close(out.transpose(1, 2), at._torch_attention(*_views(qkv), bias, m, 30 ** -0.5), 1e-5,
+           2e-5)
+    att = torch.empty_like(out)
+    at.window_attn_bwd(*_views(qkv), bias, m, do, scale=30 ** -0.5, att_out=att.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert torch.equal(att, out)
+
+
+@pytest.mark.parametrize("n,hd", [(64, 30), (49, 32), (16, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attn_fwd_f32_p_out(gpu, n, hd, masked):
+    """p_out in f32 (the trunk's mode ``full`` in f32) beside the output."""
+    b_, nh = 30, 3
+    q, k, v = (_rnd(gpu, b_, nh, n, hd, s=hd ** -0.5), _rnd(gpu, b_, nh, n, hd),
+               _rnd(gpu, b_, nh, n, hd))
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((6, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    m = mask if masked else None
+    p, p_want = (torch.full((b_, nh, n, n), float("nan"), device="cuda") for _ in range(2))
+    got = at.window_attn_fwd(q, k, v, bias, m, scale=1.5, p_out=p)
+    _close(got, at._torch_attention(q, k, v, bias, m, 1.5, p_want), 1e-5, 2e-5)
+    _close(p, p_want, 1e-5, 2e-5)
+
+
+@pytest.mark.parametrize("n,hd,offset", [(64, 15, 0), (49, 30, 1), (16, 7, 1)])
+def test_window_attn_fwd_f32_odd_strides(gpu, n, hd, offset):
+    """An odd head dim or views at an odd element offset cannot take 8-byte
+    copies: the kernel goes element by element."""
+    b_, nh = 30, 3
+    size = b_ * nh * n * hd
+
+    def view(s=1.0):
+        return (_rnd(gpu, size + offset, s=s)[offset:]).view(b_, nh, n, hd)
+
+    q, k, v, out = view(hd ** -0.5), view(), view(), view()
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((6, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    at.window_attn_fwd(q, k, v, bias, mask, scale=1.5, out=out)
+    _close(out, at._torch_attention(q, k, v, bias, mask, 1.5), 1e-5, 2e-5)
+
+
+@pytest.mark.parametrize("b_", [5, 995])
+def test_window_attn_fwd_f32_window_counts(gpu, b_):
+    """Fewer windows than groups, and a count the groups do not divide."""
+    nh, n, hd = 3, 64, 30
+    q, k, v = (_rnd(gpu, b_, nh, n, hd, s=hd ** -0.5), _rnd(gpu, b_, nh, n, hd),
+               _rnd(gpu, b_, nh, n, hd))
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = torch.from_numpy(shift_attn_mask(40, 8, 8, 4)).cuda()  # 5 windows
+    _close(at.window_attn_fwd(q, k, v, bias, mask, scale=1.5),
+           at._torch_attention(q, k, v, bias, mask, 1.5), 1e-5, 2e-5)
+
+
+def test_window_attn_fwd_f32_repeats_bit_for_bit(gpu):
+    qkv, _, bias, mask = _attn_trunk_case(gpu, 144)
+    p = [torch.empty(144, 6, 64, 64, device="cuda") for _ in range(2)]
+    runs = [at.window_attn_fwd(*_views(qkv), bias, mask, scale=30 ** -0.5, p_out=p[i])
+            for i in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(p[0], p[1])
 
 
 def test_window_attn_bwd_att_out_is_f32_only(gpu):

@@ -22,7 +22,11 @@
    checked and timed as the trunk calls it at both training graphs (q, k, v
    strided from the qkv buffer, the output into the proj buffer; SDPA on
    the same views as its library call), and the script prints whether its
-   output equals the backward's ``att_out`` bit for bit.
+   output equals the backward's ``att_out`` bit for bit.  The bf16
+   attention backward (K7, the saved p) is checked and timed contiguous and
+   as the bf16 trunk calls it at both graphs (q, k, v strided from a
+   (T, 540) qkv buffer, do from the (B_, N, nh, hd) datt buffer, dq, dk, dv
+   into a second (T, 540) buffer).
 3. Eval path: ``get_model`` (flagship SwinIR, weights from seed 0) ->
    ``get_physics`` (deblurring, Gaussian_R2, noise 5) -> ``evaluate`` on 4
    seeded 256x320 images; checks the kernels' launch counts, the metrics,
@@ -51,8 +55,9 @@
 7. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
-   the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue`` and ``gemm_dgrad``,
-   CUDA-core FMAs for the rest; the f32 ``gemm_bias_epilogue`` in 8x6
+   the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue``, ``gemm_dgrad`` and
+   ``window_attn_bwd``, CUDA-core FMAs for the rest; the f32
+   ``gemm_bias_epilogue`` in 8x6
    register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
    register tiles fed through registers, the f32 ``gemm_wgrad`` in 8x6
    register tiles, A by ``cp.async`` and dy gathered through registers, the
@@ -733,6 +738,33 @@ def check_bf16_kernels(timed: bool) -> dict:
                    lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
                    8.0 * b_ * NH * N * N * HD, nb(q, kt, v, do, p, *outs), 1 if main else 0)
             del outs, ql, kl, vl, out, full
+
+            # as the bf16 trunk calls it (swin_trunk.py, _block_bwd): q, k, v
+            # strided from its (T, 540) qkv buffer, do the transposed (B_, N,
+            # nh, hd) datt, dq, dk, dv into a second (T, 540) buffer, p the
+            # forward's save from the same views
+            qkv = rnd(b_, N, 3, NH, HD)
+            qkv[:, :, 0] *= HD ** -0.5
+            datt = rnd(b_, N, NH, HD, s=0.1)
+            dov = datt.transpose(1, 2)
+            dqkv = torch.empty_like(qkv)
+            views = tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+            tp = torch.empty(b_, NH, N, N, device=dev, dtype=bf)
+            at.window_attn_fwd(*views, bias, m, scale=scale, p_out=tp)
+
+            def trunk(m=m, views=views, dov=dov, dqkv=dqkv, tp=tp):
+                return at.window_attn_bwd(*views, bias, m, dov, scale=scale, p=tp,
+                                          out=tuple(dqkv[:, :, i].transpose(1, 2)
+                                                    for i in range(3)))
+
+            outs = trunk()
+            errs = cmp_all(f"window_attn_bwd[bf16 {variant} saved_p trunk_views T={t}]", outs,
+                           at._torch_attention_bwd(*views, bias, m, dov, scale, tp))
+            record("window_attn_bwd", f"{variant} saved_p trunk_views T={t}", errs, trunk,
+                   lambda m=m, views=views, dov=dov, tp=tp: at._torch_attention_bwd(
+                       *views, bias, m, dov, scale, tp),
+                   None, 8.0 * b_ * NH * N * N * HD, nb(q, kt, v, do, tp) + 3 * nb(q), 0)
+            del qkv, datt, dov, dqkv, views, tp, outs
         del q, kt, v, do, saved
 
         # LayerNorm backward: LN2 (f32 dz + bf16 block gradient -> f32 dx2),
@@ -1350,8 +1382,12 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
 
 
 # how each kernel computes: the bf16 GEMMs (weight grad, forward, data
-# grad) on the tensor cores, every other kernel on the CUDA cores
+# grad) and the bf16 attention backward on the tensor cores, every other
+# kernel on the CUDA cores
 DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
+           "window_attn_bwd[bf16]": "mma.sync bf16, f32 acc, 4 warps of 16 rows per head, "
+                                    "dS from the accumulators into dQ's A fragments, "
+                                    "ldmatrix.trans for P^T and dS^T, three cp.async stages",
            "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
            "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async",
@@ -1378,7 +1414,9 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "queued (T=36864, mean of the masks); "
               "gemm_wgrad cuda-core fma, 4x4 register tiles 1.0928 ms, 1.0794 queued (T=36864); "
               "window_attn_fwd cuda-core fma, operands from shared memory 0.4818 ms, 0.4775 "
-              "queued (eval shape, mean of the masks)")
+              "queued (eval shape, mean of the masks); "
+              "window_attn_bwd[bf16] cuda-core fma, operands from shared memory 0.4311 ms, "
+              "0.4213 queued (T=36864, saved p, mean of the masks)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1477,7 +1515,8 @@ def main(argv: list[str]) -> int:
                           ("f32 data grad", "gemm_dgrad_f32_kernel"),
                           ("f32 weight grad", "gemm_wgrad_f32_kernel"),
                           ("f32 attention backward", "window_attn_bwd_f32_kernel"),
-                          ("f32 attention forward", "window_attn_fwd_f32_kernel")):
+                          ("f32 attention forward", "window_attn_fwd_f32_kernel"),
+                          ("bf16 attention backward", "window_attn_bwd_mma_kernel")):
         print(f"ptxas, {label}: " + " | ".join(
             line.split(" ", 1)[1] for line in report if kernel in line))
 

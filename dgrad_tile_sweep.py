@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Tile sweeps of four GEMM kernels and the f32 attention kernels on one card.
+"""Tile sweeps of four GEMM kernels and three attention kernels on one card.
 
     python3 dgrad_tile_sweep.py                 # bf16 gemm_dgrad, output tile width
     python3 dgrad_tile_sweep.py --fwd-f32       # f32 gemm_bias_epilogue, block tile
@@ -7,6 +7,7 @@
     python3 dgrad_tile_sweep.py --wgrad-f32     # f32 gemm_wgrad, block and thread tile
     python3 dgrad_tile_sweep.py --attn-bwd-f32  # f32 window_attn_bwd, block shape
     python3 dgrad_tile_sweep.py --attn-fwd-f32  # f32 window_attn_fwd, block shape, stages
+    python3 dgrad_tile_sweep.py --attn-bwd-bf16 # bf16 window_attn_bwd, warps, stages, blocks
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
 is 64 rows by ``SEI_DGRAD_TN`` columns of K
@@ -84,6 +85,20 @@ buffer) at the eval shape (one 256x320 image, T = 81920) and at both graphs
 of the f32 step, with and without the shift mask; the block is chosen on
 the sum of one image's forward and one f32 step: 36 SwinBlocks at the eval
 shape and 36 per graph of the step, half of them masked.
+
+With ``--attn-bwd-bf16``: the bf16 ``window_attn_bwd`` tensor-core kernel
+(``sei_tpu_torch/ops/csrc/window_attn_bwd.cu``, ``window_attn_bwd_mma_kernel``),
+its warps per block (4: one window at a time; 8: two teams of 4, each on
+its own window), its stages (three: the next two windows copied during
+this one; two: the next; one) and the blocks per SM it is compiled for (``-DSEI_ATTN_BWD_BF16_WARPS``,
+``_STAGES``, ``_MINB``; the wrapper sizes its groups from the occupancy
+each build reaches).  Each build is held against the plain version
+(``chip_smoke.py``'s bf16 gate) and timed queued, the builds in turns, as
+the bf16 trunk calls it (K7: the forward's saved p; q, k, v strided from
+the qkv buffer, do from the datt buffer, dq, dk, dv into a second qkv
+buffer) at both graphs, with and without the shift mask; the block is
+chosen on the bf16 step's sum: 36 SwinBlocks per graph, half of them
+masked.
 """
 
 from __future__ import annotations
@@ -135,6 +150,14 @@ DEFAULT_ATTN_BWD_F32_BLOCK = (256, 2)
 ATTN_FWD_F32_BLOCKS = ((256, 2, 2, 128), (256, 2, 2, 256), (256, 2, 1, 128), (256, 3, 2, 128),
                        (256, 3, 1, 128), (128, 4, 1, 64), (128, 4, 1, 128))
 DEFAULT_ATTN_FWD_F32_BLOCK = (256, 2, 2, 128)
+# (warps per block, stages, blocks per SM compiled for): 4 warps with three
+# stages (98.3 KB of shared memory: 2 blocks fit an SM; the library's),
+# with two (68.6 KB: 3 fit, registers allowing) at 2 and 3, with one (38.9
+# KB: 5 fit) at 4 and 5; 8 warps (two teams) with two stages (137 KB: 1)
+# and one (77.8 KB: 2)
+ATTN_BWD_BF16_BLOCKS = ((4, 3, 2), (4, 2, 2), (4, 2, 3), (4, 1, 4), (4, 1, 5), (8, 2, 1),
+                        (8, 1, 2))
+DEFAULT_ATTN_BWD_BF16_BLOCK = (4, 3, 2)
 
 
 def main(argv: list[str]) -> int:
@@ -159,6 +182,8 @@ def main(argv: list[str]) -> int:
         return sweep_attn_bwd_f32(smi)
     if "--attn-fwd-f32" in argv:
         return sweep_attn_fwd_f32(smi)
+    if "--attn-bwd-bf16" in argv:
+        return sweep_attn_bwd_bf16(smi)
     return sweep_dgrad_bf16(smi)
 
 
@@ -507,6 +532,64 @@ def sweep_attn_fwd_f32(smi: str) -> int:
               + f"; per image ({cs.BLOCKS} blocks) {image:.2f} ms, per f32 step ({cs.BLOCKS} "
               f"blocks x both graphs) {step:.2f} ms, sum {image + step:.2f} ms queued")
     print(json.dumps({"attn_fwd_f32_sweep": result, "gpu": smi}))
+    return 0
+
+
+def sweep_attn_bwd_bf16(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import attention as at
+
+    default = DEFAULT_ATTN_BWD_BF16_BLOCK
+    builds = build_all({"x".join(map(str, blk)): () if blk == default else tuple(
+        f"SEI_ATTN_BWD_BF16_{k}={v}" for k, v in zip(("WARPS", "STAGES", "MINB"), blk))
+        for blk in ATTN_BWD_BF16_BLOCKS}, "window_attn_bwd_mma_kernel")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bf = torch.bfloat16
+    n, nh, hd, scale = cs.N, cs.NH, cs.HD, cs.HD ** -0.5
+    mask = torch.from_numpy(shift_attn_mask(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)).cuda()
+    bias = torch.randn((nh, n, n), generator=g, device="cuda") * 0.1
+
+    def views(buf):
+        return tuple(buf[:, :, i].transpose(1, 2) for i in range(3))
+
+    # the bf16 step's call per graph and mask, as the trunk makes it; p is
+    # the forward's save from the same views (the library's forward)
+    calls = {}
+    for b in cs.TRAIN_GRAPHS:
+        t = b * cs.CROP * cs.CROP
+        b_ = t // n
+        qkv = torch.randn((b_, n, 3, nh, hd), generator=g, device="cuda").to(bf)
+        do = (torch.randn((b_, n, nh, hd), generator=g, device="cuda") * 0.1).to(bf)
+        do = do.transpose(1, 2)
+        dqkv = torch.empty_like(qkv)
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            p = torch.empty((b_, nh, n, n), device="cuda", dtype=bf)
+            at.window_attn_fwd(*views(qkv), bias, m, scale=scale, p_out=p)
+            calls[f"{variant} T={t}"] = (
+                lambda qkv=qkv, do=do, dqkv=dqkv, m=m, p=p: at.window_attn_bwd(
+                    *views(qkv), bias, m, do, scale=scale, p=p, out=views(dqkv)),
+                at._torch_attention_bwd(*views(qkv), bias, m, do, scale, p))
+
+    def check(blk, variant, call):
+        got = call[0]()
+        for i, (x, y) in enumerate(zip(got, call[1])):
+            cs.compare_bf16(f"window_attn_bwd[bf16 block {blk} {variant}][{i}]", x, y,
+                            (1e-4, 1e-4))
+
+    result = {}
+    for blk, per_call in check_and_time(builds, calls, check).items():
+        per_block = {f"T={b * cs.CROP * cs.CROP}": 0.5 * sum(
+            per_call[f"{v} T={b * cs.CROP * cs.CROP}"] for v in ("no_mask", "shift_mask"))
+            for b in cs.TRAIN_GRAPHS}
+        step = cs.BLOCKS * sum(per_block.values())
+        result[blk] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_block,
+                       "step_queued_ms": step}
+        print(f"block {blk}: per SwinBlock (mean of the masks) "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in per_block.items())
+              + f"; per bf16 step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
+    print(json.dumps({"attn_bwd_bf16_sweep": result, "gpu": smi}))
     return 0
 
 

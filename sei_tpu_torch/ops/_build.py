@@ -45,6 +45,7 @@ _SIGNATURES = {
     "sei_window_attn_fwd_f32_blocks_per_sm": [_I],
     "sei_window_attn_bwd": [_I, _I, *[_P] * 12, _L, *[_I] * 5, *[_L] * 24, _F, _P],
     "sei_window_attn_bwd_f32_blocks_per_sm": [_I, _I],
+    "sei_window_attn_bwd_bf16_blocks_per_sm": [_I],
     "sei_ln_rows_bwd": [_I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _L, _I, _F,
                         *[_I] * 6, _P],
     "sei_gemm_dgrad": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _I, *[_I] * 9, _P],

@@ -34,7 +34,8 @@ Kernel ``window_attn_bwd`` (``csrc/window_attn_bwd.cu``):
     (``with_saved=False``) or read from the forward's save (``p``,
     ``with_saved=True``: no q k^T, no softmax);
   * bound on the H100: ~23 flops per byte of q/k/v/do/dq/dk/dv in f32, at the
-    FP32 ridge again; bytes in bf16;
+    FP32 ridge again; bytes in bf16 (~21 flops per byte against the tensor
+    cores' ridge of 295);
   * design: one block per (head, group of windows), p recomputed with the
     forward's softmax or loaded, dbias summed over the
     group's windows in registers and written as one partial per block; the
@@ -43,7 +44,12 @@ Kernel ``window_attn_bwd`` (``csrc/window_attn_bwd.cu``):
     S, P, dP and dS on 256 threads, the 64x32 products two at a time from
     shared P / dS tiles, each window staged by ``cp.async``; it can also
     write att = P.V from the p it recomputes (``att_out``), so the trunk's
-    f32 recompute backward launches no attention forward.
+    f32 recompute backward launches no attention forward.  bf16
+    (``window_attn_bwd_mma_kernel``, saved or recomputed p): the products
+    on the tensor cores (``mma.sync`` m16n8k16, f32 accumulators), 4 warps
+    of 16 query and key rows each, dS from the accumulators straight into
+    dQ's operand fragments, the next two windows copied by ``cp.async``
+    during this one.
 
 :func:`window_attention` is the differentiable op (a ``torch.autograd.Function``
 whose forward is ``window_attn_fwd`` and whose backward is
@@ -176,7 +182,7 @@ def window_attn_fwd(q, k, v, bias, mask=None, *, scale: float = 1.0, out=None, p
     built = _build.library()
     groups = 0  # bf16: one block per (window, head)
     if cdt == F32:  # one block per (head, group of windows), one wave
-        per_sm = _f32_blocks_per_sm(built, q.device.index, "fwd")
+        per_sm = _blocks_per_sm(built, q.device.index, "fwd_f32")
         groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=per_sm)
     code = built.lib.sei_window_attn_fwd(
         q.device.index, int(cdt == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -241,10 +247,11 @@ def window_attn_bwd(q, k, v, bias, mask, do, *, scale: float = 1.0, out=None, p=
     if n > 64 or hd > 32:
         raise ValueError(f"window_attn_bwd: kernel takes N <= 64, hd <= 32; got {n}, {hd}")
     built = _build.library()
-    if cdt == torch.bfloat16:  # the bf16 kernel: 3 blocks of 128 threads per SM
-        per_sm = 3
-    else:  # as many blocks as the f32 kernel fits on an SM: one wave
-        per_sm = _f32_blocks_per_sm(built, q.device.index, "bwd", int(att_out is not None))
+    # as many blocks as the kernel fits on an SM: one wave
+    if cdt == torch.bfloat16:
+        per_sm = _blocks_per_sm(built, q.device.index, "bwd_bf16")
+    else:
+        per_sm = _blocks_per_sm(built, q.device.index, "bwd_f32", int(att_out is not None))
     groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=per_sm)
     part = torch.empty((groups, nh, n, n), device=q.device, dtype=torch.float32)
     strided = (q, k, v, do, dq, dk, dv, q if att_out is None else att_out)
@@ -263,13 +270,13 @@ window_attn_bwd.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _f32_blocks_per_sm(built: _build.Built, device: int, kernel: str, *args: int) -> int:
-    """Blocks of the f32 ``kernel`` (``"fwd"``, or ``"bwd"`` with or without
-    the att store) that one SM of ``device`` holds, from the CUDA occupancy
-    calculator."""
-    n = getattr(built.lib, f"sei_window_attn_{kernel}_f32_blocks_per_sm")(device, *args)
+def _blocks_per_sm(built: _build.Built, device: int, kernel: str, *args: int) -> int:
+    """Blocks of ``kernel`` (``"fwd_f32"``, ``"bwd_f32"`` with or without the
+    att store, ``"bwd_bf16"``) that one SM of ``device`` holds, from the
+    CUDA occupancy calculator."""
+    n = getattr(built.lib, f"sei_window_attn_{kernel}_blocks_per_sm")(device, *args)
     if n <= 0:
-        raise RuntimeError(f"window_attn_{kernel}: the f32 kernel fits no block on an SM")
+        raise RuntimeError(f"window_attn_{kernel}: the kernel fits no block on an SM")
     return n
 
 

@@ -31,14 +31,58 @@
 // them; it writes one (N, N) partial, which the caller sums (no atomics, so
 // the gradient is the same from run to run).
 //
-// bf16 (window_attn_bwd_kernel<bf16>, K7 with the saved p): a 128-thread
-// block, dbias in registers (thread (j, half) owns column j, rows half,
-// half + 2, ...).  Per window: q, k and do staged in shared memory as f32
-// padded to 32 (+1 column against bank conflicts), the thread's v row in
-// registers, the 64x64 probability tile in shared memory -- loaded from the
-// save, or recomputed with the same max-subtracted f32 softmax as
-// window_attn_fwd -- the rowsum(dp p) reduced with warp shuffles, and ds
-// written over p once dv has read it.
+// bf16 (window_attn_bwd_mma_kernel, K7 with the saved p, and the bf16
+// recompute form) runs its products on the tensor cores, as the TPU kernel
+// runs them on the MXU (sei_tpu/ops/swin_trunk.py:766-789): mma.sync
+// m16n8k16, bf16 operands, f32 accumulators.  Per (window, head) that is
+// 256 mma (four 64x64x32 products), a few microseconds over a launch against
+// ~121 MB of q, k, v, do, p, dq, dk, dv at the step's T = 36864, so the
+// bytes, and how well the kernel keeps them in flight, set its pace:
+// - Block.  4 warps (SEI_ATTN_BWD_BF16_WARPS = 8: two such teams, each on
+//   its own window, dbias summed between them at the end) own one head and
+//   walk the windows of their group.  Warp r owns query rows 16r..16r+15
+//   for dP, dS and dQ, and key rows 16r..16r+15 for dV and dK.  dbias lives
+//   in dS's accumulator layout (32 f32 per thread) across the walk.
+// - Staging.  q, k, v and do as bf16 [64][40] (the head dim zero-padded to
+//   32; an 80-byte pitch puts the eight rows of one ldmatrix in distinct
+//   banks), p as [64][72], every pad a real zero (0 x NaN is NaN in a sum
+//   the tensor cores take over the pad).  Copies are cp.async: q, k, v, do
+//   as bf16 pairs (a head starts at a 60-byte step in the trunk's qkv
+//   buffer: only 4-byte copies always fit), p in 16-byte pieces when
+//   N is a multiple of 8; an odd hd, stride or pointer (VEC = 1), or p at
+//   another N, goes through registers.  A ring of three stages
+//   (SEI_ATTN_BWD_BF16_STAGES, 1-3): the team's next two windows are
+//   copied during this one.
+// - Per window, four products per warp:
+//   1. dP = dO V^T: both fragments from plain ldmatrix (the head dim is
+//      contiguous in dO and V), 8 n-tiles x 2 k-steps.
+//   2. P is read (or, recomputed, held) in dP's accumulator layout: lane l
+//      has rows l/4 and l/4 + 8, columns 2 (l % 4) + {0, 1} of each n8
+//      tile, so rowsum(dP P) is a quad butterfly (__shfl_xor_sync 1, 2).
+//   3. dS = P (dP - rowsum) in f32, added into dbias, rounded to bf16 and
+//      packed straight into the A fragments of dQ = dS K (two adjacent n8
+//      accumulator tiles are one k16 A fragment; K by ldmatrix.trans), and
+//      written to a shared [64][72] dS tile.
+//   4. After one barrier, dV = P^T dO and dK = dS^T Q, every fragment by
+//      ldmatrix.trans (P and dS are stored [i][j], dO and Q [i][d]).
+//   The recompute form first runs S = Q K^T the way dP runs, adds bias[h]
+//   (+ mask[w % nW]) in that layout, takes the max-subtracted f32 softmax
+//   with quad butterflies, keeps the f32 p for dS and writes p rounded to
+//   bf16 to the P tile for dV.
+// - Stores go out of the accumulators as bf16 pairs (4 bytes; a head's
+//   60-byte offset is 4-byte aligned), one element where hd, a stride or a
+//   pointer is odd; columns >= hd and rows >= N are never stored.  scale
+//   multiplies dq and dk in f32 before their one rounding.
+// - Occupancy.  Three stages take 98.3 KB of shared memory, so an SM holds
+//   2 blocks (168 registers, no spill; SEI_ATTN_BWD_BF16_MINB = 2).  Two
+//   blocks per SM beat three on the step's calls: two stages at 3 blocks
+//   ran 3-8% slower, one stage at 4 (128 registers, spills) or 8 warps
+//   (two teams) 1-2%, one stage at 5 (96 registers) 55% (two runs of
+//   dgrad_tile_sweep.py --attn-bwd-bf16).  The wrapper sizes groups from
+//   the kernel's own occupancy (sei_window_attn_bwd_bf16_blocks_per_sm):
+//   one wave of blocks.
+// - The sums run in a fixed order (no atomics), so two launches agree bit
+//   for bit.
 //
 // f32 (window_attn_bwd_f32_kernel, K6's recompute and the f32 saved-p form)
 // is built for the CUDA cores' FP32 pipe, which an SM issues four warp FMAs
@@ -59,7 +103,7 @@
 //   products run side by side on half the block each, a 4 x 4 tile of
 //   outputs per thread (8 x 4 at 128 threads), 2 float4 reads for 16 FMAs;
 //   a lone dq takes the whole block at 4 x 2.  Every output is one FMA chain
-//   in ascending order of its reduction index, as the bf16 kernel's.
+//   in ascending order of its reduction index.
 // - dbias accumulates in the registers of the thread that owns each (i, j)
 //   across the block's windows; the block writes one partial.  bias[h] +
 //   mask[w % nW] is read into registers while the window is staged.  All
@@ -83,182 +127,388 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = AN / 2;  // score rows per thread (half, half + 2, ...)
-
 struct Strides {
   long long w, h, n;  // window, head, token; the head-dim stride is 1
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ bias,
-                       const float* __restrict__ mask, const T* __restrict__ p_saved,
-                       const T* __restrict__ dout, T* __restrict__ dq,
-                       T* __restrict__ dk, T* __restrict__ dv,
-                       float* __restrict__ dbias_part, long long n_windows,
-                       int nh, int N, int hd, int nW, int groups, Strides sq,
-                       Strides sk, Strides sv, Strides sdo, Strides sdq,
-                       Strides sdk, Strides sdv, float scale) {
-  __shared__ float qs[AN][AD + 1];
-  __shared__ float ks[AN][AD + 1];
-  __shared__ float dos[AN][AD + 1];
-  __shared__ float ps[AN][AN + 1];
-  __shared__ float rowdot[2][AN];
+// -- bf16: mma.sync on the tensor cores (see the note at the top) ---------
 
+#ifndef SEI_ATTN_BWD_BF16_WARPS
+#define SEI_ATTN_BWD_BF16_WARPS 4
+#endif
+#ifndef SEI_ATTN_BWD_BF16_STAGES
+#define SEI_ATTN_BWD_BF16_STAGES 3
+#endif
+#ifndef SEI_ATTN_BWD_BF16_MINB
+#define SEI_ATTN_BWD_BF16_MINB 2
+#endif
+
+constexpr int BT = 32 * SEI_ATTN_BWD_BF16_WARPS;  // threads per block
+constexpr int BSLOTS = SEI_ATTN_BWD_BF16_WARPS / 4;  // windows a block takes at once
+constexpr int BSTAGES = SEI_ATTN_BWD_BF16_STAGES;
+constexpr int XP = AD + 8;                  // pitch of a staged q, k, v or do (bf16)
+constexpr int TP = AN + 8;                  // pitch of the P and dS tiles (bf16)
+constexpr int XT = AN * XP;                 // elements of one staged q, k, v or do
+constexpr int TT = AN * TP;                 // elements of one P or dS tile
+constexpr int BSTAGE = 4 * XT + TT;         // q, k, v, do and P of one window
+constexpr int BSLOT = BSTAGES * BSTAGE + TT;  // a team's stages and its dS tile
+constexpr int B_SMEM = BSLOTS * BSLOT * (int)sizeof(bf16);
+static_assert(BSLOTS * 4 == SEI_ATTN_BWD_BF16_WARPS && BSLOTS <= 2, "4 or 8 warps");
+static_assert(BSTAGES >= 1 && BSTAGES <= 3, "one to three stages");
+static_assert(BSTAGE * (int)sizeof(bf16) >= AN * AN * (int)sizeof(float), "dbias exchange");
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ float lo_bf16(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// q, k, v and do of window w, head h into a stage ([4][AN][XP] bf16), and
+// the saved p of (w, h) into its P tile ([AN][TP]); rows >= N, head-dim
+// entries >= hd and p's columns >= N zero.  VEC = 2: bf16 pairs by 4-byte
+// cp.async; VEC = 1: one element at a time through registers.  p16: p by
+// 16-byte cp.async (N a multiple of 8), else through registers.  lt = the
+// thread's index in its team of 128.
+template <int VEC>
+__device__ __forceinline__ void stage_bf16(bf16* st, const bf16* const (&src)[4],
+                                           const Strides (&s)[4], const bf16* p_saved,
+                                           long long w, int h, int nh, int N, int hd, bool p16,
+                                           int lt) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const bf16* base = src[t] + w * s[t].w + h * s[t].h;
+    bf16* dst = st + t * XT;
+    constexpr int PR = AD / VEC;  // copies per row
+    for (int idx = lt; idx < AN * PR; idx += 128) {
+      const int n = idx / PR;
+      const int d = (idx - n * PR) * VEC;
+      const bool ok = n < N && d < hd;
+      if constexpr (VEC == 2)
+        cp_async<4>(dst + n * XP + d, ok ? base + n * s[t].n + d : src[t], ok);
+      else
+        dst[n * XP + d] = ok ? base[n * s[t].n + d] : zero;
+    }
+  }
+  if (!p_saved) return;
+  const bf16* pw = p_saved + (w * nh + h) * N * N;
+  bf16* ps = st + 4 * XT;
+  if (p16) {
+    for (int idx = lt; idx < AN * (AN / 8); idx += 128) {
+      const int r = idx / (AN / 8);
+      const int c = (idx - r * (AN / 8)) * 8;
+      const bool ok = r < N && c < N;
+      cp_async<16>(ps + r * TP + c, ok ? pw + r * N + c : p_saved, ok);
+    }
+  } else {
+    for (int idx = lt; idx < AN * AN; idx += 128) {
+      const int r = idx / AN;
+      const int c = idx - r * AN;
+      ps[r * TP + c] = r < N && c < N ? pw[r * N + c] : zero;
+    }
+  }
+}
+
+// acc (16 rows x 64 columns: 8 n8 tiles) = A B^T over 32 head-dim entries:
+// A's rows r0.. and all 64 rows of B from staged [AN][XP] tiles (plain
+// ldmatrix: the head dim is contiguous in both)
+__device__ __forceinline__ void rows_by_rows(const bf16* A, const bf16* B, int r0, int lane,
+                                             float (&acc)[8][4]) {
+  unsigned a[2][4];
+  const bf16* arow = A + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * XP + (lane >> 4) * 8;
+  ldmatrix_x4(a[0], arow);
+  ldmatrix_x4(a[1], arow + 16);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    unsigned b[4];
+    ldmatrix_x4(b, B + (8 * nt + (lane & 7)) * XP + (lane >> 3) * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    mma_bf16_16816(acc[nt], a[0], b[0], b[1]);
+    mma_bf16_16816(acc[nt], a[1], b[2], b[3]);
+  }
+}
+
+// acc (16 rows x 32 head-dim entries) += T^T X over the 64 rows of a [AN][TP]
+// tile T (its columns r0.. are acc's rows) and a staged [AN][XP] X, every
+// fragment by ldmatrix.trans
+__device__ __forceinline__ void cols_by_rows(const bf16* T, const bf16* X, int r0, int lane,
+                                             float (&acc)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < AN / 16; ++kk) {
+    unsigned a[4];
+    ldmatrix_x4_trans(a, T + (16 * kk + (lane & 7) + (lane >> 4) * 8) * TP + r0 +
+                             ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, X + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * XP + 16 * np +
+                               (lane >> 4) * 8);
+      mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
+      mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows r0 + l/4 (+ 8) and columns 2 (l % 4) (+ 1) of the four n8 tiles of
+// acc, times mul, rounded to bf16 into out[w][h][row][d]; rows >= N and
+// columns >= hd skipped
+template <int VEC>
+__device__ __forceinline__ void store_bf16(bf16* out, const Strides& so, long long w, int h,
+                                           int r0, int lane, const float (&acc)[4][4],
+                                           float mul, int N, int hd) {
+  bf16* base = out + w * so.w + h * so.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = r0 + (lane >> 2) + 8 * half;
+    if (i >= N) continue;
+    bf16* row = base + i * so.n;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int d = 8 * nt + 2 * (lane & 3);
+      if (d >= hd) continue;
+      const float x = acc[nt][2 * half] * mul, y = acc[nt][2 * half + 1] * mul;
+      if constexpr (VEC == 2) {  // hd even: a pair is all in or all out
+        *reinterpret_cast<unsigned*>(row + d) = pack_bf16(x, y);
+      } else {
+        row[d] = __float2bfloat16_rn(x);
+        if (d + 1 < hd) row[d + 1] = __float2bfloat16_rn(y);
+      }
+    }
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(BT, SEI_ATTN_BWD_BF16_MINB)
+window_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const float* __restrict__ bias,
+                            const float* __restrict__ mask, const bf16* __restrict__ p_saved,
+                            const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            float* __restrict__ dbias_part, int n_windows, int nh, int N,
+                            int hd, int nW, int groups, Strides sq, Strides sk, Strides sv,
+                            Strides sdo, Strides sdq, Strides sdk, Strides sdv, float scale,
+                            int p16) {
+  SEI_DYNAMIC_SMEM(bf16, bsmem);  // one name per element type in a source
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int slot = tid / 128;  // this thread's team (window slot)
+  const int lt = tid % 128;
+  const int r0 = 16 * (lt / 32);  // the warp's query rows (dP, dS, dQ) and key rows (dV, dK)
   const int h = blockIdx.x;
   const int grp = blockIdx.y;
-  const int j = tid & (AN - 1);  // this thread's key / score column
-  const int half = tid >> 6;     // score rows half, half + 2, ...
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int d0 = half * (AD / 2);  // this thread's half of the head dim
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* const team = bsmem + slot * BSLOT;
+  bf16* const dss = team + BSTAGES * BSTAGE;  // dS [i][j], bf16
+  const bf16* const src[4] = {q, k, v, dout};
+  const Strides ss[4] = {sq, sk, sv, sdo};
+  const int step = groups * BSLOTS;  // windows between one team's turns
 
-  float dbias[kRows];
+  // dbias[nt][e]: row r0 + g + 8 (e / 2), column 8 nt + 2 t4 + e % 2
+  float dbias[8][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) dbias[r] = 0.f;
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbias[nt][e] = 0.f;
 
-  for (long long w = grp; w < n_windows; w += groups) {
-    const T* qb = q + w * sq.w + h * sq.h;
-    const T* kb = k + w * sk.w + h * sk.h;
-    const T* vb = v + w * sv.w + h * sv.h;
-    const T* db = dout + w * sdo.w + h * sdo.h;
-    __syncthreads();  // the previous window is done with shared memory
-    for (int idx = tid; idx < AN * AD; idx += kThreads) {
-      const int n = idx / AD;
-      const int d = idx - n * AD;
-      const bool ok = n < N && d < hd;
-      qs[n][d] = ok ? to_f(qb[n * sq.n + d]) : 0.f;
-      ks[n][d] = ok ? to_f(kb[n * sk.n + d]) : 0.f;
-      dos[n][d] = ok ? to_f(db[n * sdo.n + d]) : 0.f;
+  // a ring of stages: the windows of the team's next BSTAGES - 1 turns are
+  // in flight (one copy group each) while this turn's computes
+  int s = 0;  // the stage of this turn's window
+#pragma unroll
+  for (int k = 0; k + 1 < BSTAGES; ++k) {
+    const int wk = grp + slot * groups + k * step;
+    if (wk < n_windows)
+      stage_bf16<VEC>(team + k * BSTAGE, src, ss, p_saved, wk, h, nh, N, hd, p16, lt);
+    cp_async_commit();
+  }
+  for (int w0 = grp; w0 < n_windows; w0 += step) {
+    const int w = w0 + slot * groups;
+    const bool active = w < n_windows;  // uniform across the team
+    if constexpr (BSTAGES == 1) {
+      __syncthreads();  // the last turn is done with the stage and the dS tile
+      if (active) stage_bf16<VEC>(team, src, ss, p_saved, w, h, nh, N, hd, p16, lt);
+      cp_async_commit();
     }
-    float vr[AD];
-#pragma unroll
-    for (int d = 0; d < AD; ++d) vr[d] = (j < N && d < hd) ? to_f(vb[j * sv.n + d]) : 0.f;
+    cp_async_wait<(BSTAGES > 1 ? BSTAGES - 2 : 0)>();
+    __syncthreads();  // this window staged; the last turn done with its stage
+    if constexpr (BSTAGES > 1) {
+      const int wn = w + (BSTAGES - 1) * step;
+      if (wn < n_windows)
+        stage_bf16<VEC>(team + (s + BSTAGES - 1) % BSTAGES * BSTAGE, src, ss, p_saved, wn, h,
+                        nh, N, hd, p16, lt);
+      cp_async_commit();
+    }
+    bf16* const st = team + s * BSTAGE;
+    const bf16* const qs = st;
+    const bf16* const ks = st + XT;
+    const bf16* const vs = st + 2 * XT;
+    const bf16* const dos = st + 3 * XT;
+    bf16* const ps = st + 4 * XT;
 
-    if (p_saved) {
-      // the forward's probabilities, a row per warp
-      const T* pw = p_saved + ((w * nh + h) * N) * N;
-      for (int i = warp; i < N; i += kThreads / 32) {
-        if (lane < N) ps[i][lane] = to_f(pw[i * N + lane]);
-        if (lane + 32 < N) ps[i][lane + 32] = to_f(pw[i * N + lane + 32]);
-      }
-      __syncthreads();
-    } else {
-      __syncthreads();
-      // scores, exactly as window_attn_fwd computes them
-      if (j < N) {
-        const float* bcol = bias + (long long)h * N * N + j;
-        const float* mcol = mask ? mask + (w % nW) * N * N + j : nullptr;
-        for (int i = half; i < N; i += 2) {
-          float s = 0.f;
+    if (active) {
+      // P in dP's accumulator layout, f32: saved (bf16), or recomputed
+      float p[8][4];
+      if (p_saved) {
 #pragma unroll
-          for (int d = 0; d < AD; ++d) s = fmaf(qs[i][d], ks[j][d], s);
-          s = s * scale + bcol[i * N];
-          if (mcol) s += mcol[i * N];
-          ps[i][j] = s;
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const unsigned u =
+                *reinterpret_cast<const unsigned*>(ps + (r0 + g + 8 * hf) * TP + 8 * nt + 2 * t4);
+            p[nt][2 * hf] = lo_bf16(u);
+            p[nt][2 * hf + 1] = hi_bf16(u);
+          }
+      } else {
+        // S = Q K^T; then scale, bias[h] (+ mask[w % nW]) and the softmax
+        // of each row over the quad that holds it; -inf outside the window
+        rows_by_rows(qs, ks, r0, lane, p);
+        const float* bh = bias + (long long)h * N * N;
+        const float* mw = mask ? mask + (long long)(w % nW) * N * N : nullptr;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = r0 + g + 8 * hf;
+          float m = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 8 * nt + 2 * t4 + e;
+              float x = -INFINITY;
+              if (i < N && j < N) {
+                x = p[nt][2 * hf + e] * scale + bh[i * N + j];
+                if (mw) x += mw[i * N + j];
+              }
+              p[nt][2 * hf + e] = x;
+              m = fmaxf(m, x);
+            }
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float x = p[nt][2 * hf + e];
+              const float ex = x == -INFINITY ? 0.f : expf(x - m);
+              p[nt][2 * hf + e] = ex;
+              sum += ex;
+            }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ex = p[nt][2 * hf + e];
+              p[nt][2 * hf + e] = ex == 0.f ? 0.f : ex / sum;
+            }
+            // p rounded to bf16, as P.V read it in the forward: dV's operand
+            *reinterpret_cast<unsigned*>(ps + (r0 + g + 8 * hf) * TP + 8 * nt + 2 * t4) =
+                pack_bf16(p[nt][2 * hf], p[nt][2 * hf + 1]);
+          }
         }
       }
-      __syncthreads();
-      for (int i = warp; i < N; i += kThreads / 32) {
-        const float a = lane < N ? ps[i][lane] : -INFINITY;
-        const float b = lane + 32 < N ? ps[i][lane + 32] : -INFINITY;
-        const float m = warp_max(fmaxf(a, b));
-        const float ea = lane < N ? expf(a - m) : 0.f;
-        const float eb = lane + 32 < N ? expf(b - m) : 0.f;
-        const float sum = warp_sum(ea + eb);
-        if (lane < N) ps[i][lane] = ea / sum;
-        if (lane + 32 < N) ps[i][lane + 32] = eb / sum;
-      }
-      __syncthreads();
-    }
 
-    // dp = do v^T (registers) and the row sums of dp * p
-    float dp[kRows];
+      // dP = dO V^T, rowsum(dP P) over each row's quad, dS = P (dP - rowsum)
+      float ds[8][4];
+      rows_by_rows(dos, vs, r0, lane, ds);
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = half + 2 * r;
-      float t = 0.f;
-      dp[r] = 0.f;
-      if (i < N) {  // uniform across the warp
-        if (j < N) {
-          float acc = 0.f;
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-          for (int d = 0; d < AD; ++d) acc = fmaf(dos[i][d], vr[d], acc);
-          dp[r] = acc;
-          t = ps[i][j] * acc;
+        for (int e = 0; e < 4; ++e) rs[e >> 1] += ds[nt][e] * p[nt][e];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 1);
+        rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 2);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ds[nt][e] = p[nt][e] * (ds[nt][e] - rs[e >> 1]);
+          dbias[nt][e] += ds[nt][e];
         }
-        t = warp_sum(t);
-        if (lane == 0) rowdot[warp & 1][i] = t;
-      }
-    }
 
-    // dv_j = sum_i p_T,ij do_i, this thread's half of the head dim
-    if (j < N) {
-      float acc[AD / 2];
+      // dS rounded to bf16: into the dS tile (for dK), and as the A
+      // fragments of dQ = dS K (n8 tiles 2 kk and 2 kk + 1 are k-step kk)
+      float acc[4][4];
 #pragma unroll
-      for (int dd = 0; dd < AD / 2; ++dd) acc[dd] = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float p = round_as<T>(ps[i][j]);
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int dd = 0; dd < AD / 2; ++dd) acc[dd] = fmaf(p, dos[i][d0 + dd], acc[dd]);
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < AN / 16; ++kk) {
+        unsigned a[4];
+        a[0] = pack_bf16(ds[2 * kk][0], ds[2 * kk][1]);
+        a[1] = pack_bf16(ds[2 * kk][2], ds[2 * kk][3]);
+        a[2] = pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
+        a[3] = pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
+        bf16* drow = dss + (r0 + g) * TP + 16 * kk + 2 * t4;
+        *reinterpret_cast<unsigned*>(drow) = a[0];
+        *reinterpret_cast<unsigned*>(drow + 8 * TP) = a[1];
+        *reinterpret_cast<unsigned*>(drow + 8) = a[2];
+        *reinterpret_cast<unsigned*>(drow + 8 * TP + 8) = a[3];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, ks + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * XP +
+                                   16 * np + (lane >> 4) * 8);
+          mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
+          mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
+        }
       }
-      T* out = dv + w * sdv.w + h * sdv.h + j * sdv.n;
-#pragma unroll
-      for (int dd = 0; dd < AD / 2; ++dd)
-        if (d0 + dd < hd) out[d0 + dd] = from_f<T>(acc[dd]);
+      store_bf16<VEC>(dq, sdq, w, h, r0, lane, acc, scale, N, hd);
     }
-    __syncthreads();  // rowdot complete; every read of p done
+    __syncthreads();  // the P and dS tiles complete
 
-    // ds = p (dp - rowsum), over p in shared memory; dbias accumulates the
-    // f32 ds, dq and dk read it rounded to T
+    if (active) {
+      // dV = P^T dO and dK = dS^T Q over the window's 64 query rows
+      float acc[4][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = half + 2 * r;
-      if (i < N && j < N) {
-        const float ds = ps[i][j] * (dp[r] - (rowdot[0][i] + rowdot[1][i]));
-        ps[i][j] = round_as<T>(ds);
-        dbias[r] += ds;
-      }
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      cols_by_rows(ps, dos, r0, lane, acc);
+      store_bf16<VEC>(dv, sdv, w, h, r0, lane, acc, 1.f, N, hd);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      cols_by_rows(dss, qs, r0, lane, acc);
+      store_bf16<VEC>(dk, sdk, w, h, r0, lane, acc, scale, N, hd);
     }
+    s = s + 1 == BSTAGES ? 0 : s + 1;
+  }
+
+  // two teams: the second hands its dbias to the first through shared
+  // memory (its own stages, f32 [AN][AN]), which adds it to its own
+  if constexpr (BSLOTS == 2) {
+    float* red = reinterpret_cast<float*>(bsmem + BSLOT);
     __syncthreads();
-
-    // dk_j = scale sum_i ds_ij q_i
-    if (j < N) {
-      float acc[AD / 2];
+    if (slot == 1)
 #pragma unroll
-      for (int dd = 0; dd < AD / 2; ++dd) acc[dd] = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float s = ps[i][j];
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int dd = 0; dd < AD / 2; ++dd) acc[dd] = fmaf(s, qs[i][d0 + dd], acc[dd]);
-      }
-      T* out = dk + w * sdk.w + h * sdk.h + j * sdk.n;
+        for (int e = 0; e < 4; ++e)
+          red[(r0 + g + 8 * (e >> 1)) * AN + 8 * nt + 2 * t4 + (e & 1)] = dbias[nt][e];
+    __syncthreads();
+    if (slot == 1) return;
 #pragma unroll
-      for (int dd = 0; dd < AD / 2; ++dd)
-        if (d0 + dd < hd) out[d0 + dd] = from_f<T>(acc[dd] * scale);
-    }
-    // dq_i = scale sum_j ds_ij k_j, a warp per row, a lane per head-dim entry
-    if (lane < hd) {
-      T* out = dq + w * sdq.w + h * sdq.h;
-      for (int i = warp; i < N; i += kThreads / 32) {
-        float acc = 0.f;
-        for (int jj = 0; jj < N; ++jj) acc = fmaf(ps[i][jj], ks[jj][lane], acc);
-        out[i * sdq.n + lane] = from_f<T>(acc * scale);
-      }
-    }
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dbias[nt][e] += red[(r0 + g + 8 * (e >> 1)) * AN + 8 * nt + 2 * t4 + (e & 1)];
   }
-
-  if (j < N) {
-    float* part = dbias_part + ((long long)grp * nh + h) * N * N + j;
+  float* part = dbias_part + ((long long)grp * nh + h) * N * N;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = half + 2 * r;
-      if (i < N) part[i * N] = dbias[r];
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e >> 1), j = 8 * nt + 2 * t4 + (e & 1);
+      if (i < N && j < N) part[i * N + j] = dbias[nt][e];
     }
-  }
 }
 
 // -- f32: register micro-tiles on the CUDA cores (see the note at the top) --
@@ -417,8 +667,8 @@ window_attn_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict_
       window_softmax(p, bm, scale);
     }
 
-    // dP = do v^T, then dS = P (dP - rowsum(dP P)) in place, the row sums
-    // in the bf16 kernel's order (columns < 32, then >= 32)
+    // dP = do v^T, then dS = P (dP - rowsum(dP P)) in place, each row sum
+    // over columns < 32, then >= 32
     float ds[FRA][4];
 #pragma unroll
     for (int r = 0; r < FRA; ++r)
@@ -559,6 +809,36 @@ cudaError_t launch_f32(cudaStream_t s, const AttnBwdArgs& a) {
   return vec2 ? launch_f32_vec<2, false>(s, a) : launch_f32_vec<1, false>(s, a);
 }
 
+template <int VEC>
+cudaError_t launch_bf16_vec(cudaStream_t s, const AttnBwdArgs& a) {
+  const auto kernel = window_attn_bwd_mma_kernel<VEC>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B_SMEM);
+  if (err != cudaSuccess) return err;
+  const bool p16 = a.p_saved && a.N % 8 == 0 && (size_t)a.p_saved % 16 == 0;
+  SEI_LAUNCH_SMEM(dim3(a.nh, a.groups), BT, B_SMEM, s, kernel)(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.bias, a.mask, static_cast<const bf16*>(a.p_saved),
+      static_cast<const bf16*>(a.dout), static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.dbias_part, (int)a.n_windows, a.nh, a.N, a.hd, a.nW, a.groups,
+      a.sq, a.sk, a.sv, a.sdo, a.sdq, a.sdk, a.sdv, a.scale, (int)p16);
+  return cudaGetLastError();
+}
+
+// bf16 pairs by 4-byte copies and stores where hd, every stride and every
+// pointer allow them, else one element
+cudaError_t launch_bf16(cudaStream_t s, const AttnBwdArgs& a) {
+  if (a.n_windows == 0) return cudaSuccess;
+  if (a.n_windows > INT_MAX) return cudaErrorInvalidValue;
+  bool vec2 = a.hd % 2 == 0;
+  for (const Strides* t : {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv})
+    vec2 = vec2 && even(*t);
+  for (const void* ptr : {a.q, a.k, a.v, a.dout, (const void*)a.dq, (const void*)a.dk,
+                          (const void*)a.dv})
+    vec2 = vec2 && (size_t)ptr % 4 == 0;
+  return vec2 ? launch_bf16_vec<2>(s, a) : launch_bf16_vec<1>(s, a);
+}
+
 }  // namespace
 
 extern "C" int sei_window_attn_bwd(
@@ -589,12 +869,9 @@ extern "C" int sei_window_attn_bwd(
     return (int)launch_f32(s, AttnBwdArgs{q, k, v, bias, mask, p_saved, dout, dq, dk, dv, att,
                                           dbias_part, n_windows, nh, N, hd, nW, groups, sq, sk,
                                           sv, sdo, sdq, sdk, sdv, sat, scale});
-  SEI_LAUNCH(dim3(nh, groups), kThreads, s, window_attn_bwd_kernel<bf16>)(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, mask, static_cast<const bf16*>(p_saved), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), dbias_part,
-      n_windows, nh, N, hd, nW, groups, sq, sk, sv, sdo, sdq, sdk, sdv, scale);
-  return (int)cudaGetLastError();
+  return (int)launch_bf16(s, AttnBwdArgs{q, k, v, bias, mask, p_saved, dout, dq, dk, dv, att,
+                                        dbias_part, n_windows, nh, N, hd, nW, groups, sq, sk,
+                                        sv, sdo, sdq, sdk, sdv, sat, scale});
 }
 
 // blocks of the f32 kernel one SM holds (the wrapper sizes its groups by it)
@@ -607,6 +884,19 @@ extern "C" int sei_window_attn_bwd_f32_blocks_per_sm(int device, int with_att) {
     return 0;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, FT, F_SMEM) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+// blocks of the bf16 kernel one SM holds (the wrapper sizes its groups by it)
+extern "C" int sei_window_attn_bwd_bf16_blocks_per_sm(int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return 0;
+  const auto kernel = window_attn_bwd_mma_kernel<2>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B_SMEM) !=
+      cudaSuccess)
+    return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BT, B_SMEM) != cudaSuccess)
     return 0;
   return blocks;
 }

@@ -81,7 +81,7 @@ __device__ __forceinline__ void window_softmax(float (&p)[FRA][4], const float (
     float e[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) e[c] = p[r][c] == -INFINITY ? 0.f : expf(p[r][c] - m);
-    // the bf16 kernel's lane l holds columns l and l + 32, and its first
+    // the bf16 forward kernel's lane l holds columns l and l + 32, and its first
     // butterfly step adds lanes l and l + 16
     float sum = (e[0] + e[2]) + (e[1] + e[3]);
 #pragma unroll

@@ -1,21 +1,26 @@
-"""Run a CUDA source's f32 kernels on the CPU: their index logic, not their timing.
+"""Run a CUDA source's kernels on the CPU: their index logic, not their timing.
 
 A source under ``sei_tpu_torch/ops/csrc`` is compiled as it is by the host's
-``g++`` against a small stub of the CUDA features the f32 kernels use
+``g++`` against a small stub of the CUDA features the kernels use
 (:data:`STUB`, written as ``cuda_runtime.h``): each CUDA thread of a block
 runs as a ``std::thread`` (the blocks one after another, so ``__shared__``
-arrays are plain statics and dynamic shared memory one NaN-filled buffer),
-``__syncthreads`` is a barrier, ``__shfl_xor_sync`` an exchange between the
-32 threads of a warp at a barrier of their own, ``cp.async`` a synchronous
-copy (zero-filled where the kernel asks for none), the card has 132 SMs
-that hold one block of any kernel each, and ``float4``, ``erff``, ``expf``
-and ``INFINITY`` come from the host.  Without ``__CUDACC__`` the
-sources leave out their tensor-core kernels, whose entry points then refuse.
+arrays are plain statics and dynamic shared memory one buffer, filled before
+each block with the word ``0x7FC07FC0``, a NaN whether read as f32 or as
+either bf16 half), ``__syncthreads`` is a barrier, ``__shfl_xor_sync`` an
+exchange between the 32 threads of a warp at a barrier of their own,
+``ldmatrix_x4``, ``ldmatrix_x4_trans`` and ``mma_bf16_16816`` the same
+exchange of row addresses or fragment registers, gathered by the PTX
+layouts (the mma sums exact bf16 products in f32), ``cp.async`` a
+synchronous copy (zero-filled where the kernel asks for none), the card
+has 132 SMs that hold one block of any kernel each, and ``float4``,
+``erff``, ``expf`` and ``INFINITY`` come from the host.  Without
+``__CUDACC__`` the GEMM sources leave out their tensor-core kernels, whose
+entry points then refuse.
 The shared library is loaded with ``ctypes`` in a subprocess (a fault there
 fails the test instead of the worker), called on inputs from an ``.npz``
 file, and its outputs come back in another.  This checks a kernel's tiling,
-staging, masks and strides, not the GPU compiler: ``tests/test_torch_gpu.py``
-and ``chip_smoke.py`` do that on the card.
+staging, fragment layouts, masks and strides, not the GPU compiler:
+``tests/test_torch_gpu.py`` and ``chip_smoke.py`` do that on the card.
 """
 
 from __future__ import annotations
@@ -34,8 +39,8 @@ CSRC = _build.CSRC
 TIMEOUT_S = 120
 
 STUB = r"""
-// Host stand-ins for the CUDA features of the f32 kernels (one block at a
-// time, one std::thread per CUDA thread)
+// Host stand-ins for the CUDA features of the kernels (one block at a time,
+// one std::thread per CUDA thread)
 #pragma once
 #include <math.h>
 #include <stddef.h>
@@ -83,6 +88,12 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   memcpy(&u, &f, 4);
   u += 0x7fffu + ((u >> 16) & 1u);
   return {uint16_t(u >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.bits; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
 }
 
 typedef int cudaError_t;
@@ -159,18 +170,89 @@ inline V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   return out;
 }
 
-// dynamic shared memory: one buffer for the block that runs, NaN-filled at
-// each launch so that a read of an element no thread wrote shows
+// dynamic shared memory: one buffer for the block that runs, filled before
+// each block with the word 0x7FC07FC0, a NaN read as one f32 or as either
+// bf16 half, so that a read of an element no thread wrote shows
 inline std::vector<float4> sei_dynamic_smem;
+inline void sei_dynamic_smem_fill() {
+  const uint32_t word = 0x7FC07FC0u;
+  for (float4& v : sei_dynamic_smem) {
+    memcpy(&v.x, &word, 4);
+    memcpy(&v.y, &word, 4);
+    memcpy(&v.z, &word, 4);
+    memcpy(&v.w, &word, 4);
+  }
+}
 #define SEI_DYNAMIC_SMEM(type, name) \
   type* name = reinterpret_cast<type*>(sei_dynamic_smem.data())
 
-// the tensor-core paths are not emulated
-[[noreturn]] inline void sei_not_emulated() { abort(); }
-inline void ldmatrix_x4(unsigned (&)[4], const void*) { sei_not_emulated(); }
-inline void ldmatrix_x4_trans(unsigned (&)[4], const void*) { sei_not_emulated(); }
-inline void mma_bf16_16816(float (&)[4], const unsigned (&)[4], unsigned, unsigned) {
-  sei_not_emulated();
+// The tensor-core building blocks of common.cuh, from the PTX ISA's
+// fragment layouts, on the same warp exchange: each lane posts its row
+// address (ldmatrix) or its fragment registers (mma) in a slot of its own,
+// the warp meets at its barrier, each lane gathers what the layout gives it,
+// and the warp meets again before a slot is reused.
+struct SeiFrags {
+  uint32_t slot[32][32][6];
+};
+inline SeiFrags sei_frags;
+
+inline uint16_t sei_b16(const void* row, int col) {
+  uint16_t v;
+  memcpy(&v, static_cast<const char*>(row) + 2 * col, 2);
+  return v;
+}
+
+// ldmatrix .x4 (.trans): lane l names row l % 8 of matrix l / 8 (16 bytes);
+// r[m] of lane l is elements (l / 4, 2 (l % 4) + j) of matrix m, j = 0, 1,
+// low half first (trans: elements (2 (l % 4) + j, l / 4))
+inline void sei_ldmatrix(unsigned (&r)[4], const void* smem, bool trans) {
+  const unsigned warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  memcpy(&sei_warps.slot[warp][lane], &smem, sizeof(smem));
+  sei_warps.bar[warp].wait();
+  for (int m = 0; m < 4; ++m) {
+    uint16_t e[2];
+    for (int j = 0; j < 2; ++j) {
+      const int row = trans ? 2 * (lane % 4) + j : lane / 4, col = trans ? lane / 4 : 2 * (lane % 4) + j;
+      const void* addr;
+      memcpy(&addr, &sei_warps.slot[warp][8 * m + row], sizeof(addr));
+      e[j] = sei_b16(addr, col);
+    }
+    r[m] = uint32_t(e[0]) | (uint32_t(e[1]) << 16);
+  }
+  sei_warps.bar[warp].wait();
+}
+inline void ldmatrix_x4(unsigned (&r)[4], const void* smem) { sei_ldmatrix(r, smem, false); }
+inline void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) { sei_ldmatrix(r, smem, true); }
+
+inline float sei_bf(uint32_t reg, int j) { return __uint_as_float(j ? reg & 0xffff0000u : reg << 16); }
+
+// mma.m16n8k16 bf16, f32 accumulators: A 16x16 row-major (lane l: a[0] row
+// l/4, columns 2 (l%4) + j; a[1] row l/4 + 8; a[2], a[3] the same 8 columns
+// on), B 16x8 col-major (b0: rows 2 (l%4) + j, column l/4; b1: rows 8 on),
+// d[e]: row l/4 + 8 (e / 2), column 2 (l%4) + e % 2.  Products of bf16 are
+// exact in f32; the sum runs over k in ascending order.
+inline void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  const unsigned warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* mine = sei_frags.slot[warp][lane];
+  memcpy(mine, a, 16);
+  mine[4] = b0;
+  mine[5] = b1;
+  sei_warps.bar[warp].wait();
+  for (int e = 0; e < 4; ++e) {
+    const int row = lane / 4 + 8 * (e / 2), col = 2 * (lane % 4) + e % 2;
+    float acc = d[e];
+    for (int kk = 0; kk < 16; ++kk) {
+      // A (row, kk): lane 4 (row % 8) + (kk % 8) / 2, register (kk / 8) * 2 + row / 8
+      const uint32_t* la = sei_frags.slot[warp][4 * (row % 8) + (kk % 8) / 2];
+      const float x = sei_bf(la[(kk / 8) * 2 + row / 8], kk % 2);
+      // B (kk, col): lane 4 col + (kk % 8) / 2, register b0 or b1
+      const uint32_t* lb = sei_frags.slot[warp][4 * col + (kk % 8) / 2];
+      const float y = sei_bf(lb[4 + kk / 8], kk % 2);
+      acc += x * y;
+    }
+    d[e] = acc;
+  }
+  sei_warps.bar[warp].wait();
 }
 
 template <typename... P>
@@ -181,6 +263,7 @@ auto sei_host_launch(dim3 grid, dim3 block, void (*kernel)(P...)) {
     for (unsigned bz = 0; bz < grid.z; ++bz)
       for (unsigned by = 0; by < grid.y; ++by)
         for (unsigned bx = 0; bx < grid.x; ++bx) {
+          sei_dynamic_smem_fill();
           sei_barrier.n = block.x;
           std::vector<std::thread> threads;
           for (unsigned t = 0; t < block.x; ++t)
@@ -194,10 +277,7 @@ auto sei_host_launch(dim3 grid, dim3 block, void (*kernel)(P...)) {
   };
 }
 #define SEI_LAUNCH(grid, block, stream, ...) ((void)(stream), sei_host_launch(grid, block, __VA_ARGS__))
-inline void sei_dynamic_smem_alloc(size_t bytes) {
-  const float nan = NAN;
-  sei_dynamic_smem.assign((bytes + 15) / 16, float4{nan, nan, nan, nan});
-}
+inline void sei_dynamic_smem_alloc(size_t bytes) { sei_dynamic_smem.resize((bytes + 15) / 16); }
 #define SEI_LAUNCH_SMEM(grid, block, smem, stream, ...) \
   ((void)(stream), sei_dynamic_smem_alloc(smem), sei_host_launch(grid, block, __VA_ARGS__))
 """

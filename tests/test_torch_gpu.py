@@ -21,7 +21,9 @@ head dims and offsets, and repeats bit for bit; the f32 attention forward
 (the backward's register tiles) at the trunk's calls on both graphs, equal
 to the backward's att bit for bit, with its f32 probability save, on odd
 head dims and offsets, at window counts below and not divided by its
-groups, and repeats bit for bit.
+groups, and repeats bit for bit; the bf16 attention backward (tensor
+cores) in both forms at N 16, 49, 64, hd 8, 17, 30, 32, both masks, odd
+strides, the bf16 trunk's views at both graphs, and repeats bit for bit.
 Small and ragged shapes (M, K, N not multiples of the tiles; C = 16 and 256;
 windows of 16 tokens, hd 8; window counts that are not multiples of the
 partial count) that the flagship checks in ``chip_smoke.py`` do not reach.
@@ -793,6 +795,91 @@ def test_window_attn_bwd_saved_p(gpu, dtype, saved):
     want = at._torch_attention_bwd(q, k, v, bias, mask, do, 1.5, p)
     for x, y in zip(got, want):
         (_close_bf16 if dtype == BF16 else lambda a, b_: _close(a, b_, 1e-4))(x, y)
+
+
+# bf16 window_attn_bwd on the tensor cores (mma.sync, 4 warps of 16 rows,
+# two cp.async stages): both forms at the kernel's edges (N < 64: p's rows
+# not 16-byte pieces at N = 49; hd 8, 17, 30, 32; both masks), odd strides
+# (the one-element path), the bf16 trunk's views at both graphs, and two
+# launches bit for bit
+def _bf16_attn_case(g, b_, n, hd, nh=3, nw=6):
+    q, k, v, do = (_bf(g, b_, nh, n, hd, s=s) for s in (hd ** -0.5, 1, 1, 1))
+    bias = _rnd(g, nh, n, n, s=0.1)
+    mask = (torch.rand((nw, n, n), generator=g, device="cuda") > 0.8).float() * -100.0
+    return q, k, v, do, bias, mask
+
+
+def _saved_p(q, k, v, bias, mask, scale):
+    p = torch.empty(*q.shape[:3], q.shape[2], device="cuda", dtype=BF16)
+    at.window_attn_fwd(q, k, v, bias, mask, scale=scale, p_out=p)
+    return p
+
+
+@pytest.mark.parametrize("n,hd", [(64, 30), (64, 32), (64, 8), (49, 30), (49, 17), (16, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("saved", [False, True])
+def test_window_attn_bwd_bf16_edges(gpu, n, hd, masked, saved):
+    q, k, v, do, bias, mask = _bf16_attn_case(gpu, 30, n, hd)
+    m = mask if masked else None
+    p = _saved_p(q, k, v, bias, m, 1.5) if saved else None
+    before = at.window_attn_bwd.launches
+    got = at.window_attn_bwd(q, k, v, bias, m, do, scale=1.5, p=p)
+    assert at.window_attn_bwd.launches == before + 1
+    for x, y in zip(got, at._torch_attention_bwd(q, k, v, bias, m, do, 1.5, p)):
+        _close_bf16(x, y)
+
+
+@pytest.mark.parametrize("n,hd,offset", [(64, 30, 1), (64, 15, 0), (49, 17, 1), (16, 7, 1)])
+@pytest.mark.parametrize("saved", [False, True])
+def test_window_attn_bwd_bf16_odd_strides(gpu, n, hd, offset, saved):
+    """An odd head dim or views at an odd element offset cannot take bf16
+    pairs: the kernel loads and stores element by element."""
+    b_, nh = 30, 3
+    size = b_ * nh * n * hd
+
+    def view(s=1.0):
+        return (_bf(gpu, size + offset, s=s)[offset:]).view(b_, nh, n, hd)
+
+    q, k, v, do = view(hd ** -0.5), view(), view(), view()
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((6, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    p = _saved_p(q, k, v, bias, mask, 1.5) if saved else None
+    dq, dk, dv = view(), view(), view()
+    got = at.window_attn_bwd(q, k, v, bias, mask, do, scale=1.5, p=p, out=(dq, dk, dv))
+    for x, y in zip(got, at._torch_attention_bwd(q, k, v, bias, mask, do, 1.5, p)):
+        _close_bf16(x, y)
+
+
+@pytest.mark.parametrize("b_", [576, 288])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("saved", [False, True])
+def test_window_attn_bwd_bf16_trunk_views(gpu, b_, masked, saved):
+    """The bf16 trunk's call at both graphs of the step: q, k, v strided
+    from the (B_, N, 3, nh, hd) qkv buffer, do from the (B_, N, nh, hd)
+    datt buffer, dq, dk, dv into a second qkv-shaped buffer, which keeps
+    its NaN fill nowhere."""
+    qkv, do, bias, mask = _attn_trunk_case(gpu, b_)
+    qkv, do = qkv.to(BF16), do.to(BF16)
+    m = mask if masked else None
+    p = _saved_p(*_views(qkv), bias, m, 30 ** -0.5) if saved else None
+    dqkv = torch.full_like(qkv, float("nan"))
+    got = at.window_attn_bwd(*_views(qkv), bias, m, do, scale=30 ** -0.5, out=_views(dqkv), p=p)
+    for x, y in zip(got, at._torch_attention_bwd(*_views(qkv), bias, m, do, 30 ** -0.5, p)):
+        _close_bf16(x, y)
+    assert not torch.isnan(dqkv).any()
+
+
+@pytest.mark.parametrize("saved", [False, True])
+def test_window_attn_bwd_bf16_repeats_bit_for_bit(gpu, saved):
+    """Sums in a fixed order and dbias partials without atomics: two calls
+    on the same inputs agree exactly."""
+    qkv, do, bias, mask = _attn_trunk_case(gpu, 144)
+    qkv, do = qkv.to(BF16), do.to(BF16)
+    p = _saved_p(*_views(qkv), bias, mask, 30 ** -0.5) if saved else None
+    runs = [at.window_attn_bwd(*_views(qkv), bias, mask, do, scale=30 ** -0.5, p=p)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 # bf16 runs on the tensor cores (mma.sync; dy staged through registers, w

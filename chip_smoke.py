@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the whole run (needs one CUDA GPU)
     python3 chip_smoke.py --quick    # build + kernel checks only, no timing
+    python3 chip_smoke.py --bits DIR # the attention outputs' digests of the port in DIR
 
 1. Prints the card (nvidia-smi name and power limit), the torch version, and
    builds the CUDA kernels from ``sei_tpu_torch/ops/csrc`` into
@@ -23,10 +24,16 @@
    strided from the qkv buffer, the output into the proj buffer; SDPA on
    the same views as its library call), and the script prints whether its
    output equals the backward's ``att_out`` bit for bit.  The bf16
-   attention backward (K7, the saved p) is checked and timed contiguous and
-   as the bf16 trunk calls it at both graphs (q, k, v strided from a
-   (T, 540) qkv buffer, do from the (B_, N, nh, hd) datt buffer, dq, dk, dv
-   into a second (T, 540) buffer).
+   attention forward (K5, the p store) and backward (K7, the saved p) are
+   checked and timed contiguous and as the bf16 trunk calls them at both
+   graphs (q, k, v strided from a (T, 540) qkv buffer, the forward's
+   output into the (B_, N, nh, hd) att buffer, do from the datt buffer, dq,
+   dk, dv into a second (T, 540) buffer), and the backward's dv from its
+   recompute form must equal its dv from the forward's p_out bit for bit
+   (both kernels take p from one softmax).  Then SHA-256 digests of the
+   attention backward's outputs and the f32 forward's on seeded inputs
+   (``--bits DIR`` prints them alone for the port in DIR, so two trees can
+   be compared in one run).
 3. Eval path: ``get_model`` (flagship SwinIR, weights from seed 0) ->
    ``get_physics`` (deblurring, Gaussian_R2, noise 5) -> ``evaluate`` on 4
    seeded 256x320 images; checks the kernels' launch counts, the metrics,
@@ -55,8 +62,9 @@
 7. Prints the kernel table as one JSON line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit != 0).
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
-   the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue``, ``gemm_dgrad`` and
-   ``window_attn_bwd``, CUDA-core FMAs for the rest; the f32
+   the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue``, ``gemm_dgrad``,
+   ``window_attn_bwd`` and ``window_attn_fwd``, CUDA-core FMAs for the
+   rest; the f32
    ``gemm_bias_epilogue`` in 8x6
    register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
    register tiles fed through registers, the f32 ``gemm_wgrad`` in 8x6
@@ -683,6 +691,34 @@ def check_bf16_kernels(timed: bool) -> dict:
             saved[variant] = p
             del got, p_p, full
 
+            # as the bf16 trunk calls it (swin_trunk.py, _attention): q, k, v
+            # strided from its (T, 540) qkv buffer, the output into the
+            # transposed (B_, N, nh, hd) att buffer, p saved
+            qkv = rnd(b_, N, 3, NH, HD)
+            views = tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+            att = torch.empty(b_, N, NH, HD, device=dev, dtype=bf)
+            tp, tp_p = (torch.empty(b_, NH, N, N, device=dev, dtype=bf) for _ in range(2))
+            scale = HD ** -0.5
+
+            def trunk_fwd(m=m, views=views, att=att, tp=tp, sc=scale):
+                return at.window_attn_fwd(*views, bias, m, scale=sc, out=att.transpose(1, 2),
+                                          p_out=tp)
+
+            errs = cmp_all(f"window_attn_fwd[bf16 {variant} p_store trunk_views T={t}]",
+                           [trunk_fwd(), tp],
+                           [at._torch_attention(*views, bias, m, scale, tp_p), tp_p])
+            full = (bias[None] if m is None else
+                    (bias[None] + m[:, None]).repeat(b_ // m.shape[0], 1, 1, 1)).expand(
+                        b_, NH, N, N).to(bf)
+            record("window_attn_fwd", f"{variant} p_store trunk_views T={t}", errs, trunk_fwd,
+                   lambda m=m, views=views, tp_p=tp_p, sc=scale: at._torch_attention(
+                       *views, bias, m, sc, tp_p),
+                   lambda views=views, full=full, sc=scale: F.scaled_dot_product_attention(
+                       *views, attn_mask=full, scale=sc),
+                   4.0 * b_ * NH * N * N * HD,
+                   nb(q, kt, v, q, tp, bias) + (nb(m) if m is not None else 0.0), 0)
+            del qkv, views, att, tp, tp_p, full
+
         # data-grad products, in the order one block's backward runs them
         for variant, kk, nn, dy_dtype, out_dtype, scale, wmap, with_gp in (
                 ("fc2_saved_gelu_grad", CH, C, bf, f32, dpm, None, True),
@@ -760,6 +796,18 @@ def check_bf16_kernels(timed: bool) -> dict:
             outs = trunk()
             errs = cmp_all(f"window_attn_bwd[bf16 {variant} saved_p trunk_views T={t}]", outs,
                            at._torch_attention_bwd(*views, bias, m, dov, scale, tp))
+            # the forward's p is the backward's recompute of it: dv from the
+            # recompute form equals dv from the forward's p_out, bit for bit
+            dv_recompute = at.window_attn_bwd(*views, bias, m, dov, scale=scale)[2]
+            torch.cuda.synchronize()
+            same = torch.equal(outs[2], dv_recompute)
+            print(f"  window_attn_bwd[bf16 {variant} trunk_views T={t}] dv, recompute form "
+                  f"against the forward's p_out: bit for bit {same} (max |d| "
+                  f"{float((outs[2].float() - dv_recompute.float()).abs().max()):.3e}) -> "
+                  f"{'ok' if same else 'FAIL'}")
+            if not same:
+                fail("the bf16 forward's p differs from the backward's recompute of it")
+            del dv_recompute
             record("window_attn_bwd", f"{variant} saved_p trunk_views T={t}", errs, trunk,
                    lambda m=m, views=views, dov=dov, tp=tp: at._torch_attention_bwd(
                        *views, bias, m, dov, scale, tp),
@@ -786,6 +834,47 @@ def check_bf16_kernels(timed: bool) -> dict:
                    12.0 * t * C, nb(x, dz, dres, outs[0], gamma) + 8.0 * C, 1 if main else 0)
             del dz, dres, outs
     return rows
+
+
+def attention_bits() -> None:
+    """SHA-256 of the attention backward's outputs (dq, dk, dv, dbias) and
+    of the f32 forward's on seeded inputs as the trunk lays them out, at T =
+    36864, f32 and bf16, both masks, both forms (p recomputed; p saved, the
+    plain version's); the same lines from two trees in one run say whether
+    those outputs moved by a bit."""
+    import hashlib
+
+    import torch
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import attention as at
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    b_, scale = TRAIN_GRAPHS[0] * CROP * CROP // N, HD ** -0.5
+    mask = torch.from_numpy(shift_attn_mask(CROP, CROP, WS, WS // 2)).cuda()
+    bias = torch.randn((NH, N, N), generator=g, device="cuda") * 0.1
+    qkv = torch.randn((b_, N, 3, NH, HD), generator=g, device="cuda")
+    do = (torch.randn((b_, N, NH, HD), generator=g, device="cuda") * 0.1).transpose(1, 2)
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            t = t.contiguous()
+            h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy())
+        return h.hexdigest()[:16]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = qkv.to(dtype)
+        q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+        dd = do.to(dtype)
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            p = at._probs(q, k, bias, m, scale).to(dtype)
+            for form, pp in (("recompute", None), ("saved_p", p)):
+                print(f"bits: window_attn_bwd[{dtype} {variant} {form}] "
+                      + digest(at.window_attn_bwd(q, k, v, bias, m, dd, scale=scale, p=pp)))
+            if dtype == torch.float32:
+                print(f"bits: window_attn_fwd[{dtype} {variant}] "
+                      + digest([at.window_attn_fwd(q, k, v, bias, m, scale=scale)]))
 
 
 def check_probe_kernels(timed: bool) -> dict:
@@ -1382,12 +1471,16 @@ SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
 
 
 # how each kernel computes: the bf16 GEMMs (weight grad, forward, data
-# grad) and the bf16 attention backward on the tensor cores, every other
-# kernel on the CUDA cores
+# grad) and the bf16 attention forward and backward on the tensor cores,
+# every other kernel on the CUDA cores
 DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "window_attn_bwd[bf16]": "mma.sync bf16, f32 acc, 4 warps of 16 rows per head, "
                                     "dS from the accumulators into dQ's A fragments, "
                                     "ldmatrix.trans for P^T and dS^T, three cp.async stages",
+           "window_attn_fwd[bf16]": "mma.sync bf16, f32 acc, 4 warps of 16 rows per head, "
+                                    "softmax in the accumulators, p packed into P.V's A "
+                                    "fragments, ldmatrix.trans for V, p out through a shared "
+                                    "tile, cp.async stage ring",
            "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
            "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async",
@@ -1416,7 +1509,9 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "window_attn_fwd cuda-core fma, operands from shared memory 0.4818 ms, 0.4775 "
               "queued (eval shape, mean of the masks); "
               "window_attn_bwd[bf16] cuda-core fma, operands from shared memory 0.4311 ms, "
-              "0.4213 queued (T=36864, saved p, mean of the masks)")
+              "0.4213 queued (T=36864, saved p, mean of the masks); "
+              "window_attn_fwd[bf16] cuda-core fma, one block per (window, head) 0.2268 ms, "
+              "0.2219 queued (T=36864, p store, mean of the masks)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1498,6 +1593,13 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 2
+    if "--bits" in argv:  # the attention outputs' digests of the tree at the path given
+        sys.path.insert(0, argv[argv.index("--bits") + 1])
+        from sei_tpu_torch.ops import attention
+
+        print(f"gpu: {nvidia_smi()}; port from {attention.__file__}")
+        attention_bits()
+        return 0
     from sei_tpu_torch.device import resolve_device
     from sei_tpu_torch.ops import _build
 
@@ -1516,7 +1618,8 @@ def main(argv: list[str]) -> int:
                           ("f32 weight grad", "gemm_wgrad_f32_kernel"),
                           ("f32 attention backward", "window_attn_bwd_f32_kernel"),
                           ("f32 attention forward", "window_attn_fwd_f32_kernel"),
-                          ("bf16 attention backward", "window_attn_bwd_mma_kernel")):
+                          ("bf16 attention backward", "window_attn_bwd_mma_kernel"),
+                          ("bf16 attention forward", "window_attn_fwd_mma_kernel")):
         print(f"ptxas, {label}: " + " | ".join(
             line.split(" ", 1)[1] for line in report if kernel in line))
 
@@ -1524,6 +1627,7 @@ def main(argv: list[str]) -> int:
     for name, variants in check_train_kernels(timed=not quick).items():
         rows.setdefault(name, []).extend(variants)
     rows_bf16 = check_bf16_kernels(timed=not quick)
+    attention_bits()
     rows_probe = check_probe_kernels(timed=not quick)
     if quick:
         print("quick: kernel checks passed")

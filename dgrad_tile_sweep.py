@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Tile sweeps of four GEMM kernels and three attention kernels on one card.
+"""Tile sweeps of four GEMM kernels and four attention kernels on one card.
 
     python3 dgrad_tile_sweep.py                 # bf16 gemm_dgrad, output tile width
     python3 dgrad_tile_sweep.py --fwd-f32       # f32 gemm_bias_epilogue, block tile
@@ -8,6 +8,7 @@
     python3 dgrad_tile_sweep.py --attn-bwd-f32  # f32 window_attn_bwd, block shape
     python3 dgrad_tile_sweep.py --attn-fwd-f32  # f32 window_attn_fwd, block shape, stages
     python3 dgrad_tile_sweep.py --attn-bwd-bf16 # bf16 window_attn_bwd, warps, stages, blocks
+    python3 dgrad_tile_sweep.py --attn-fwd-bf16 # bf16 window_attn_fwd, stages, blocks, p route
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
 is 64 rows by ``SEI_DGRAD_TN`` columns of K
@@ -99,6 +100,20 @@ the qkv buffer, do from the datt buffer, dq, dk, dv into a second qkv
 buffer) at both graphs, with and without the shift mask; the block is
 chosen on the bf16 step's sum: 36 SwinBlocks per graph, half of them
 masked.
+
+With ``--attn-fwd-bf16``: the bf16 ``window_attn_fwd`` tensor-core kernel
+(``sei_tpu_torch/ops/csrc/window_attn_fwd.cu``, ``window_attn_fwd_mma_kernel``),
+its stages (three: the next two windows copied during this one; two; one),
+the blocks per SM it is compiled for, the route of the p store (16-byte
+rows through a shared tile, or bf16 pairs straight from the fragments) and
+when the mask is loaded (while the window is staged, or after the scores)
+(``-DSEI_ATTN_FWD_BF16_STAGES``, ``_MINB``, ``_PTILE``, ``_MASK_EARLY``; the
+wrapper sizes its groups from the occupancy each build reaches).  Each build is held
+against the plain version (``chip_smoke.py``'s bf16 gate) and timed queued,
+the builds in turns, as the bf16 trunk calls it (K5: q, k, v strided from
+the qkv buffer, the output into the att buffer, p saved) at both graphs,
+with and without the shift mask; the build is chosen on the bf16 step's
+sum: 36 SwinBlocks per graph, half of them masked.
 """
 
 from __future__ import annotations
@@ -158,6 +173,15 @@ DEFAULT_ATTN_FWD_F32_BLOCK = (256, 2, 2, 128)
 ATTN_BWD_BF16_BLOCKS = ((4, 3, 2), (4, 2, 2), (4, 2, 3), (4, 1, 4), (4, 1, 5), (8, 2, 1),
                         (8, 1, 2))
 DEFAULT_ATTN_BWD_BF16_BLOCK = (4, 3, 2)
+# (stages, blocks per SM compiled for, p through the shared tile, mask
+# loaded while the window is staged): three stages (46 KB, with the 9 KB p
+# tile 55 KB: 4 blocks fit an SM) at 3 blocks (168 registers), two (40 KB)
+# and one (25 KB) at 4 (128), each with the mask loaded early and after
+# S = Q K^T (32 registers fewer across the product), and p by pairs from
+# the fragments (no tile) at three stages
+ATTN_FWD_BF16_BLOCKS = ((3, 3, 1, 1), (2, 4, 1, 1), (1, 4, 1, 1), (3, 3, 1, 0), (2, 4, 1, 0),
+                        (1, 4, 1, 0), (3, 4, 1, 0), (3, 3, 0, 1))
+DEFAULT_ATTN_FWD_BF16_BLOCK = (2, 4, 1, 0)  # the library's
 
 
 def main(argv: list[str]) -> int:
@@ -184,6 +208,8 @@ def main(argv: list[str]) -> int:
         return sweep_attn_fwd_f32(smi)
     if "--attn-bwd-bf16" in argv:
         return sweep_attn_bwd_bf16(smi)
+    if "--attn-fwd-bf16" in argv:
+        return sweep_attn_fwd_bf16(smi)
     return sweep_dgrad_bf16(smi)
 
 
@@ -590,6 +616,76 @@ def sweep_attn_bwd_bf16(smi: str) -> int:
               + ", ".join(f"{k} {ms:.4f}" for k, ms in per_block.items())
               + f"; per bf16 step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
     print(json.dumps({"attn_bwd_bf16_sweep": result, "gpu": smi}))
+    return 0
+
+
+def sweep_attn_fwd_bf16(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import attention as at
+
+    default = DEFAULT_ATTN_FWD_BF16_BLOCK
+    builds = build_all({"x".join(map(str, blk[:2])) + ("_tile" if blk[2] else "_pairs")
+                        + ("" if blk[3] else "_masklate"): () if blk == default else tuple(
+                            f"SEI_ATTN_FWD_BF16_{k}={v}"
+                            for k, v in zip(("STAGES", "MINB", "PTILE", "MASK_EARLY"), blk))
+                        for blk in ATTN_FWD_BF16_BLOCKS}, "window_attn_fwd_mma_kernel")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+    n, nh, hd, scale = cs.N, cs.NH, cs.HD, cs.HD ** -0.5
+    mask = torch.from_numpy(shift_attn_mask(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)).cuda()
+    bias = torch.randn((nh, n, n), generator=g, device="cuda") * 0.1
+
+    def views(buf):
+        return tuple(buf[:, :, i].transpose(1, 2) for i in range(3))
+
+    # the bf16 step's forward call per graph and mask, as the trunk makes it
+    calls = {}
+    for b in cs.TRAIN_GRAPHS:
+        t = b * cs.CROP * cs.CROP
+        b_ = t // n
+        qkv = torch.randn((b_, n, 3, nh, hd), generator=g, device="cuda").to(bf)
+        att = torch.empty((b_, n, nh, hd), device="cuda", dtype=bf)
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            p, p_p = (torch.empty((b_, nh, n, n), device="cuda", dtype=bf) for _ in range(2))
+            want = at._torch_attention(*views(qkv), bias, m, scale, p_p)
+            calls[f"{variant} T={t}"] = (
+                lambda qkv=qkv, att=att, m=m, p=p: (at.window_attn_fwd(
+                    *views(qkv), bias, m, scale=scale, out=att.transpose(1, 2), p_out=p), p),
+                (want, p_p))
+        # not in the step: the same call without the p store (what the store
+        # costs), and with the shift mask scaled by 1/10 (no masked score's
+        # exp is a subnormal f32) or all zeros (its loads and adds alone)
+        calls[f"no_mask no_p T={t}"] = (
+            lambda qkv=qkv, att=att: (at.window_attn_fwd(
+                *views(qkv), bias, None, scale=scale, out=att.transpose(1, 2)),),
+            (at._torch_attention(*views(qkv), bias, None, scale),))
+        for variant, m in (("shift_mask/10", 0.1 * mask), ("zero_mask", torch.zeros_like(mask))):
+            p, p_p = (torch.empty((b_, nh, n, n), device="cuda", dtype=bf) for _ in range(2))
+            want = at._torch_attention(*views(qkv), bias, m, scale, p_p)
+            calls[f"{variant} T={t}"] = (
+                lambda qkv=qkv, att=att, m=m, p=p: (at.window_attn_fwd(
+                    *views(qkv), bias, m, scale=scale, out=att.transpose(1, 2), p_out=p), p),
+                (want, p_p))
+
+    def check(blk, variant, call):
+        for i, (x, y) in enumerate(zip(call[0](), call[1])):
+            cs.compare_bf16(f"window_attn_fwd[bf16 build {blk} {variant}][{i}]", x, y,
+                            (1e-4, 1e-4))
+
+    result = {}
+    for blk, per_call in check_and_time(builds, calls, check).items():
+        per_block = {f"T={b * cs.CROP * cs.CROP}": 0.5 * sum(
+            per_call[f"{v} T={b * cs.CROP * cs.CROP}"] for v in ("no_mask", "shift_mask"))
+            for b in cs.TRAIN_GRAPHS}
+        step = cs.BLOCKS * sum(per_block.values())
+        result[blk] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_block,
+                       "step_queued_ms": step}
+        print(f"build {blk}: per SwinBlock (mean of the masks) "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in per_block.items())
+              + f"; per bf16 step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
+    print(json.dumps({"attn_fwd_bf16_sweep": result, "gpu": smi}))
     return 0
 
 

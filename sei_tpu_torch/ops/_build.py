@@ -43,6 +43,7 @@ _SIGNATURES = {
     "sei_gemm_bias_epilogue": [_I, _I, *[_P] * 5, _I, _P, _P, *[_I] * 10, _P],
     "sei_window_attn_fwd": [_I, _I, *[_P] * 7, _L, *[_I] * 5, *[_L] * 12, _F, _P],
     "sei_window_attn_fwd_f32_blocks_per_sm": [_I],
+    "sei_window_attn_fwd_bf16_blocks_per_sm": [_I],
     "sei_window_attn_bwd": [_I, _I, *[_P] * 12, _L, *[_I] * 5, *[_L] * 24, _F, _P],
     "sei_window_attn_bwd_f32_blocks_per_sm": [_I, _I],
     "sei_window_attn_bwd_bf16_blocks_per_sm": [_I],

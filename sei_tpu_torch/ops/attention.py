@@ -19,13 +19,23 @@ Kernel ``window_attn_fwd`` (``csrc/window_attn_fwd.cu``):
     CUDA-core FMAs and the bytes count; in bf16 (989 TFLOP/s) bytes bound it;
   * design: scores and probabilities kept on chip (in device memory only
     when saved), f32 max-subtracted softmax, strided q/k/v/out so the trunk
-    reads them straight from its qkv GEMM.  bf16: one block per (window,
-    head).  f32 (``window_attn_fwd_f32_kernel``): the f32 backward's register
-    micro-tiles of S and P on 256 threads and its P.V product from a shared
-    P tile, one block per (head, group of windows), each window by
-    ``cp.async`` into one of two stages while the one before computes; its
-    p and its output equal the f32 backward's recomputed p and ``att_out``
-    bit for bit.
+    reads them straight from its qkv GEMM; one block per (head, group of
+    windows), groups sized from the kernel's occupancy (one wave), each
+    window copied by ``cp.async`` while the one before computes.  bf16
+    (``window_attn_fwd_mma_kernel``, K5's attention with its p save, and
+    every bf16 call without it): both products on the tensor cores
+    (``mma.sync`` m16n8k16, f32 accumulators), as the TPU runs them on the
+    MXU, 4 warps of 16 query rows, bias[h] in registers, the f32 softmax in
+    the accumulators' layout, p rounded and packed from the accumulators
+    into P.V's operand fragments, the next windows copied into a ring of
+    stages; bound at T = 36864 by its 81.4 MB of q, k, v, out and p (0.0243
+    ms at 3.35 TB/s).  Its scores and softmax are
+    ``csrc/window_attn_bf16.cuh``'s, which the bf16 backward's recompute
+    form runs too: the p it saves equals, bit for bit, the p the backward
+    recomputes for dv.  f32 (``window_attn_fwd_f32_kernel``): the f32
+    backward's register micro-tiles of S and P on 256 threads and its P.V
+    product from a shared P tile, two stages; its p and its output equal
+    the f32 backward's recomputed p and ``att_out`` bit for bit.
 
 Kernel ``window_attn_bwd`` (``csrc/window_attn_bwd.cu``):
   * replaces ``sei_tpu/ops/attention.py:155`` ``_bwd_pallas`` ->
@@ -180,10 +190,10 @@ def window_attn_fwd(q, k, v, bias, mask=None, *, scale: float = 1.0, out=None, p
     if n > 64 or hd > 32:
         raise ValueError(f"window_attn_fwd: kernel takes N <= 64, hd <= 32; got {n}, {hd}")
     built = _build.library()
-    groups = 0  # bf16: one block per (window, head)
-    if cdt == F32:  # one block per (head, group of windows), one wave
-        per_sm = _blocks_per_sm(built, q.device.index, "fwd_f32")
-        groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=per_sm)
+    # one block per (head, group of windows), as many as the kernel fits on
+    # the card at once: one wave
+    per_sm = _blocks_per_sm(built, q.device.index, "fwd_f32" if cdt == F32 else "fwd_bf16")
+    groups = _build.partial_count(b_, blocks_per_partial=nh, per_sm=per_sm)
     code = built.lib.sei_window_attn_fwd(
         q.device.index, int(cdt == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), _build.ptr(mask), out.data_ptr(), _build.ptr(p_out),
@@ -271,9 +281,9 @@ window_attn_bwd.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _blocks_per_sm(built: _build.Built, device: int, kernel: str, *args: int) -> int:
-    """Blocks of ``kernel`` (``"fwd_f32"``, ``"bwd_f32"`` with or without the
-    att store, ``"bwd_bf16"``) that one SM of ``device`` holds, from the
-    CUDA occupancy calculator."""
+    """Blocks of ``kernel`` (``"fwd_f32"``, ``"fwd_bf16"``, ``"bwd_f32"`` with
+    or without the att store, ``"bwd_bf16"``) that one SM of ``device``
+    holds, from the CUDA occupancy calculator."""
     n = getattr(built.lib, f"sei_window_attn_{kernel}_blocks_per_sm")(device, *args)
     if n <= 0:
         raise RuntimeError(f"window_attn_{kernel}: the kernel fits no block on an SM")

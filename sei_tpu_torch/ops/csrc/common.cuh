@@ -222,6 +222,15 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// a / b in f64, rounded to nearest (PTX div.rn.f64); the optimizer folds a
+// C++ division of two widened floats, and __ddiv_rn of them, back into the
+// f32 division, whose slow path this is for
+__device__ __forceinline__ double div_rn_f64(double a, double b) {
+  double q;
+  asm volatile("div.rn.f64 %0, %1, %2;\n" : "=d"(q) : "d"(a), "d"(b));
+  return q;
+}
+
 // kernel<<<grid, block, 0, stream>>>(...), written SEI_LAUNCH(grid, block,
 // stream, kernel)(...); with `smem` bytes of dynamic shared memory,
 // SEI_LAUNCH_SMEM(grid, block, smem, stream, kernel)(...), which the kernel

@@ -68,7 +68,10 @@
 //   The recompute form first runs S = Q K^T the way dP runs, adds bias[h]
 //   (+ mask[w % nW]) in that layout, takes the max-subtracted f32 softmax
 //   with quad butterflies, keeps the f32 p for dS and writes p rounded to
-//   bf16 to the P tile for dV.
+//   bf16 to the P tile for dV.  The staging, the products, the softmax and
+//   the stores are window_attn_bf16.cuh's, which the bf16 forward
+//   (window_attn_fwd_mma_kernel) runs too: the p the forward saves is the p
+//   this recompute rounds for dV, bit for bit.
 // - Stores go out of the accumulators as bf16 pairs (4 bytes; a head's
 //   60-byte offset is 4-byte aligned), one element where hd, a stride or a
 //   pointer is odd; columns >= hd and rows >= N are never stored.  scale
@@ -123,13 +126,9 @@
 #include <climits>
 #include <initializer_list>
 
-#include "window_attn_f32.cuh"
+#include "window_attn_bf16.cuh"
 
 namespace {
-
-struct Strides {
-  long long w, h, n;  // window, head, token; the head-dim stride is 1
-};
 
 // -- bf16: mma.sync on the tensor cores (see the note at the top) ---------
 
@@ -146,23 +145,12 @@ struct Strides {
 constexpr int BT = 32 * SEI_ATTN_BWD_BF16_WARPS;  // threads per block
 constexpr int BSLOTS = SEI_ATTN_BWD_BF16_WARPS / 4;  // windows a block takes at once
 constexpr int BSTAGES = SEI_ATTN_BWD_BF16_STAGES;
-constexpr int XP = AD + 8;                  // pitch of a staged q, k, v or do (bf16)
-constexpr int TP = AN + 8;                  // pitch of the P and dS tiles (bf16)
-constexpr int XT = AN * XP;                 // elements of one staged q, k, v or do
-constexpr int TT = AN * TP;                 // elements of one P or dS tile
 constexpr int BSTAGE = 4 * XT + TT;         // q, k, v, do and P of one window
 constexpr int BSLOT = BSTAGES * BSTAGE + TT;  // a team's stages and its dS tile
 constexpr int B_SMEM = BSLOTS * BSLOT * (int)sizeof(bf16);
 static_assert(BSLOTS * 4 == SEI_ATTN_BWD_BF16_WARPS && BSLOTS <= 2, "4 or 8 warps");
 static_assert(BSTAGES >= 1 && BSTAGES <= 3, "one to three stages");
 static_assert(BSTAGE * (int)sizeof(bf16) >= AN * AN * (int)sizeof(float), "dbias exchange");
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-__device__ __forceinline__ float lo_bf16(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_bf16(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
 
 // q, k, v and do of window w, head h into a stage ([4][AN][XP] bf16), and
 // the saved p of (w, h) into its P tile ([AN][TP]); rows >= N, head-dim
@@ -175,23 +163,10 @@ __device__ __forceinline__ void stage_bf16(bf16* st, const bf16* const (&src)[4]
                                            const Strides (&s)[4], const bf16* p_saved,
                                            long long w, int h, int nh, int N, int hd, bool p16,
                                            int lt) {
-  const bf16 zero = __float2bfloat16_rn(0.f);
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const bf16* base = src[t] + w * s[t].w + h * s[t].h;
-    bf16* dst = st + t * XT;
-    constexpr int PR = AD / VEC;  // copies per row
-    for (int idx = lt; idx < AN * PR; idx += 128) {
-      const int n = idx / PR;
-      const int d = (idx - n * PR) * VEC;
-      const bool ok = n < N && d < hd;
-      if constexpr (VEC == 2)
-        cp_async<4>(dst + n * XP + d, ok ? base + n * s[t].n + d : src[t], ok);
-      else
-        dst[n * XP + d] = ok ? base[n * s[t].n + d] : zero;
-    }
-  }
+  for (int t = 0; t < 4; ++t) stage_rows<VEC>(st + t * XT, src[t], s[t], w, h, N, hd, lt);
   if (!p_saved) return;
+  const bf16 zero = __float2bfloat16_rn(0.f);
   const bf16* pw = p_saved + (w * nh + h) * N * N;
   bf16* ps = st + 4 * XT;
   if (p16) {
@@ -206,75 +181,6 @@ __device__ __forceinline__ void stage_bf16(bf16* st, const bf16* const (&src)[4]
       const int r = idx / AN;
       const int c = idx - r * AN;
       ps[r * TP + c] = r < N && c < N ? pw[r * N + c] : zero;
-    }
-  }
-}
-
-// acc (16 rows x 64 columns: 8 n8 tiles) = A B^T over 32 head-dim entries:
-// A's rows r0.. and all 64 rows of B from staged [AN][XP] tiles (plain
-// ldmatrix: the head dim is contiguous in both)
-__device__ __forceinline__ void rows_by_rows(const bf16* A, const bf16* B, int r0, int lane,
-                                             float (&acc)[8][4]) {
-  unsigned a[2][4];
-  const bf16* arow = A + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * XP + (lane >> 4) * 8;
-  ldmatrix_x4(a[0], arow);
-  ldmatrix_x4(a[1], arow + 16);
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    unsigned b[4];
-    ldmatrix_x4(b, B + (8 * nt + (lane & 7)) * XP + (lane >> 3) * 8);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    mma_bf16_16816(acc[nt], a[0], b[0], b[1]);
-    mma_bf16_16816(acc[nt], a[1], b[2], b[3]);
-  }
-}
-
-// acc (16 rows x 32 head-dim entries) += T^T X over the 64 rows of a [AN][TP]
-// tile T (its columns r0.. are acc's rows) and a staged [AN][XP] X, every
-// fragment by ldmatrix.trans
-__device__ __forceinline__ void cols_by_rows(const bf16* T, const bf16* X, int r0, int lane,
-                                             float (&acc)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < AN / 16; ++kk) {
-    unsigned a[4];
-    ldmatrix_x4_trans(a, T + (16 * kk + (lane & 7) + (lane >> 4) * 8) * TP + r0 +
-                             ((lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      unsigned b[4];
-      ldmatrix_x4_trans(b, X + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * XP + 16 * np +
-                               (lane >> 4) * 8);
-      mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
-      mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// rows r0 + l/4 (+ 8) and columns 2 (l % 4) (+ 1) of the four n8 tiles of
-// acc, times mul, rounded to bf16 into out[w][h][row][d]; rows >= N and
-// columns >= hd skipped
-template <int VEC>
-__device__ __forceinline__ void store_bf16(bf16* out, const Strides& so, long long w, int h,
-                                           int r0, int lane, const float (&acc)[4][4],
-                                           float mul, int N, int hd) {
-  bf16* base = out + w * so.w + h * so.h;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = r0 + (lane >> 2) + 8 * half;
-    if (i >= N) continue;
-    bf16* row = base + i * so.n;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int d = 8 * nt + 2 * (lane & 3);
-      if (d >= hd) continue;
-      const float x = acc[nt][2 * half] * mul, y = acc[nt][2 * half + 1] * mul;
-      if constexpr (VEC == 2) {  // hd even: a pair is all in or all out
-        *reinterpret_cast<unsigned*>(row + d) = pack_bf16(x, y);
-      } else {
-        row[d] = __float2bfloat16_rn(x);
-        if (d + 1 < hd) row[d + 1] = __float2bfloat16_rn(y);
-      }
     }
   }
 }
@@ -361,53 +267,19 @@ window_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
           }
       } else {
         // S = Q K^T; then scale, bias[h] (+ mask[w % nW]) and the softmax
-        // of each row over the quad that holds it; -inf outside the window
+        // of each row over the quad that holds it (the forward's p)
         rows_by_rows(qs, ks, r0, lane, p);
-        const float* bh = bias + (long long)h * N * N;
-        const float* mw = mask ? mask + (long long)(w % nW) * N * N : nullptr;
+        float bm[8][4], mk[8][4];
+        load_at_acc(bias + (long long)h * N * N, N, r0, lane, -INFINITY, bm);
+        if (mask) load_at_acc(mask + (long long)(w % nW) * N * N, N, r0, lane, 0.f, mk);
+        softmax_acc(p, bm, mk, mask != nullptr, scale);
+        // p rounded to bf16, as P.V read it in the forward: dV's operand
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int i = r0 + g + 8 * hf;
-          float m = -INFINITY;
+        for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int j = 8 * nt + 2 * t4 + e;
-              float x = -INFINITY;
-              if (i < N && j < N) {
-                x = p[nt][2 * hf + e] * scale + bh[i * N + j];
-                if (mw) x += mw[i * N + j];
-              }
-              p[nt][2 * hf + e] = x;
-              m = fmaxf(m, x);
-            }
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          float sum = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float x = p[nt][2 * hf + e];
-              const float ex = x == -INFINITY ? 0.f : expf(x - m);
-              p[nt][2 * hf + e] = ex;
-              sum += ex;
-            }
-          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float ex = p[nt][2 * hf + e];
-              p[nt][2 * hf + e] = ex == 0.f ? 0.f : ex / sum;
-            }
-            // p rounded to bf16, as P.V read it in the forward: dV's operand
+          for (int hf = 0; hf < 2; ++hf)
             *reinterpret_cast<unsigned*>(ps + (r0 + g + 8 * hf) * TP + 8 * nt + 2 * t4) =
                 pack_bf16(p[nt][2 * hf], p[nt][2 * hf + 1]);
-          }
-        }
       }
 
       // dP = dO V^T, rowsum(dP P) over each row's quad, dS = P (dP - rowsum)
@@ -450,14 +322,7 @@ window_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         *reinterpret_cast<unsigned*>(drow + 8 * TP) = a[1];
         *reinterpret_cast<unsigned*>(drow + 8) = a[2];
         *reinterpret_cast<unsigned*>(drow + 8 * TP + 8) = a[3];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          unsigned b[4];
-          ldmatrix_x4_trans(b, ks + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * XP +
-                                   16 * np + (lane >> 4) * 8);
-          mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
-          mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
-        }
+        frags_by_rows(a, ks, kk, lane, acc);
       }
       store_bf16<VEC>(dq, sdq, w, h, r0, lane, acc, scale, N, hd);
     }
@@ -791,8 +656,6 @@ cudaError_t launch_f32_vec(cudaStream_t s, const AttnBwdArgs& a) {
       a.scale);
   return cudaGetLastError();
 }
-
-bool even(const Strides& s) { return s.w % 2 == 0 && s.h % 2 == 0 && s.n % 2 == 0; }
 
 // 8-byte copies and stores where hd, every stride and every pointer allow
 // them, else one element

@@ -18,12 +18,54 @@
 // kernel only when the caller asks for it (p_out, (B_, nh, N, N)
 // contiguous).
 //
-// bf16 (window_attn_fwd_kernel<bf16>, K5 with the p save): one 128-thread
-// block per (window, head); q and v staged in shared memory as f32 padded to
-// 32 (+1 column against bank conflicts), each thread keeps one key row in
-// registers and writes one column of the 64x64 score tile (bias and mask
-// reads coalesced along that column), the f32 max-subtracted softmax is a
-// warp per row, and P.V reads P rows as broadcasts.
+// bf16 (window_attn_fwd_mma_kernel, K5's attention with and without the p
+// save) runs its two products on the tensor cores, as the TPU kernel runs
+// them on the MXU (_bdot: bf16 operands, f32 accumulation): mma.sync
+// m16n8k16.  Per (window, head) that is 128 mma against 11.5 KB of q, k, v,
+// 3.8 KB of output and 8 KB of p: at the bf16 step's T = 36864 81.4 MB,
+// 0.0243 ms at 3.35 TB/s, and a few microseconds of mma, so the bytes, and
+// how well the kernel keeps them in flight, set its pace:
+// - Block.  4 warps own one head and walk the windows g, g + groups, ... of
+//   their group; bias[h] stays in registers (32 f32 a thread) for the walk.
+//   The wrapper sizes groups from the kernel's own occupancy
+//   (sei_window_attn_fwd_bf16_blocks_per_sm): one wave of blocks.  Warp r
+//   owns query rows 16r..16r+15.
+// - Staging.  q, k and v as bf16 [64][40] (an 80-byte pitch puts the eight
+//   rows of one ldmatrix in distinct banks), every pad a real zero (the
+//   tensor cores sum over the head dim's pad and the rows past N), by 4-byte
+//   cp.async pairs (a head starts at a 60-byte step in the trunk's qkv
+//   buffer: nothing wider always fits), one element at a time through
+//   registers for an odd hd, stride or pointer (VEC = 1).  A ring of
+//   SEI_ATTN_FWD_BF16_STAGES stages: the next windows are copied during this
+//   one.  mask[w % nW] goes into registers after S, in 8-byte pairs.
+// - S = Q K^T (plain ldmatrix for both), then scale, bias[h], the mask and
+//   the max-subtracted f32 softmax in the accumulators' layout (row max and
+//   sum by quad butterflies, __shfl_xor_sync 1 and 2); p rounded to bf16 is
+//   packed straight from the accumulators into the A fragments of O = P V
+//   (two adjacent n8 tiles are one k16 fragment; V by ldmatrix.trans).
+//   These are window_attn_bf16.cuh's pieces, which the bf16 backward's
+//   recompute form runs too, so this p equals the p it rounds for dV bit
+//   for bit.  A masked score's exp (~e^-100) is a subnormal f32, on which
+//   the f32 division takes a slow subroutine: the softmax divides it in f64
+//   (div_rn, the same quotient bit for bit), which took the masked calls
+//   from 2.3x to 1.3x the unmasked ones' time on the H100.
+// - The output leaves the accumulators as bf16 pairs into the (B_, N, nh,
+//   hd) view the proj GEMM reads (one element where hd, a stride or a
+//   pointer is odd); rows >= N and columns >= hd are never written.  p_out
+//   (only when given; contiguous, so each (window, head) is one run of N x N)
+//   goes through the warp's rows of a shared [64][72] tile and out as
+//   16-byte pieces of whole rows (SEI_ATTN_FWD_BF16_PTILE; N a multiple of
+//   8), else as bf16 pairs or elements straight from the fragments.
+// - Occupancy.  Two stages and the p tile take 39,936 B of shared memory;
+//   loading the mask after S keeps 128 registers without a spill, so an SM
+//   holds 4 blocks (16 warps; SEI_ATTN_FWD_BF16_MINB = 4): 88 groups x 6
+//   heads at the step's T = 36864, 6.5 windows a block.  Against three
+//   stages at 3 blocks with the mask loaded during staging (146 registers)
+//   the bf16 step's 72 calls took 4.01 ms queued against 4.89
+//   (dgrad_tile_sweep.py --attn-fwd-bf16; more warps hide the copies and
+//   the masked rows' f64 divisions; the p tile against pair stores: 4.89
+//   against 5.02 ms at three stages).
+// - No atomics, sums in a fixed order: two launches agree bit for bit.
 //
 // f32 (window_attn_fwd_f32_kernel, K1 and the attention of K3/K4) is built
 // for the CUDA cores' FP32 pipe, which an SM issues four warp FMAs a clock
@@ -58,91 +100,172 @@
 // - Window and head offsets are 64-bit, so any tensor the bf16 kernel takes
 //   the f32 one takes too.
 
+#include <climits>
 #include <initializer_list>
 
-#include "window_attn_f32.cuh"
+#include "window_attn_bf16.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+// -- bf16: mma.sync on the tensor cores (see the note at the top) ---------
 
-struct Strides {
-  long long w, h, n;  // window, head, token; the head-dim stride is 1
-};
+#ifndef SEI_ATTN_FWD_BF16_STAGES
+#define SEI_ATTN_FWD_BF16_STAGES 2
+#endif
+#ifndef SEI_ATTN_FWD_BF16_MINB
+#define SEI_ATTN_FWD_BF16_MINB 4
+#endif
+#ifndef SEI_ATTN_FWD_BF16_PTILE
+#define SEI_ATTN_FWD_BF16_PTILE 1
+#endif
+#ifndef SEI_ATTN_FWD_BF16_MASK_EARLY
+#define SEI_ATTN_FWD_BF16_MASK_EARLY 0
+#endif
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ bias,
-                       const float* __restrict__ mask, T* __restrict__ out,
-                       T* __restrict__ p_out, int nh, int N, int hd, int nW,
-                       Strides sq, Strides sk, Strides sv, Strides so, float scale) {
-  __shared__ float qs[AN][AD + 1];
-  __shared__ float vs[AN][AD + 1];
-  __shared__ float ps[AN][AN + 1];
+constexpr int BSTAGES = SEI_ATTN_FWD_BF16_STAGES;
+constexpr int BSTAGE = 3 * XT;  // q, k and v of one window
+constexpr bool PTILE = SEI_ATTN_FWD_BF16_PTILE != 0;
+// mask[w % nW] loaded while the window is staged (its 32 registers live
+// across S = Q K^T), or after S (the shipped kernel: 128 registers, no
+// spill, 4 blocks per SM)
+constexpr bool MASK_EARLY = SEI_ATTN_FWD_BF16_MASK_EARLY != 0;
+constexpr int B_SMEM = (BSTAGES * BSTAGE + (PTILE ? TT : 0)) * (int)sizeof(bf16);
+static_assert(BSTAGES >= 1 && BSTAGES <= 3, "one to three stages");
 
-  const int tid = threadIdx.x;
-  const long long w = blockIdx.x / nh;
-  const int h = (int)(blockIdx.x - w * nh);
-  const T* qb = q + w * sq.w + h * sq.h;
-  const T* kb = k + w * sk.w + h * sk.h;
-  const T* vb = v + w * sv.w + h * sv.h;
-  T* ob = out + w * so.w + h * so.h;
+// how p leaves the kernel: not at all, one element, bf16 pairs (N even,
+// p_out 4-byte aligned), or 16-byte rows through the shared p tile (N a
+// multiple of 8, p_out 16-byte aligned; PTILE builds only)
+enum PStore { P_NONE = 0, P_ONE = 1, P_PAIRS = 2, P_TILE = 3 };
 
-  for (int idx = tid; idx < AN * AD; idx += kThreads) {
-    const int n = idx / AD;
-    const int d = idx - n * AD;
-    const bool ok = n < N && d < hd;
-    qs[n][d] = ok ? to_f(qb[n * sq.n + d]) : 0.f;
-    vs[n][d] = ok ? to_f(vb[n * sv.n + d]) : 0.f;
-  }
-  const int j = tid & (AN - 1);  // this thread's key / score column
-  const int half = tid >> 6;     // rows half, half + 2, ...
-  float kr[AD];
+// q, k and v of window w, head h into a stage ([3][AN][XP] bf16)
+template <int VEC>
+__device__ __forceinline__ void stage_qkv_bf16(bf16* st, const bf16* q, const bf16* k,
+                                               const bf16* v, const Strides& sq, const Strides& sk,
+                                               const Strides& sv, long long w, int h, int N,
+                                               int hd) {
+  stage_rows<VEC>(st, q, sq, w, h, N, hd, threadIdx.x);
+  stage_rows<VEC>(st + XT, k, sk, w, h, N, hd, threadIdx.x);
+  stage_rows<VEC>(st + 2 * XT, v, sv, w, h, N, hd, threadIdx.x);
+}
+
+// the packed k16 fragment a of p (rows r0 + g and r0 + g + 8, columns 16 kk +
+// 2 t4 (+ 1) and 8 further on) into the (w, h) matrix pw of p_out: pairs,
+// or one element at a time; rows and columns >= N skipped
+__device__ __forceinline__ void store_p_frag(bf16* pw, const unsigned (&a)[4], int r0, int g,
+                                             int t4, int kk, int N, bool pairs) {
 #pragma unroll
-  for (int d = 0; d < AD; ++d) kr[d] = (j < N && d < hd) ? to_f(kb[j * sk.n + d]) : 0.f;
-  __syncthreads();
+  for (int f = 0; f < 4; ++f) {
+    const int i = r0 + g + 8 * (f & 1), j = 16 * kk + 8 * (f >> 1) + 2 * t4;
+    if (i >= N || j >= N) continue;
+    bf16* dst = pw + i * N + j;
+    if (pairs) {  // N even: a pair is all in or all out
+      *reinterpret_cast<unsigned*>(dst) = a[f];
+    } else {
+      dst[0] = __float2bfloat16_rn(lo_bf16(a[f]));
+      if (j + 1 < N) dst[1] = __float2bfloat16_rn(hi_bf16(a[f]));
+    }
+  }
+}
 
-  if (j < N) {
-    const float* bcol = bias + (long long)h * N * N + j;
-    const float* mcol = mask ? mask + (w % nW) * N * N + j : nullptr;
-    for (int i = half; i < N; i += 2) {
-      float s = 0.f;
+template <int VEC>
+__global__ void __launch_bounds__(128, SEI_ATTN_FWD_BF16_MINB)
+window_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const float* __restrict__ bias,
+                           const float* __restrict__ mask, bf16* __restrict__ out,
+                           bf16* __restrict__ p_out, int n_windows, int nh, int N, int hd,
+                           int nW, int groups, Strides sq, Strides sk, Strides sv, Strides so,
+                           float scale, int pstore) {
+  SEI_DYNAMIC_SMEM(bf16, bsmem);  // one name per element type in a source
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5);  // the warp's query rows
+  const int h = blockIdx.x;
+  const int grp = blockIdx.y;
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* const pt = bsmem + BSTAGES * BSTAGE + r0 * TP;  // the warp's rows of the p tile
+
+  // bias[h] at the lane's accumulator positions (-inf outside the window),
+  // for every window of the walk
+  float bh[8][4];
+  load_at_acc(bias + (long long)h * N * N, N, r0, lane, -INFINITY, bh);
+
+  // a ring of stages: the next BSTAGES - 1 windows of the group are in
+  // flight (one copy group each) while this one computes
+  int s = 0;  // the stage of this window
 #pragma unroll
-      for (int d = 0; d < AD; ++d) s = fmaf(qs[i][d], kr[d], s);
-      s = s * scale + bcol[i * N];
-      if (mcol) s += mcol[i * N];
-      ps[i][j] = s;
-    }
+  for (int j = 0; j + 1 < BSTAGES; ++j) {
+    const int wj = grp + j * groups;
+    if (wj < n_windows)
+      stage_qkv_bf16<VEC>(bsmem + j * BSTAGE, q, k, v, sq, sk, sv, wj, h, N, hd);
+    cp_async_commit();
   }
-  __syncthreads();
-
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  T* pb = p_out ? p_out + ((w * nh + h) * N) * N : nullptr;
-  for (int i = warp; i < N; i += kThreads / 32) {
-    const float a = lane < N ? ps[i][lane] : -INFINITY;
-    const float b = lane + 32 < N ? ps[i][lane + 32] : -INFINITY;
-    const float m = warp_max(fmaxf(a, b));
-    const float ea = lane < N ? expf(a - m) : 0.f;
-    const float eb = lane + 32 < N ? expf(b - m) : 0.f;
-    const float sum = warp_sum(ea + eb);
-    const float pa = round_as<T>(ea / sum), pb2 = round_as<T>(eb / sum);
-    if (lane < N) ps[i][lane] = pa;
-    if (lane + 32 < N) ps[i][lane + 32] = pb2;
-    if (pb) {
-      if (lane < N) pb[i * N + lane] = from_f<T>(pa);
-      if (lane + 32 < N) pb[i * N + lane + 32] = from_f<T>(pb2);
+  for (int w = grp; w < n_windows; w += groups) {
+    // mask[w % nW]: loaded while the window is staged, or after the
+    // scores (MASK_EARLY); added after them either way
+    float mk[8][4];
+    if (MASK_EARLY && mask)
+      load_at_acc(mask + (long long)(w % nW) * N * N, N, r0, lane, 0.f, mk);
+    if constexpr (BSTAGES == 1) {
+      __syncthreads();  // the last window is done with the stage
+      stage_qkv_bf16<VEC>(bsmem, q, k, v, sq, sk, sv, w, h, N, hd);
+      cp_async_commit();
     }
-  }
-  __syncthreads();
-
-  if (lane < hd) {
-    for (int i = warp; i < N; i += kThreads / 32) {
-      float acc = 0.f;
-      for (int jj = 0; jj < N; ++jj) acc = fmaf(ps[i][jj], vs[jj][lane], acc);
-      ob[i * so.n + lane] = from_f<T>(acc);
+    cp_async_wait<(BSTAGES > 1 ? BSTAGES - 2 : 0)>();
+    __syncthreads();  // this window staged; the last one done with its stage and the p tile
+    if constexpr (BSTAGES > 1) {
+      const int wn = w + (BSTAGES - 1) * groups;
+      if (wn < n_windows)
+        stage_qkv_bf16<VEC>(bsmem + (s + BSTAGES - 1) % BSTAGES * BSTAGE, q, k, v, sq, sk, sv,
+                            wn, h, N, hd);
+      cp_async_commit();
     }
+    const bf16* const st = bsmem + s * BSTAGE;
+
+    // S = Q K^T, then scale, bias[h] (+ mask[w % nW]) and the f32 softmax
+    float p[8][4];
+    rows_by_rows(st, st + XT, r0, lane, p);
+    if (!MASK_EARLY && mask)
+      load_at_acc(mask + (long long)(w % nW) * N * N, N, r0, lane, 0.f, mk);
+    softmax_acc(p, bh, mk, mask != nullptr, scale);
+
+    // p rounded to bf16 and packed as the A fragments of O = P V (n8 tiles
+    // 2 kk and 2 kk + 1 are k-step kk; V by ldmatrix.trans), and saved
+    bf16* const pw = p_out + ((long long)w * nh + h) * N * N;  // used only with p_out
+    float acc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < AN / 16; ++kk) {
+      unsigned a[4];
+      a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+      a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+      a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+      a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+      if (PTILE && pstore == P_TILE) {
+        bf16* prow = pt + g * TP + 16 * kk + 2 * t4;
+        *reinterpret_cast<unsigned*>(prow) = a[0];
+        *reinterpret_cast<unsigned*>(prow + 8 * TP) = a[1];
+        *reinterpret_cast<unsigned*>(prow + 8) = a[2];
+        *reinterpret_cast<unsigned*>(prow + 8 * TP + 8) = a[3];
+      } else if (pstore != P_NONE) {
+        store_p_frag(pw, a, r0, g, t4, kk, N, pstore == P_PAIRS);
+      }
+      frags_by_rows(a, st + 2 * XT, kk, lane, acc);
+    }
+    store_bf16<VEC>(out, so, w, h, r0, lane, acc, 1.f, N, hd);
+    if (PTILE && pstore == P_TILE) {
+      __syncwarp();  // the warp's 16 rows of p are in its rows of the tile
+      // 16 rows x 8 pieces of 16 bytes: a warp store covers 4 rows
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int r = (lane >> 3) + 4 * it, c = 8 * (lane & 7);
+        if (r0 + r < N && c < N)
+          *reinterpret_cast<uint4*>(pw + (r0 + r) * N + c) =
+              *reinterpret_cast<const uint4*>(pt + r * TP + c);
+      }
+    }
+    s = s + 1 == BSTAGES ? 0 : s + 1;
   }
 }
 
@@ -320,8 +443,6 @@ cudaError_t launch_f32_vec(cudaStream_t s, const AttnFwdArgs& a) {
   return cudaGetLastError();
 }
 
-bool even(const Strides& s) { return s.w % 2 == 0 && s.h % 2 == 0 && s.n % 2 == 0; }
-
 // 8-byte copies and stores where hd, every stride and every pointer allow
 // them, else one element
 cudaError_t launch_f32(cudaStream_t s, const AttnFwdArgs& a) {
@@ -329,6 +450,35 @@ cudaError_t launch_f32(cudaStream_t s, const AttnFwdArgs& a) {
   for (const void* ptr : {a.q, a.k, a.v, (const void*)a.out})
     vec2 = vec2 && (size_t)ptr % 8 == 0;
   return vec2 ? launch_f32_vec<2>(s, a) : launch_f32_vec<1>(s, a);
+}
+
+template <int VEC>
+cudaError_t launch_bf16_vec(cudaStream_t s, const AttnFwdArgs& a) {
+  const auto kernel = window_attn_fwd_mma_kernel<VEC>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B_SMEM);
+  if (err != cudaSuccess) return err;
+  const size_t pa = (size_t)a.p_out;
+  PStore ps = P_NONE;
+  if (a.p_out)
+    ps = PTILE && a.N % 8 == 0 && pa % 16 == 0 ? P_TILE
+         : a.N % 2 == 0 && pa % 4 == 0        ? P_PAIRS
+                                              : P_ONE;
+  SEI_LAUNCH_SMEM(dim3(a.nh, a.groups), 128, B_SMEM, s, kernel)(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.bias, a.mask, static_cast<bf16*>(a.out),
+      static_cast<bf16*>(a.p_out), (int)a.n_windows, a.nh, a.N, a.hd, a.nW, a.groups, a.sq,
+      a.sk, a.sv, a.so, a.scale, (int)ps);
+  return cudaGetLastError();
+}
+
+// bf16 pairs by 4-byte copies and stores where hd, every stride and every
+// pointer allow them, else one element
+cudaError_t launch_bf16(cudaStream_t s, const AttnFwdArgs& a) {
+  bool vec2 = a.hd % 2 == 0 && even(a.sq) && even(a.sk) && even(a.sv) && even(a.so);
+  for (const void* ptr : {a.q, a.k, a.v, (const void*)a.out})
+    vec2 = vec2 && (size_t)ptr % 4 == 0;
+  return vec2 ? launch_bf16_vec<2>(s, a) : launch_bf16_vec<1>(s, a);
 }
 
 }  // namespace
@@ -350,19 +500,11 @@ extern "C" int sei_window_attn_fwd(
   const Strides sq{sq_w, sq_h, sq_n}, sk{sk_w, sk_h, sk_n}, sv{sv_w, sv_h, sv_n},
       so{so_w, so_h, so_n};
   cudaStream_t s = (cudaStream_t)stream;
-  if (!is_bf16) {  // one block per (head, group of windows)
-    if (nh > 65535 || groups <= 0 || groups > 65535 || n_windows > 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
-    return (int)launch_f32(s, AttnFwdArgs{q, k, v, bias, mask, out, p_out, n_windows, nh, N,
-                                          hd, nW, groups, sq, sk, sv, so, scale});
-  }
-  const long long blocks = n_windows * nh;  // bf16: one block per (window, head)
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  SEI_LAUNCH((unsigned)blocks, kThreads, s, window_attn_fwd_kernel<bf16>)(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, mask, static_cast<bf16*>(out), static_cast<bf16*>(p_out), nh, N, hd, nW, sq, sk,
-      sv, so, scale);
-  return (int)cudaGetLastError();
+  if (nh > 65535 || groups <= 0 || groups > 65535 || n_windows > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const AttnFwdArgs a{q, k, v, bias, mask, out, p_out, n_windows, nh, N,
+                      hd, nW, groups, sq, sk, sv, so, scale};
+  return (int)(is_bf16 ? launch_bf16(s, a) : launch_f32(s, a));
 }
 
 // blocks of the f32 kernel one SM holds (the wrapper sizes its groups by it)
@@ -374,6 +516,19 @@ extern "C" int sei_window_attn_fwd_f32_blocks_per_sm(int device) {
     return 0;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, FT, F_SMEM) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+// blocks of the bf16 kernel one SM holds (the wrapper sizes its groups by it)
+extern "C" int sei_window_attn_fwd_bf16_blocks_per_sm(int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return 0;
+  const auto kernel = window_attn_fwd_mma_kernel<2>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B_SMEM) !=
+      cudaSuccess)
+    return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 128, B_SMEM) != cudaSuccess)
     return 0;
   return blocks;
 }

@@ -7,8 +7,8 @@ runs as a ``std::thread`` (the blocks one after another, so ``__shared__``
 arrays are plain statics and dynamic shared memory one buffer, filled before
 each block with the word ``0x7FC07FC0``, a NaN whether read as f32 or as
 either bf16 half), ``__syncthreads`` is a barrier, ``__shfl_xor_sync`` an
-exchange between the 32 threads of a warp at a barrier of their own,
-``ldmatrix_x4``, ``ldmatrix_x4_trans`` and ``mma_bf16_16816`` the same
+exchange between the 32 threads of a warp at a barrier of their own
+(``__syncwarp`` that barrier alone), ``ldmatrix_x4``, ``ldmatrix_x4_trans`` and ``mma_bf16_16816`` the same
 exchange of row addresses or fragment registers, gathered by the PTX
 layouts (the mma sums exact bf16 products in f32), ``cp.async`` a
 synchronous copy (zero-filled where the kernel asks for none), the card
@@ -73,6 +73,7 @@ struct alignas(8) uint2 { unsigned x, y; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline double div_rn_f64(double a, double b) { return a / b; }
 using std::max;
 using std::min;
 
@@ -169,6 +170,9 @@ inline V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   sei_warps.bar[warp].wait();
   return out;
 }
+
+// __syncwarp: the 32 lanes of the warp meet at its barrier
+inline void __syncwarp(unsigned = 0xffffffffu) { sei_warps.bar[threadIdx.x / 32].wait(); }
 
 // dynamic shared memory: one buffer for the block that runs, filled before
 // each block with the word 0x7FC07FC0, a NaN read as one f32 or as either

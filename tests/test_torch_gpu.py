@@ -23,7 +23,12 @@ to the backward's att bit for bit, with its f32 probability save, on odd
 head dims and offsets, at window counts below and not divided by its
 groups, and repeats bit for bit; the bf16 attention backward (tensor
 cores) in both forms at N 16, 49, 64, hd 8, 17, 30, 32, both masks, odd
-strides, the bf16 trunk's views at both graphs, and repeats bit for bit.
+strides, the bf16 trunk's views at both graphs, and repeats bit for bit;
+the bf16 attention forward (tensor cores) on the bf16 trunk's views at both
+graphs with its p store (one launch), at N 16, 36, 49, 64, hd 8, 17, 30,
+32 with p_out by each of its store routes, odd strides, window counts its
+groups do not divide, its p equal to the backward's recompute (dv bit for
+bit), and repeats bit for bit.
 Small and ragged shapes (M, K, N not multiples of the tiles; C = 16 and 256;
 windows of 16 tokens, hd 8; window counts that are not multiples of the
 partial count) that the flagship checks in ``chip_smoke.py`` do not reach.
@@ -776,6 +781,111 @@ def test_window_attn_fwd_bf16_p_store(gpu, n, hd, masked):
     assert at.window_attn_fwd.launches == before + 1
     _close_bf16(got, at._torch_attention(q, k, v, bias, m, 1.5, p_p))
     _close_bf16(p, p_p)
+
+
+# bf16 window_attn_fwd on the tensor cores (mma.sync, 4 warps of 16 rows,
+# p through a shared tile): the bf16 trunk's views at both graphs with the
+# p store, p_out by each of its routes (16-byte rows, pairs, elements) at
+# the kernel's edges, odd strides, window counts that its groups do not
+# divide, its p against the backward's recompute (dv bit for bit), and two
+# launches bit for bit
+@pytest.mark.parametrize("b_", [576, 288])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attn_fwd_bf16_trunk_views(gpu, b_, masked):
+    """The bf16 trunk's call: q, k, v strided from its (B_, N, 3, nh, hd)
+    qkv buffer, the output into the (B_, N, nh, hd) att buffer, which keeps
+    its NaN fill nowhere, and p saved; one launch."""
+    qkv, _, bias, mask = _attn_trunk_case(gpu, b_)
+    qkv = qkv.to(BF16)
+    m = mask if masked else None
+    att = torch.full((b_, 64, 6, 30), float("nan"), device="cuda", dtype=BF16)
+    p, p_p = (torch.full((b_, 6, 64, 64), float("nan"), device="cuda", dtype=BF16)
+              for _ in range(2))
+    before = at.window_attn_fwd.launches
+    at.window_attn_fwd(*_views(qkv), bias, m, scale=30 ** -0.5, out=att.transpose(1, 2), p_out=p)
+    assert at.window_attn_fwd.launches == before + 1
+    _close_bf16(att.transpose(1, 2), at._torch_attention(*_views(qkv), bias, m, 30 ** -0.5, p_p))
+    _close_bf16(p, p_p)
+    assert not torch.isnan(att).any()
+
+
+@pytest.mark.parametrize("n,hd", [(64, 30), (64, 32), (64, 8), (49, 30), (49, 17), (36, 30),
+                                  (16, 8)])
+@pytest.mark.parametrize("p_offset", [0, 2, 1, None])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attn_fwd_bf16_edges(gpu, n, hd, p_offset, masked):
+    """N < 64, narrow and odd head dims, and p_out at element offset 0
+    (16-byte rows where N % 8 == 0), 2 (bf16 pairs where N is even), 1 (one
+    element) or absent; nothing written around p_out."""
+    b_, nh = 30, 3
+    q, k, v = (_bf(gpu, b_, nh, n, hd, s=s) for s in (hd ** -0.5, 1, 1))
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((6, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    m = mask if masked else None
+    size = b_ * nh * n * n
+    buf = torch.full((size + 16,), float("nan"), device="cuda", dtype=BF16)
+    p = None if p_offset is None else buf[p_offset:p_offset + size].view(b_, nh, n, n)
+    p_p = torch.empty(b_, nh, n, n, device="cuda", dtype=BF16)
+    got = at.window_attn_fwd(q, k, v, bias, m, scale=1.5, p_out=p)
+    _close_bf16(got, at._torch_attention(q, k, v, bias, m, 1.5, p_p))
+    if p is not None:
+        _close_bf16(p, p_p)
+        assert torch.isnan(buf[:p_offset]).all() and torch.isnan(buf[p_offset + size:]).all()
+
+
+@pytest.mark.parametrize("n,hd,offset", [(64, 30, 1), (64, 15, 0), (49, 17, 1), (16, 7, 1)])
+def test_window_attn_fwd_bf16_odd_strides(gpu, n, hd, offset):
+    """An odd head dim or views at an odd element offset cannot take bf16
+    pairs: the kernel copies and stores element by element."""
+    b_, nh = 30, 3
+    size = b_ * nh * n * hd
+
+    def view(s=1.0):
+        return (_bf(gpu, size + offset, s=s)[offset:]).view(b_, nh, n, hd)
+
+    q, k, v, out = view(hd ** -0.5), view(), view(), view()
+    bias = _rnd(gpu, nh, n, n, s=0.1)
+    mask = (torch.rand((6, n, n), generator=gpu, device="cuda") > 0.8).float() * -100.0
+    p, p_p = (torch.empty(b_, nh, n, n, device="cuda", dtype=BF16) for _ in range(2))
+    got = at.window_attn_fwd(q, k, v, bias, mask, scale=1.5, out=out, p_out=p)
+    _close_bf16(got, at._torch_attention(q, k, v, bias, mask, 1.5, p_p))
+    _close_bf16(p, p_p)
+
+
+@pytest.mark.parametrize("b_", [1, 7, 600])
+def test_window_attn_fwd_bf16_window_counts(gpu, b_):
+    """Fewer windows than groups, and counts the groups do not divide."""
+    q, k, v = (_bf(gpu, b_, 6, 64, 30, s=s) for s in (30 ** -0.5, 1, 1))
+    bias = _rnd(gpu, 6, 64, 64, s=0.1)
+    p, p_p = (torch.empty(b_, 6, 64, 64, device="cuda", dtype=BF16) for _ in range(2))
+    got = at.window_attn_fwd(q, k, v, bias, None, p_out=p)
+    _close_bf16(got, at._torch_attention(q, k, v, bias, None, 1.0, p_p))
+    _close_bf16(p, p_p)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attn_fwd_bf16_p_is_the_bwd_recompute(gpu, masked):
+    """The forward's p and the backward's recompute of it come from the same
+    scores and softmax (window_attn_bf16.cuh): dv from the recompute form
+    equals dv from the saved-p form fed the forward's p_out, bit for bit."""
+    qkv, do, bias, mask = _attn_trunk_case(gpu, 288)
+    qkv, do = qkv.to(BF16), do.to(BF16)
+    m = mask if masked else None
+    p = torch.empty(288, 6, 64, 64, device="cuda", dtype=BF16)
+    at.window_attn_fwd(*_views(qkv), bias, m, scale=30 ** -0.5, p_out=p)
+    dv_saved = at.window_attn_bwd(*_views(qkv), bias, m, do, scale=30 ** -0.5, p=p)[2]
+    dv_recompute = at.window_attn_bwd(*_views(qkv), bias, m, do, scale=30 ** -0.5)[2]
+    torch.cuda.synchronize()
+    assert torch.equal(dv_saved, dv_recompute)
+
+
+def test_window_attn_fwd_bf16_repeats_bit_for_bit(gpu):
+    qkv, _, bias, mask = _attn_trunk_case(gpu, 144)
+    qkv = qkv.to(BF16)
+    ps = [torch.empty(144, 6, 64, 64, device="cuda", dtype=BF16) for _ in range(2)]
+    outs = [at.window_attn_fwd(*_views(qkv), bias, mask, scale=30 ** -0.5, p_out=p) for p in ps]
+    torch.cuda.synchronize()
+    assert torch.equal(*outs) and torch.equal(*ps)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the whole run (needs one CUDA GPU)
     python3 chip_smoke.py --quick    # build + kernel checks only, no timing
-    python3 chip_smoke.py --bits DIR # the attention outputs' digests of the port in DIR
+    python3 chip_smoke.py --bits DIR # attention and LN-backward digests of the port in DIR
 
 1. Prints the card (nvidia-smi name and power limit), the torch version, and
    builds the CUDA kernels from ``sei_tpu_torch/ops/csrc`` into
@@ -30,8 +30,12 @@
    output into the (B_, N, nh, hd) att buffer, do from the datt buffer, dq,
    dk, dv into a second (T, 540) buffer), and the backward's dv from its
    recompute form must equal its dv from the forward's p_out bit for bit
-   (both kernels take p from one softmax).  Then SHA-256 digests of the
-   attention backward's outputs and the f32 forward's on seeded inputs
+   (both kernels take p from one softmax).  The bf16 LN backward's calls
+   (LN2 and LN1 at both graphs) also print their device time apart: the
+   LN kernel's and the dgamma/dbeta sums' (torch.profiler), beside the
+   wrapper's queued time; its completion ticket must be back at 0.  Then
+   SHA-256 digests of the attention backward's outputs, the f32 forward's
+   and the LN backward's (f32 and bf16, both forms) on seeded inputs
    (``--bits DIR`` prints them alone for the port in DIR, so two trees can
    be compared in one run).
 3. Eval path: ``get_model`` (flagship SwinIR, weights from seed 0) ->
@@ -46,7 +50,8 @@
    the launch counts per step against the design's, that the loss is finite
    and the weights moved; holds one step's gradients on the kernel path
    against the plain path (same inputs, draws and drop-path); profiles one
-   step by kernel.
+   step by kernel, with PyTorch's ``reduce_kernel`` launches attributed to
+   the port wrapper that made them (the two after its kernel).
 5. Captured training: the same trainer as one CUDA graph per dispatch
    (``Trainer(capture=True)``, the default on CUDA) at ``scan_steps`` 1 and
    2, f32 and bf16, from the same seed-0 weights and streams as the eager
@@ -64,7 +69,8 @@
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
    the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue``, ``gemm_dgrad``,
    ``window_attn_bwd`` and ``window_attn_fwd``, CUDA-core FMAs for the
-   rest; the f32
+   rest; the bf16 ``ln_rows_bwd`` in 4-channel accesses with a cp.async
+   ring of rows per warp; the f32
    ``gemm_bias_epilogue`` in 8x6
    register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
    register tiles fed through registers, the f32 ``gemm_wgrad`` in 8x6
@@ -826,14 +832,96 @@ def check_bf16_kernels(timed: bool) -> dict:
                            st._torch_ln_rows_bwd(x, gamma, dz, wmap, dres, out_dtype), (1e-3, 1e-4))
             x2d, gb, dzb = x4.view(t, C), gamma.to(bf), dz.to(bf)
             _, mean, rstd = torch.ops.aten.native_layer_norm(x2d, [C], gb, None, 1e-5)
-            record("ln_rows_bwd", f"{variant} T={t}", errs,
-                   lambda: st.ln_rows_bwd(x, gamma, dz, window=wmap, dres=dres, out_dtype=out_dtype),
+
+            def call(x=x, dz=dz, wmap=wmap, dres=dres, out_dtype=out_dtype):
+                return st.ln_rows_bwd(x, gamma, dz, window=wmap, dres=dres, out_dtype=out_dtype)
+
+            record("ln_rows_bwd", f"{variant} T={t}", errs, call,
                    lambda: st._torch_ln_rows_bwd(x, gamma, dz, wmap, dres, out_dtype),
                    lambda: torch.ops.aten.native_layer_norm_backward(
                        dzb, x2d, [C], mean, rstd, gb, None, [True, True, False]),
                    12.0 * t * C, nb(x, dz, dres, outs[0], gamma) + 8.0 * C, 1 if main else 0)
+            if timed:  # the call's device time apart: the LN kernel, and the dgamma/dbeta sums
+                r = rows["ln_rows_bwd"][-1]
+                split = device_ms_by_name(call)
+                r["kernel_ms"] = sum(ms for k, ms in split.items() if "ln_rows_bwd" in k
+                                     and "ln_rows_bwd_sum" not in k)
+                r["sums_ms"] = sum(ms for k, ms in split.items() if "reduce_kernel" in k
+                                   or "ln_rows_bwd_sum" in k)
+                print(f"    ln_rows_bwd[bf16 {variant} T={t}] apart: LN kernel {r['kernel_ms']:.4f} "
+                      f"ms, dgamma/dbeta sums {r['sums_ms']:.4f} ms (profiler, per call), "
+                      f"the wrapper queued {r['queued_ms']:.4f} ms; by name {json.dumps(split)}")
             del dz, dres, outs
+    ticket = ln_bwd_ticket()
+    print(f"  ln_rows_bwd[bf16] completion ticket after every call: {ticket} -> "
+          f"{'ok' if ticket in (0, None) else 'FAIL'}")
+    if ticket not in (0, None):
+        fail("the bf16 LN backward's ticket is not back at 0")
     return rows
+
+
+def ln_bwd_config(built) -> str:
+    """The bf16 LN backward's build switches in the library ``built``, and
+    the blocks per SM of its occupancy in the bf16 step's two forms (C = 180)."""
+    import torch
+
+    if not hasattr(built.lib, "sei_ln_rows_bwd_bf16_config"):
+        return "not in this library (an earlier tree's)"
+    cfg = [built.lib.sei_ln_rows_bwd_bf16_config(i) for i in range(5)]
+    per_sm = [built.lib.sei_ln_rows_bwd_bf16_blocks_per_sm(torch.cuda.current_device(), *f, C)
+              for f in ((0, 1, 0), (1, 0, 1))]
+    return (f"{cfg[0]} lanes per row ({32 // cfg[0]} rows per warp), a cp.async ring of up to "
+            f"{cfg[1]} stages per warp, {cfg[2]} warps per block, registers capped for {cfg[3]} "
+            f"block(s) per SM, "
+            f"occupancy {per_sm[0]} (LN2) / {per_sm[1]} (LN1) blocks per SM, partials summed by "
+            + ("the last block" if cfg[4] else "a second kernel"))
+
+
+def ln_bwd_ticket():
+    """The bf16 LN backward's completion ticket on the current device (0
+    between calls); None for a library without one (an earlier tree's, when
+    this script measures it)."""
+    import ctypes
+
+    import torch
+
+    from sei_tpu_torch.ops import _build
+
+    lib = _build.library().lib
+    if not hasattr(lib, "sei_ln_rows_bwd_bf16_ticket"):
+        return None
+    value = ctypes.c_uint(1)
+    code = lib.sei_ln_rows_bwd_bf16_ticket(torch.cuda.current_device(), ctypes.addressof(value))
+    _build.check(code, "sei_ln_rows_bwd_bf16_ticket")
+    return value.value
+
+
+def device_ms_by_name(fn, iters: int = 20) -> dict:
+    """Device ms per call of ``fn`` by kernel name (torch.profiler over
+    ``iters`` calls after one warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / 1e3 / iters for e in device_events(prof)}
+
+
+def digest(tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of ``tensors``' bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy())
+    return h.hexdigest()[:16]
 
 
 def attention_bits() -> None:
@@ -842,8 +930,6 @@ def attention_bits() -> None:
     36864, f32 and bf16, both masks, both forms (p recomputed; p saved, the
     plain version's); the same lines from two trees in one run say whether
     those outputs moved by a bit."""
-    import hashlib
-
     import torch
 
     from sei_tpu_torch.models.swinir import shift_attn_mask
@@ -855,13 +941,6 @@ def attention_bits() -> None:
     bias = torch.randn((NH, N, N), generator=g, device="cuda") * 0.1
     qkv = torch.randn((b_, N, 3, NH, HD), generator=g, device="cuda")
     do = (torch.randn((b_, N, NH, HD), generator=g, device="cuda") * 0.1).transpose(1, 2)
-
-    def digest(tensors) -> str:
-        h = hashlib.sha256()
-        for t in tensors:
-            t = t.contiguous()
-            h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy())
-        return h.hexdigest()[:16]
 
     for dtype in (torch.float32, torch.bfloat16):
         buf = qkv.to(dtype)
@@ -875,6 +954,33 @@ def attention_bits() -> None:
             if dtype == torch.float32:
                 print(f"bits: window_attn_fwd[{dtype} {variant}] "
                       + digest([at.window_attn_fwd(q, k, v, bias, m, scale=scale)]))
+
+
+def ln_bwd_bits() -> None:
+    """SHA-256 of ln_rows_bwd's outputs (dx, dgamma, dbeta) on seeded inputs
+    at the 2B graph's shape (T = 36864), f32 and bf16, in the trunk's two
+    forms and dtypes: LN2 (rows in pixel order, the residual gradient added)
+    and LN1 (the shifted window map, the residual gradient added)."""
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    b = TRAIN_GRAPHS[0]
+    t = b * CROP * CROP
+    wm = st.WindowMap(CROP, CROP, WS, WS // 2)
+    x = torch.randn((b, CROP, CROP, C), generator=g, device="cuda") + 0.5
+    gamma = 1.0 + 0.1 * torch.randn(C, generator=g, device="cuda")
+    dz = torch.randn((t, C), generator=g, device="cuda")
+    dres = torch.randn((b, CROP, CROP, C), generator=g, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, low = x.to(dtype), (lambda u: u.to(dtype))
+        for form, args in (("ln2", (xd.view(t, C), gamma, dz, None, low(dres).view(t, C),
+                                    torch.float32)),
+                           ("ln1_window", (xd, gamma, low(dz), wm, dres, dtype))):
+            xx, gg, zz, wmap, rr, out_dtype = args
+            print(f"bits: ln_rows_bwd[{dtype} {form}] " + digest(
+                st.ln_rows_bwd(xx, gg, zz, window=wmap, dres=rr, out_dtype=out_dtype)))
 
 
 def check_probe_kernels(timed: bool) -> dict:
@@ -1033,17 +1139,26 @@ PORT_KERNELS = ("ln_rows", "gemm_bias_epilogue", "window_attn_fwd", "gemm_dgrad"
                 "window_attn_bwd", "ln_rows_bwd")
 
 
+# a port kernel's CUDA function name, ``<kernel>_<form>kernel``: the form's
+# label in a profile split
+KERNEL_FORMS = {"": "", "f32_": "", "mma_": "[mma]", "vec_": "[vec]", "sum_": "[sum]"}
+# the kernels whose wrappers sum their partials with two torch reductions
+# (name fragment -> wrapper): every weight grad, and the f32 LN backward
+REDUCE_CALLERS = {"gemm_wgrad_": "gemm_wgrad", "ln_rows_bwd_kernel": "ln_rows_bwd"}
+
+
 def kernel_split(events) -> dict:
     """Device ms of a profile by kernel: each of the port's kernels (its
-    tensor-core version as ``name[mma]``; ``name_f32_kernel`` counts as
-    ``name``), then the rest (cuDNN, cuFFT, cuBLAS, PyTorch's reductions and
-    elementwise kernels) as ``other_ms`` with its five largest entries by
-    name."""
+    tensor-core version as ``name[mma]``, the bf16 LN backward's as
+    ``ln_rows_bwd[vec]`` and its partials' sum kernel as ``ln_rows_bwd[sum]``;
+    ``name_f32_kernel`` counts as ``name``), then the rest (cuDNN, cuFFT,
+    cuBLAS, PyTorch's reductions and elementwise kernels) as ``other_ms``
+    with its five largest entries by name."""
     split, other = {}, {}
     for e in events:
         ms = e.self_device_time_total / 1e3
-        name = next((k + ("[mma]" if f"{k}_mma_kernel" in e.key else "") for k in PORT_KERNELS
-                     if any(f"{k}_{v}kernel" in e.key for v in ("", "f32_", "mma_"))), None)
+        name = next((k + label for k in PORT_KERNELS for v, label in KERNEL_FORMS.items()
+                     if f"{k}_{v}kernel" in e.key), None)
         if name is None:
             other[e.key[:80]] = other.get(e.key[:80], 0.0) + ms
         else:
@@ -1054,10 +1169,29 @@ def kernel_split(events) -> dict:
     return split
 
 
+def reduce_callers(events) -> dict:
+    """The profile's ``at::native::reduce_kernel`` launches by the port
+    wrapper that made them: the two that follow a kernel named in
+    ``REDUCE_CALLERS`` on the device (its wrapper's two torch sums of the
+    kernel's partials), ``other`` for the rest; launches and device ms."""
+    out, owner, left = {}, None, 0
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if "reduce_kernel" in e.name:
+            r = out.setdefault(owner if left > 0 else "other", {"launches": 0, "ms": 0.0})
+            r["launches"] += 1
+            r["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+            left -= 1
+        else:
+            owner = next((w for k, w in REDUCE_CALLERS.items() if k in e.name), None)
+            left = 2 if owner else 0
+    return out
+
+
 def profile_step(step_fn, label: str) -> tuple[float, float]:
     """Device time by kernel over one call of ``step_fn`` (torch.profiler /
     CUPTI), and the device's busy share: kernel time over the host-clock
-    wall time of an unprofiled call.  Returns (wall ms, device ms); where
+    wall time of an unprofiled call; PyTorch's ``reduce_kernel`` launches by
+    the port wrapper that made them.  Returns (wall ms, device ms); where
     the profiler sees no kernel (a graph replay it cannot trace), the device
     span of one call by CUDA events stands in."""
     import torch
@@ -1090,6 +1224,9 @@ def profile_step(step_fn, label: str) -> tuple[float, float]:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     print(f"  device ms by kernel, {label}: {json.dumps(kernel_split(events))}")
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    print(f"  reduce_kernel by caller, {label}: {json.dumps(reduce_callers(kernels))}")
     return wall_ms, total
 
 
@@ -1481,6 +1618,9 @@ DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
                                     "softmax in the accumulators, p packed into P.V's A "
                                     "fragments, ldmatrix.trans for V, p out through a shared "
                                     "tile, cp.async stage ring",
+           "ln_rows_bwd[bf16]": "cuda-core fma, 4 channels per access, a row to a group of "
+                                "lanes, a cp.async ring of rows per warp in shared memory, "
+                                "dgamma/dbeta summed on the device in block order",
            "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
            "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async",
@@ -1511,7 +1651,10 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "window_attn_bwd[bf16] cuda-core fma, operands from shared memory 0.4311 ms, "
               "0.4213 queued (T=36864, saved p, mean of the masks); "
               "window_attn_fwd[bf16] cuda-core fma, one block per (window, head) 0.2268 ms, "
-              "0.2219 queued (T=36864, p store, mean of the masks)")
+              "0.2219 queued (T=36864, p store, mean of the masks); "
+              "ln_rows_bwd[bf16] cuda-core fma, one warp per row, scalar loads, dgamma/dbeta "
+              "partials summed by two torch reductions 0.2046 ms, 0.1109 queued (T=36864: ln2 "
+              "0.0577, ln1_window 0.0532; T=18432: 0.0359, 0.0353)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -1539,9 +1682,10 @@ def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak:
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": total("library_ms"),
                     "library_queued_ms": total("library_queued_ms"),
                     "variants": [{k: r.get(k) for k in ("variant", "per_block", "max_abs_err", "ms",
-                                                        "queued_ms", "plain_ms", "bound_ms",
-                                                        "bound_by", "library_ms",
-                                                        "library_queued_ms")}
+                                                        "queued_ms", "kernel_ms", "sums_ms",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms", "library_queued_ms")
+                                  if k in r or k not in ("kernel_ms", "sums_ms")}
                                  for r in rows[name]]})
     return out
 
@@ -1599,6 +1743,7 @@ def main(argv: list[str]) -> int:
 
         print(f"gpu: {nvidia_smi()}; port from {attention.__file__}")
         attention_bits()
+        ln_bwd_bits()
         return 0
     from sei_tpu_torch.device import resolve_device
     from sei_tpu_torch.ops import _build
@@ -1619,15 +1764,19 @@ def main(argv: list[str]) -> int:
                           ("f32 attention backward", "window_attn_bwd_f32_kernel"),
                           ("f32 attention forward", "window_attn_fwd_f32_kernel"),
                           ("bf16 attention backward", "window_attn_bwd_mma_kernel"),
-                          ("bf16 attention forward", "window_attn_fwd_mma_kernel")):
+                          ("bf16 attention forward", "window_attn_fwd_mma_kernel"),
+                          ("bf16 LN backward", "ln_rows_bwd_vec_kernel"),
+                          ("bf16 LN backward's sum", "ln_rows_bwd_sum_kernel")):
         print(f"ptxas, {label}: " + " | ".join(
             line.split(" ", 1)[1] for line in report if kernel in line))
+    print(f"bf16 LN backward build: {ln_bwd_config(built)}")
 
     rows = check_kernels(timed=not quick)
     for name, variants in check_train_kernels(timed=not quick).items():
         rows.setdefault(name, []).extend(variants)
     rows_bf16 = check_bf16_kernels(timed=not quick)
     attention_bits()
+    ln_bwd_bits()
     rows_probe = check_probe_kernels(timed=not quick)
     if quick:
         print("quick: kernel checks passed")

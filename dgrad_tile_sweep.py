@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Tile sweeps of four GEMM kernels and four attention kernels on one card.
+"""Tile sweeps of four GEMM kernels, four attention kernels and the bf16 LN
+backward on one card.
 
     python3 dgrad_tile_sweep.py                 # bf16 gemm_dgrad, output tile width
     python3 dgrad_tile_sweep.py --fwd-f32       # f32 gemm_bias_epilogue, block tile
@@ -9,6 +10,7 @@
     python3 dgrad_tile_sweep.py --attn-fwd-f32  # f32 window_attn_fwd, block shape, stages
     python3 dgrad_tile_sweep.py --attn-bwd-bf16 # bf16 window_attn_bwd, warps, stages, blocks
     python3 dgrad_tile_sweep.py --attn-fwd-bf16 # bf16 window_attn_fwd, stages, blocks, p route
+    python3 dgrad_tile_sweep.py --ln-bwd-bf16   # bf16 ln_rows_bwd, lanes, stages, warps, sum route
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
 is 64 rows by ``SEI_DGRAD_TN`` columns of K
@@ -114,6 +116,22 @@ the builds in turns, as the bf16 trunk calls it (K5: q, k, v strided from
 the qkv buffer, the output into the att buffer, p saved) at both graphs,
 with and without the shift mask; the build is chosen on the bf16 step's
 sum: 36 SwinBlocks per graph, half of them masked.
+
+With ``--ln-bwd-bf16``: the bf16 ``ln_rows_bwd`` kernel
+(``sei_tpu_torch/ops/csrc/ln_rows_bwd.cu``, ``ln_rows_bwd_vec_kernel``), its
+lanes per row (16: two rows per warp, 3 quads of 4 channels per lane at C
+= 180; 8: four rows, 6 quads; 32: one row, 2 quads), the stages of each
+warp's cp.async ring in shared memory, its warps per block and the blocks
+per SM its registers are capped for, and the route of the dgamma / dbeta
+sum (a second kernel, or the last block to finish)
+(``-DSEI_LN_BWD_BF16_LANES``, ``_STAGES``, ``_WARPS``, ``_MINB``, ``_TICKET``;
+the wrapper sizes its grid from the occupancy each build reaches).  Each
+build is held against the plain version (``chip_smoke.py``'s tolerances)
+and timed queued (the wrapper's call, the sum included), the builds in
+turns, on the bf16 step's four calls as the trunk makes them: LN2 (f32 dz,
+bf16 residual gradient -> f32 dx2) and LN1 (the shifted window map, bf16
+da, f32 dx2 -> bf16 dx) at both graphs; the build is chosen on the bf16
+step's sum: 36 SwinBlocks per graph, each one LN2 and one LN1 call.
 """
 
 from __future__ import annotations
@@ -182,6 +200,15 @@ DEFAULT_ATTN_BWD_BF16_BLOCK = (4, 3, 2)
 ATTN_FWD_BF16_BLOCKS = ((3, 3, 1, 1), (2, 4, 1, 1), (1, 4, 1, 1), (3, 3, 1, 0), (2, 4, 1, 0),
                         (1, 4, 1, 0), (3, 4, 1, 0), (3, 3, 0, 1))
 DEFAULT_ATTN_FWD_BF16_BLOCK = (2, 4, 1, 0)  # the library's
+# (lanes per row, stages of each warp's cp.async ring, warps per block,
+# blocks per SM the registers are capped for, last block sums): 16 lanes,
+# two stages, one block of 16 warps per SM (96 KB of ring at C = 180, 132
+# partials summed by the last block; the library's) and the same with a
+# second kernel summing; three and four stages each way; two blocks of 8
+# warps (264 partials) at two and three stages; 32 lanes (one row per warp)
+LN_BWD_BF16_BUILDS = ((16, 2, 16, 1, 1), (16, 2, 16, 1, 0), (16, 3, 16, 1, 1), (16, 3, 16, 1, 0),
+                      (16, 4, 16, 1, 1), (16, 2, 8, 2, 1), (16, 3, 8, 2, 1), (32, 2, 16, 1, 1))
+DEFAULT_LN_BWD_BF16_BUILD = (16, 2, 16, 1, 1)
 
 
 def main(argv: list[str]) -> int:
@@ -210,6 +237,8 @@ def main(argv: list[str]) -> int:
         return sweep_attn_bwd_bf16(smi)
     if "--attn-fwd-bf16" in argv:
         return sweep_attn_fwd_bf16(smi)
+    if "--ln-bwd-bf16" in argv:
+        return sweep_ln_bwd_bf16(smi)
     return sweep_dgrad_bf16(smi)
 
 
@@ -686,6 +715,55 @@ def sweep_attn_fwd_bf16(smi: str) -> int:
               + ", ".join(f"{k} {ms:.4f}" for k, ms in per_block.items())
               + f"; per bf16 step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
     print(json.dumps({"attn_fwd_bf16_sweep": result, "gpu": smi}))
+    return 0
+
+
+def sweep_ln_bwd_bf16(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    default = DEFAULT_LN_BWD_BF16_BUILD
+    builds = build_all({"l{}_s{}_w{}_b{}_".format(*b[:4]) + ("last" if b[4] else "sumk"):
+                        () if b == default else tuple(
+                            f"SEI_LN_BWD_BF16_{k}={v}"
+                            for k, v in zip(("LANES", "STAGES", "WARPS", "MINB", "TICKET"), b))
+                        for b in LN_BWD_BF16_BUILDS}, "ln_rows_bwd_")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf, f32, c = torch.bfloat16, torch.float32, cs.C
+
+    # the bf16 step's two calls per graph, as the trunk makes them
+    calls = {}
+    for b in cs.TRAIN_GRAPHS:
+        t = b * cs.CROP * cs.CROP
+        wm = st.WindowMap(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)
+        x = torch.randn((b, cs.CROP, cs.CROP, c), generator=g, device="cuda").to(bf)
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        for variant, xx, wmap, dz_dtype, res_dtype, out_dtype in (
+                ("ln2", x.view(t, c), None, f32, bf, f32), ("ln1_window", x, wm, bf, f32, bf)):
+            dz = torch.randn((t, c), generator=g, device="cuda").to(dz_dtype)
+            dres = torch.randn(xx.shape, generator=g, device="cuda").to(res_dtype)
+            calls[f"{variant} T={t}"] = (
+                lambda xx=xx, gm=gamma, dz=dz, wmap=wmap, dres=dres, o=out_dtype: st.ln_rows_bwd(
+                    xx, gm, dz, window=wmap, dres=dres, out_dtype=o),
+                st._torch_ln_rows_bwd(xx, gamma, dz, wmap, dres, out_dtype))
+
+    def check(build, variant, call):
+        for i, (x, y) in enumerate(zip(call[0](), call[1])):
+            cs.compare_bf16(f"ln_rows_bwd[bf16 build {build} {variant}][{i}]", x, y, (1e-3, 1e-4))
+
+    result = {}
+    for build, per_call in check_and_time(builds, calls, check).items():
+        per_block = {f"T={b * cs.CROP * cs.CROP}": sum(
+            per_call[f"{v} T={b * cs.CROP * cs.CROP}"] for v in ("ln2", "ln1_window"))
+            for b in cs.TRAIN_GRAPHS}
+        step = cs.BLOCKS * sum(per_block.values())
+        result[build] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_block,
+                         "step_queued_ms": step}
+        print(f"build {build}: per SwinBlock (LN2 + LN1) "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in per_block.items())
+              + f"; per bf16 step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
+    print(json.dumps({"ln_bwd_bf16_sweep": result, "gpu": smi}))
     return 0
 
 

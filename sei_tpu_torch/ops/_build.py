@@ -49,6 +49,11 @@ _SIGNATURES = {
     "sei_window_attn_bwd_bf16_blocks_per_sm": [_I],
     "sei_ln_rows_bwd": [_I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _L, _I, _F,
                         *[_I] * 6, _P],
+    "sei_ln_rows_bwd_bf16": [_I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _L, _I, _F,
+                             *[_I] * 6, _P],
+    "sei_ln_rows_bwd_bf16_blocks_per_sm": [_I] * 5,
+    "sei_ln_rows_bwd_bf16_config": [_I],
+    "sei_ln_rows_bwd_bf16_ticket": [_I, _P],
     "sei_gemm_dgrad": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _I, *[_I] * 9, _P],
     "sei_gemm_wgrad": [_I, _I, _P, _P, _I, _P, _P, _P, *[_I] * 11, _P],
     "sei_gemm_wgrad_f32_splits": [_I, _I, _I, _I],

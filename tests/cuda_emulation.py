@@ -12,7 +12,10 @@ exchange between the 32 threads of a warp at a barrier of their own
 exchange of row addresses or fragment registers, gathered by the PTX
 layouts (the mma sums exact bf16 products in f32), ``cp.async`` a
 synchronous copy (zero-filled where the kernel asks for none), the card
-has 132 SMs that hold one block of any kernel each, and ``float4``,
+has 132 SMs that hold one block of any kernel each, ``atomicInc`` is a
+locked update, ``__threadfence`` a fence, ``__ldcg`` a plain load,
+``cudaMemcpyFromSymbol`` a copy of the host variable, ``rsqrtf`` is
+``1 / sqrtf``, ``blockDim`` and ``gridDim`` are the launch's, and ``float4``,
 ``erff``, ``expf`` and ``INFINITY`` come from the host.  Without
 ``__CUDACC__`` the GEMM sources leave out their tensor-core kernels, whose
 entry points then refuse.
@@ -49,6 +52,7 @@ STUB = r"""
 #include <string.h>
 
 #include <algorithm>
+#include <atomic>
 #include <condition_variable>
 #include <mutex>
 #include <thread>
@@ -73,6 +77,7 @@ struct alignas(8) uint2 { unsigned x, y; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
 inline double div_rn_f64(double a, double b) { return a / b; }
 using std::max;
 using std::min;
@@ -117,7 +122,7 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   return cudaSuccess;
 }
 
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 struct SeiBarrier {
   std::mutex m;
@@ -138,6 +143,27 @@ struct SeiBarrier {
 };
 inline SeiBarrier sei_barrier;
 inline void __syncthreads() { sei_barrier.wait(); }
+
+// atomics and fences (the blocks run one after another; the counter is
+// taken by one thread of a block at a time)
+inline std::mutex sei_atomic_mutex;
+inline unsigned atomicInc(unsigned* a, unsigned limit) {
+  std::lock_guard<std::mutex> lock(sei_atomic_mutex);
+  const unsigned old = *a;
+  *a = old >= limit ? 0u : old + 1u;
+  return old;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <typename V>
+inline V __ldcg(const V* p) { return *p; }
+enum cudaMemcpyKind { cudaMemcpyDeviceToHost = 2 };
+template <typename S>
+inline cudaError_t cudaMemcpyFromSymbol(void* dst, const S& symbol, size_t count,
+                                        size_t offset = 0,
+                                        cudaMemcpyKind = cudaMemcpyDeviceToHost) {
+  memcpy(dst, reinterpret_cast<const char*>(&symbol) + offset, count);
+  return cudaSuccess;
+}
 
 template <int BYTES>
 inline void cp_async(void* dst, const void* src, bool valid) {
@@ -274,6 +300,8 @@ auto sei_host_launch(dim3 grid, dim3 block, void (*kernel)(P...)) {
             threads.emplace_back([=] {
               blockIdx = dim3(bx, by, bz);
               threadIdx = dim3(t);
+              blockDim = block;
+              gridDim = grid;
               kernel(args...);
             });
           for (auto& th : threads) th.join();

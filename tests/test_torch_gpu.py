@@ -1174,6 +1174,72 @@ def test_ln_rows_bwd_bf16(gpu, c, shift, form):
         _close_bf16(a, b)
 
 
+def _ln_bwd_bf16_case(g, b, h, w, c, shift, form, with_res=True):
+    x = _bf(g, b, h, w, c)
+    wm = None if shift is None else st.WindowMap(h, w, 4, shift)
+    inp = x if wm else x.view(-1, c)
+    dz_dtype, res_dtype, out_dtype = (F32, BF16, F32) if form == "ln2" else (BF16, F32, BF16)
+    dz = _rnd(g, b * h * w, c).to(dz_dtype)
+    dres = _rnd(g, *inp.shape).to(res_dtype) if with_res else None
+    return (inp, 1 + _rnd(g, c, s=0.1), dz), dict(window=wm, dres=dres, out_dtype=out_dtype)
+
+
+def _ln_bwd_ticket():
+    import ctypes
+
+    from sei_tpu_torch.ops import _build
+
+    value = ctypes.c_uint(1)
+    assert _build.library().lib.sei_ln_rows_bwd_bf16_ticket(
+        torch.cuda.current_device(), ctypes.addressof(value)) == 0
+    return value.value
+
+
+@pytest.mark.parametrize("b,h,w,c,shift", [(1, 1, 3, 180, None), (1, 4, 4, 4, 0),
+                                           (1, 4, 8, 12, 2), (2, 8, 12, 256, 2),
+                                           (3, 16, 16, 180, None), (8, 48, 48, 180, 2)])
+@pytest.mark.parametrize("form", ["ln2", "ln1"])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_ln_rows_bwd_bf16_edges(gpu, b, h, w, c, shift, form, with_res):
+    """The bf16 kernel at fewer rows than a warp holds, C = 4, 12, 180 and
+    256, the window map at shift 0 and > 0, with and without the residual
+    gradient, and the flagship 2B graph; one launch each, and the completion
+    ticket back at 0 after it."""
+    args, kw = _ln_bwd_bf16_case(gpu, b, h, w, c, shift, form, with_res)
+    before = st.ln_rows_bwd.launches
+    got = st.ln_rows_bwd(*args, **kw)
+    assert st.ln_rows_bwd.launches == before + 1
+    want = st._torch_ln_rows_bwd(*args, kw["window"], kw["dres"], kw["out_dtype"])
+    for a, b_ in zip(got, want):
+        if b_.dtype == F32 and a.numel() == c:  # dgamma, dbeta: sums over up to 18432 rows
+            _close(a, b_, 1e-4, 1e-3)
+        else:
+            _close_bf16(a, b_)
+    assert _ln_bwd_ticket() == 0
+
+
+@pytest.mark.parametrize("form", ["ln2", "ln1"])
+def test_ln_rows_bwd_bf16_repeats_bit_for_bit(gpu, form):
+    """dgamma and dbeta are summed in a fixed order (no atomics): two calls
+    on the flagship 2B graph's inputs give the same bits."""
+    args, kw = _ln_bwd_bf16_case(gpu, 16, 48, 48, 180, 2 if form == "ln1" else None, form)
+    first = st.ln_rows_bwd(*args, **kw)
+    second = st.ln_rows_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ln_rows_bwd_bf16_refuses_odd_widths_and_unaligned_views(gpu):
+    args, kw = _ln_bwd_bf16_case(gpu, 1, 4, 4, 18, None, "ln2")
+    with pytest.raises(ValueError, match="C % 4 == 0"):
+        st.ln_rows_bwd(*args, **kw)
+    x, gamma, dz = _ln_bwd_bf16_case(gpu, 1, 4, 4, 16, None, "ln2")[0]
+    shifted = torch.empty(x.numel() + 1, device="cuda", dtype=BF16)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        st.ln_rows_bwd(shifted, gamma, dz, out_dtype=F32)
+
+
 def test_kernels_refuse_other_dtypes(gpu):
     x = _rnd(gpu, 4, 16).half()
     with pytest.raises(ValueError, match="x must be"):

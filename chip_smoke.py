@@ -64,6 +64,22 @@
    at ``scan_steps`` 1 and bf16 at 2, equal to its eager run bit for bit,
    with ``proposed``'s launches per step and finite losses; its steady ms
    per step and busy share beside proposed's and the nvidia-smi line.
+   Then the SR task (x2, the flagship SwinIR with the pixelshuffle head,
+   weights from seed 0): ``evaluate`` on the 4 seeded 256x320 images in f32
+   and bf16 (measurements 128x160, padded to 128x192: T = 24576), the
+   launch counts, PSNR/SSIM and ms per image, one forward against the plain
+   forward (f32 1e-3 abs, bf16 3e-2 of the plain output's maximum) and
+   profiled by kernel;
+   ``Upsample`` on the same pairs; one x3 (128x128) and one x4 (64x128)
+   forward against the plain forward.  SR x2 training (48 px crops of the
+   measurement, the deblurring step's 2B and B graphs): ``proposed`` with
+   SURE in f32 eager then captured at ``scan_steps`` 1, R2R-EI in bf16 eager
+   then captured at 2, each equal to its eager run bit for bit with proposed
+   deblurring's launches per step; steady ms per step, one dispatch's device
+   ms, the busy share and peak memory.  Then ``cli.train --task sr
+   --sr_factor 2`` (2 captured steps on 16 PNGs, its losses equal to a
+   directly built ``Trainer``'s bit for bit) and ``cli.test --task sr`` on
+   its ``weights.pt`` (equal to ``evaluate_pairs``); the SR launches by run.
 6. The command lines: 16 seeded dead-leaves-like 512x640 PNGs written by
    the port's writer into a temporary ``gt_folder:`` (the dataset's
    shorter-side-256 resize brings them to 256x320), then
@@ -187,6 +203,22 @@ TIMED_DISPATCHES = 4
 CLI_IMAGES, CLI_TEST_INDICES = 16, (0, 1, 2, 3)
 # in-training validation in the command-line phase: the first 4 PNGs
 CLI_EVAL_COUNT = 4
+# the SR phase: SR x2 (the JAX package's SR recipe, experiments/queue_r3q.sh:
+# 54-56); training crops of CROP px on the measurement's side (the dataset
+# crops the loss's 48 px directly, demo/train.py:194-201), so the 2B and B
+# graphs are the deblurring step's; the eval's 64 bucket on each factor's
+# measurement of a 256x320 image: x2 128x160 -> 128x192, x3 85x106 ->
+# 128x128, x4 64x80 -> 64x128
+SR_FACTOR, SR_OTHER_FACTORS, PAD_BUCKET = 2, (3, 4), 64
+# TASK_ARGS: each task's physics flags on the command lines
+TASK_ARGS = {"deblurring": ["--task", "deblurring", "--kernel", "Gaussian_R2"],
+             "sr": ["--task", "sr", "--sr_factor", str(SR_FACTOR)]}
+# a bf16 forward against the plain bf16 forward (which rounds where the
+# kernels round; an f32 sum in another order can flip a bf16 rounding,
+# which the blocks after it carry on): within 3e-2 of the plain output's
+# largest value, the JAX package's bound for its bf16 kernel
+# (tests/test_swin_trunk.py:172-176)
+FORWARD_FRAC_BF16 = 3e-2
 # the probes' shape (experiments/perf_probe_r3*.py: b, h, w, c) and depth
 PROBE_SHAPE, PROBE_DEPTH = (8, 48, 48, 180), 6
 PROBE_BLOCKS = (1, 4, 8, 24, 132, 1056)
@@ -1304,39 +1336,70 @@ def proposed_draws(trainer, physics, seed: int):
     return x, y, draws
 
 
-def train_path(dtype=None, sure_alternative=None) -> tuple[dict, object, dict]:
+def task_physics(task: str, factor: int = SR_FACTOR):
+    """The cells' physics: deblurring Gaussian_R2 or SR by ``factor``, noise 5."""
+    from sei_tpu_torch.physics import get_physics
+
+    if task == "sr":
+        return get_physics(task="sr", sr_factor=factor, noise_level=5)
+    return get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
+
+
+def task_model(task: str, dtype=None, factor: int = SR_FACTOR):
+    """The flagship SwinIR for ``task`` (SR: the pixelshuffle head by
+    ``factor``), weights from seed 0."""
+    from sei_tpu_torch.models import get_model
+
+    return get_model(kind="Proposed", architecture="Transformer", task=task,
+                     sr_factor=factor if task == "sr" else None, seed=0, dtype=dtype)
+
+
+def training_setup(task: str, dtype, sure_alternative):
+    """The training cells' model, physics, device cache, loss and dataset
+    crop (y side): deblurring 256 px dataset crops then the loss's 48, SR
+    the loss's 48 directly."""
+    from sei_tpu_torch.data import build_device_cache
+    from sei_tpu_torch.losses import get_loss
+
+    model = task_model(task, dtype)
+    physics = task_physics(task)
+    cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
+    loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP,
+                       sure_alternative=sure_alternative)
+    return model, physics, cache, loss_fn, CROP if task == "sr" else DATA_CROP
+
+
+def run_label(dtype, sure_alternative, task: str) -> str:
+    return (("bf16" if dtype is not None else "f32") + (" r2r" if sure_alternative else "")
+            + (f" sr x{SR_FACTOR}" if task == "sr" else ""))
+
+
+def train_path(dtype=None, sure_alternative=None,
+               task: str = "deblurring") -> tuple[dict, object, dict]:
     """The proposed training path on the card, eagerly (one launch at a
     time, ``capture=False``), with SwinIR's compute dtype ``dtype`` (None:
     f32; bfloat16: the JAX package's training recipe) and SURE or, with
     ``sure_alternative="r2r"``, R2R-EI; returns the kernels' launch counts
     over the run, the trainer, and the run's per-step losses, final state
     and timings (what the captured runs are held against).  One step's
-    gradients are held against the plain path for f32 SURE."""
+    gradients are held against the plain path for f32 SURE deblurring.
+    ``task="sr"``: the SR x2 SwinIR on the SR measurements."""
     import numpy as np
     import torch
 
-    from sei_tpu_torch.data import build_device_cache
-    from sei_tpu_torch.losses import get_loss
-    from sei_tpu_torch.models import get_model
     from sei_tpu_torch.ops import swin_trunk as st
-    from sei_tpu_torch.physics import get_physics
     from sei_tpu_torch.train import Trainer
 
-    label = ("bf16" if dtype is not None else "f32") + (" r2r" if sure_alternative else "")
+    label = run_label(dtype, sure_alternative, task)
     per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
     print(f"training path ({label}): build_device_cache -> get_loss(proposed"
           f"{', sure_alternative=' + repr(sure_alternative) if sure_alternative else ''}) -> Trainer "
           f"({TRAIN_IMAGES} images {H}x{W}, flagship SwinIR, compute dtype {label}, batch "
           f"{BATCH}, {CROP} px crops, {TRAIN_EPOCHS} epochs)")
     t0 = time.perf_counter()
-    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0,
-                      dtype=dtype)
-    physics = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
-    cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
-    loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP,
-                       sure_alternative=sure_alternative)
+    model, physics, cache, loss_fn, data_crop = training_setup(task, dtype, sure_alternative)
     trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
-                      crop_size=DATA_CROP, seed=0, capture=False)
+                      crop_size=data_crop, seed=0, capture=False)
     torch.cuda.synchronize()
     print(f"  set-up {time.perf_counter() - t0:.2f} s; {trainer.steps_per_epoch} steps/epoch")
     before = {k: v.clone() for k, v in model.module.state_dict().items()}
@@ -1387,7 +1450,7 @@ def train_path(dtype=None, sure_alternative=None) -> tuple[dict, object, dict]:
     print(f"  eager steady step {eager['steady_ms']:.2f} ms ({TIMED_DISPATCHES} dispatches "
           f"back to back, one sync)")
 
-    if dtype is None and sure_alternative is None:
+    if dtype is None and sure_alternative is None and task == "deblurring":
         # one step's gradients: kernel path against the plain path, same draws
         x, y, draws = proposed_draws(trainer, physics, 7)
         grads = {}
@@ -1413,8 +1476,8 @@ def train_path(dtype=None, sure_alternative=None) -> tuple[dict, object, dict]:
     return counts, trainer, eager
 
 
-def captured_train(dtype, scan_steps: int, eager: dict,
-                   sure_alternative=None) -> tuple[dict, float]:
+def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
+                   task: str = "deblurring") -> tuple[dict, float]:
     """The training path as ``Trainer`` runs it by default on CUDA: one CUDA
     graph per dispatch of ``scan_steps`` steps, from the eager run's seed-0
     weights and streams and for as many steps.  Each step's loss, the final
@@ -1426,25 +1489,16 @@ def captured_train(dtype, scan_steps: int, eager: dict,
     the steady ms per step."""
     import torch
 
-    from sei_tpu_torch.data import build_device_cache
-    from sei_tpu_torch.losses import get_loss
-    from sei_tpu_torch.models import get_model
     from sei_tpu_torch.ops import swin_trunk as st
-    from sei_tpu_torch.physics import get_physics
     from sei_tpu_torch.train import Trainer
 
-    label = ("bf16" if dtype is not None else "f32") + (" r2r" if sure_alternative else "")
+    label = run_label(dtype, sure_alternative, task)
     per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
     print(f"captured training ({label}, scan_steps {scan_steps}): the same run as one CUDA "
           f"graph per dispatch")
-    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0,
-                      dtype=dtype)
-    physics = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
-    cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
-    loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP,
-                       sure_alternative=sure_alternative)
+    model, physics, cache, loss_fn, data_crop = training_setup(task, dtype, sure_alternative)
     trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
-                      crop_size=DATA_CROP, seed=0, scan_steps=scan_steps)
+                      crop_size=data_crop, seed=0, scan_steps=scan_steps)
     if not trainer.graphed or trainer.scan_steps != scan_steps:
         fail(f"{label}: Trainer did not take the captured path at scan_steps {scan_steps}")
     losses = []
@@ -1636,25 +1690,25 @@ def main_path() -> dict:
     return counts
 
 
-def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str) -> None:
+def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str,
+                  task: str = "deblurring") -> None:
     """``cli.train.main`` in-process at flagship width and depth (one epoch
     of 2 captured steps); its per-step losses must equal, bit for bit, those
     of a ``Trainer`` built here from the same ``GroundTruthDataset``, seed
     and arguments, and the trunk kernels captured must be the design's per
-    step."""
+    step.  ``task="sr"``: SR x2 (48 px crops of the measurement, the SR
+    learning rate 2e-4)."""
     import torch
 
     from sei_tpu_torch.cli import train as cli_train
     from sei_tpu_torch.data import GroundTruthDataset, build_device_cache
     from sei_tpu_torch.losses import get_loss
-    from sei_tpu_torch.models import get_model
     from sei_tpu_torch.ops import swin_trunk as st
-    from sei_tpu_torch.physics import get_physics
     from sei_tpu_torch.train import Trainer
 
-    label = "bf16" if dtype is not None else "f32"
+    label = ("bf16" if dtype is not None else "f32") + (f" sr x{SR_FACTOR}" if task == "sr" else "")
     per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
-    argv = ["--task", "deblurring", "--kernel", "Gaussian_R2", "--noise_level", "5",
+    argv = [*TASK_ARGS[task], "--noise_level", "5",
             "--dataset", f"gt_folder:{folder}", "--method", "proposed", "--batch_size",
             str(BATCH), "--epochs", "1", "--out_dir", out, "--scan_steps", str(scan_steps)]
     argv += ["--bf16"] if dtype is not None else []
@@ -1683,9 +1737,8 @@ def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str) -> No
           f"dispatches back to back, one sync); {smi}")
     del run, trainer
 
-    physics = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
-    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring", seed=0,
-                      dtype=dtype)
+    physics = task_physics(task)
+    model = task_model(task, dtype)
     t0 = time.perf_counter()
     gt = GroundTruthDataset(f"gt_folder:{folder}")
     gt.load_all()  # memoized: the cache below reads nothing again
@@ -1695,7 +1748,9 @@ def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str) -> No
     print(f"  {len(gt)} PNGs read and resized to {tuple(cache.x.shape[-2:])} in {read_s:.2f} s "
           f"(host); degraded into the device cache in {time.perf_counter() - t0 - read_s:.2f} s")
     trainer = Trainer(model, get_loss(method="proposed", physics=physics, noise_level=5),
-                      physics, cache, batch_size=BATCH, epochs=1, lr=1e-4, crop_size=DATA_CROP,
+                      physics, cache, batch_size=BATCH, epochs=1,
+                      lr=2e-4 if task == "sr" else 1e-4,
+                      crop_size=CROP if task == "sr" else DATA_CROP,
                       seed=0, scan_steps=scan_steps)
     direct = []
     trainer.train(log_every_epoch=False, on_step=lambda s_, loss: direct.append(loss))
@@ -1705,7 +1760,7 @@ def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str) -> No
         fail(f"cli {label}: the command line's losses differ from the Trainer's")
 
 
-def cli_test_run(folder: str, weights: str) -> None:
+def cli_test_run(folder: str, weights: str, task: str = "deblurring") -> None:
     """``cli.test.main`` on ``weights``: its PSNR/SSIM must equal
     ``evaluate_pairs`` on the same pairs bit for bit, its summary lines those
     values, and its launches the eval design's."""
@@ -1717,12 +1772,11 @@ def cli_test_run(folder: str, weights: str) -> None:
 
     from sei_tpu_torch.cli import test as cli_test
     from sei_tpu_torch.data import GroundTruthDataset, image_seed
-    from sei_tpu_torch.evaluate import evaluate_pairs
+    from sei_tpu_torch.evaluate import degraded_pair, evaluate_pairs
     from sei_tpu_torch.models import get_model
     from sei_tpu_torch.ops import swin_trunk as st
-    from sei_tpu_torch.physics import get_physics
 
-    argv = ["--task", "deblurring", "--kernel", "Gaussian_R2", "--noise_level", "5",
+    argv = [*TASK_ARGS[task], "--noise_level", "5",
             "--dataset", f"gt_folder:{folder}", "--weights", weights,
             "--indices", ",".join(map(str, CLI_TEST_INDICES))]
     print(f"command line: python -m sei_tpu_torch.cli.test {' '.join(argv)}")
@@ -1739,14 +1793,15 @@ def cli_test_run(folder: str, weights: str) -> None:
     if {k: counts[k] for k in PER_BLOCK} != want_counts:
         fail(f"cli test: launches {counts}, expected {want_counts}")
     gt = GroundTruthDataset(f"gt_folder:{folder}", split="val", memoize_gt=False)
-    physics = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
-    model = get_model(kind="Proposed", architecture="Transformer", task="deblurring")
+    physics = task_physics(task)
+    model = get_model(kind="Proposed", architecture="Transformer", task=task,
+                      sr_factor=SR_FACTOR if task == "sr" else None)
     model.load_weights(torch.load(weights, weights_only=False))
 
     def pairs():
         for i in CLI_TEST_INDICES:
             x = torch.as_tensor(gt[i], device=model.device)
-            yield x, physics.randomly_degrade(x[None], image_seed(0, gt.unique_id(i)))[0]
+            yield degraded_pair(physics, x, image_seed(0, gt.unique_id(i)))
 
     want = evaluate_pairs(model, pairs())
     print(f"  PSNR {got.psnr}, SSIM {got.ssim}; evaluate_pairs PSNR {want.psnr}, SSIM "
@@ -1835,6 +1890,153 @@ def cli_validate_run(folder: str, out: str, smi: str) -> None:
           f"{smi}")
     if validation[-1][1:] != again or again != (want.psnr_mean, want.ssim_mean):
         fail("cli validation: the hook's scores differ from evaluate_pairs'")
+
+
+def sr_forward_check(model, y, label: str, dtype) -> tuple[float, float, float]:
+    """One forward of the padded measurement ``y`` (1, 3, h, w): the kernel
+    path against the plain path (f32 to FORWARD_ATOL, bf16 to
+    FORWARD_FRAC_BF16 of the plain output's largest value), each timed;
+    the trunk's launches must be one forward's.  Returns (max |diff|, ms,
+    plain ms)."""
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    with torch.no_grad():
+        st.reset_launch_counts()
+        out_k = model(y)
+        counts = st.launch_counts()
+        out_p = model.module(y, plain=True)
+        fwd_ms = time_ms(lambda: model(y), iters=3, warmup=1)
+        plain_fwd_ms = time_ms(lambda: model.module(y, plain=True), iters=3, warmup=1)
+    want = {k: v * BLOCKS for k, v in PER_BLOCK.items()}
+    if {k: counts[k] for k in PER_BLOCK} != want:
+        fail(f"{label}: one forward launched {counts}, expected {want}")
+    if dtype is None:
+        err = compare(f"{label} forward (kernels vs plain)", out_k, out_p, FORWARD_ATOL, 0.0)
+    else:
+        err = float((out_k - out_p).abs().max())
+        tol = FORWARD_FRAC_BF16 * float(out_p.abs().max())
+        print(f"  {label} forward (kernels vs plain): max |diff| {err:.3e} (tolerance {tol:.3e}"
+              f" = {FORWARD_FRAC_BF16:g} of max |plain|)")
+        if not err <= tol:
+            fail(f"{label}: the bf16 forward disagrees with the plain forward")
+    t = y.shape[-2] * y.shape[-1]
+    print(f"  {label} forward at {y.shape[-2]}x{y.shape[-1]} (T = {t}) -> "
+          f"{tuple(out_k.shape[-2:])}: kernel path {fwd_ms:.2f} ms, plain path "
+          f"{plain_fwd_ms:.2f} ms")
+    return err, fwd_ms, plain_fwd_ms
+
+
+def sr_eval(smi: str) -> dict:
+    """SR eval on the card: the flagship SwinIR with the x2 head (weights
+    from seed 0), f32 and bf16, through ``evaluate`` on 4 seeded 256x320
+    images (each measurement 128x160, padded to the 128x192 bucket): the
+    launch counts, PSNR/SSIM and ms per image, one forward against the
+    plain forward and profiled by kernel; ``Upsample`` on the same pairs; one x3 and one x4
+    forward against the plain forward.  Returns the launches over the two
+    ``evaluate`` runs."""
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.evaluate import degraded_pair, evaluate
+    from sei_tpu_torch.models import get_model
+    from sei_tpu_torch.models.swinir import reflect_pad
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    images = make_images(N_IMAGES, H, W, seed=0)
+    physics = task_physics("sr")
+    total = {}
+
+    def padded(phys, i):
+        x = torch.as_tensor(images[i], device=phys.device)
+        y = degraded_pair(phys, x, i)[1][None]
+        return reflect_pad(y, (-y.shape[-2]) % PAD_BUCKET, (-y.shape[-1]) % PAD_BUCKET)
+
+    for dtype in (None, torch.bfloat16):
+        label = f"SR x{SR_FACTOR} " + ("bf16" if dtype is not None else "f32")
+        print(f"SR eval ({label}): get_model(task='sr', sr_factor={SR_FACTOR}) -> "
+              f"get_physics(task='sr') -> evaluate ({N_IMAGES} images {H}x{W}, flagship SwinIR "
+              f"with the pixelshuffle head, noise 5)")
+        model = task_model("sr", dtype)
+        evaluate(model, physics, images[:1])  # warm-up: cuDNN choices, masks
+        torch.cuda.synchronize()
+        st.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = evaluate(model, physics, images)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = st.launch_counts()
+        add_counts(total, counts)
+        print(f"  launch counts {counts}")
+        for name, per in PER_BLOCK.items():
+            want = per * BLOCKS * N_IMAGES
+            if counts[name] != want:
+                fail(f"{label} {name}: {counts[name]} launches over {N_IMAGES} images, "
+                     f"expected {want}")
+        for i, (p, s_) in enumerate(zip(result.psnr, result.ssim)):
+            print(f"  image {i}: PSNR {p!r} SSIM {s_!r}")
+            if not (np.isfinite(p) and np.isfinite(s_) and 0.0 < p < 100.0 and -1.0 <= s_ <= 1.0):
+                fail(f"{label} image {i}: metrics out of range")
+        print(f"  mean PSNR {result.psnr_mean!r} SSIM {result.ssim_mean!r}; "
+              f"{seconds * 1e3 / N_IMAGES:.2f} ms/image end to end; {smi}")
+        y = padded(physics, 0)
+        sr_forward_check(model, y, label, dtype)
+        profile_forward(model, y)
+        del model
+    up = get_model(kind="Upsample", task="sr", sr_factor=SR_FACTOR)
+    t0 = time.perf_counter()
+    result = evaluate(up, physics, images)
+    torch.cuda.synchronize()
+    print(f"  Upsample (bicubic x{SR_FACTOR}) on the same pairs: PSNR {result.psnr} SSIM "
+          f"{result.ssim}; mean {result.psnr_mean!r} / {result.ssim_mean!r}; "
+          f"{(time.perf_counter() - t0) * 1e3 / N_IMAGES:.2f} ms/image")
+    if not all(np.isfinite(result.psnr)):
+        fail("Upsample: non-finite PSNR")
+    for factor in SR_OTHER_FACTORS:
+        model = task_model("sr", None, factor)
+        sr_forward_check(model, padded(task_physics("sr", factor), 0), f"SR x{factor} f32", None)
+        del model
+    return total
+
+
+def sr_phase(smi: str, proposed_ms: dict) -> None:
+    """The SR task on the card: the eval (:func:`sr_eval`); SR x2 training at
+    flagship width and depth (batch 8, 48 px crops of the measurement),
+    ``proposed`` with SURE in f32 eager then captured at ``scan_steps`` 1,
+    R2R-EI in bf16 eager then captured at 2, each equal to its eager run bit
+    for bit with proposed deblurring's launches per step; then the command
+    lines: ``cli.train --task sr`` (2 captured steps, its losses equal to a
+    directly built ``Trainer``'s) and ``cli.test --task sr`` on its
+    ``weights.pt`` (equal to ``evaluate_pairs``)."""
+    import tempfile
+
+    import torch
+
+    from sei_tpu_torch.data import write_image
+
+    total = {"eval": sr_eval(smi)}
+    for dtype, alt, scan_steps in ((None, None, 1), (torch.bfloat16, "r2r", 2)):
+        counts, trainer, eager = train_path(dtype, sure_alternative=alt, task="sr")
+        del trainer
+        captured, steady = captured_train(dtype, scan_steps, eager, sure_alternative=alt,
+                                          task="sr")
+        label = run_label(dtype, alt, "sr")
+        add_counts(total.setdefault("train " + label, {}), counts)
+        add_counts(total["train " + label], captured)
+        key = ("bf16" if dtype is not None else "f32", scan_steps)
+        print(f"  {label} captured at scan_steps {scan_steps}: {steady:.2f} ms/step = "
+              f"{BATCH * 1e3 / steady:.3f} img/s; proposed deblurring (SURE) in this run "
+              f"{proposed_ms[key]:.2f} ms/step; {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "gt")
+        for i, im in enumerate(make_images(CLI_IMAGES, 2 * H, 2 * W, seed=2)):
+            write_image(os.path.join(folder, f"{i:02d}.png"), im)
+        out = os.path.join(tmp, "sr")
+        cli_train_run(folder, out, None, 1, smi, task="sr")
+        cli_test_run(folder, os.path.join(out, "weights.pt"), task="sr")
+    print(f"SR launches by run (eval: f32 + bf16 evaluate; train: eager + captured): "
+          f"{json.dumps(total)}")
 
 
 def cli_phase(smi: str) -> None:
@@ -2088,6 +2290,7 @@ def main(argv: list[str]) -> int:
     bf16_loss_vs_f32(trainer)
     del trainer
     r2r_phase(smi, steady)
+    sr_phase(smi, steady)
     cli_phase(smi)
     probe_counts = probe_phase()
     bench = bench_line()

@@ -2,7 +2,11 @@
 # The port's full training run on one GPU, held against the JAX package's
 # 100-epoch R2R-EI run (experiments/queue_r4b.sh:50-56; its validation
 # trajectory and 100-image eval are experiments/evidence/
-# dl_g2_r2r_evalint_validation.csv and eval_dl_g2_r2r_evalint_ep100.log):
+# dl_g2_r2r_evalint_validation.csv and eval_dl_g2_r2r_evalint_ep100.log);
+# with FULL_RUN_TASK=sr, its SR x2 R2R-EI run instead
+# (experiments/queue_r3q.sh:54-56; its epoch losses and 100-image evals are
+# experiments/evidence/sr2_r2r_training.csv, eval_sr2_r2r_ep100.log and
+# eval_sr2_upsample.log):
 #   1. the dead-leaves Div2K stand-in, experiments/make_dead_leaves_div2k.py
 #      at its defaults (800 train / 100 val at 384x512, seed 0), through
 #      tools_torch/make_dead_leaves_div2k.py (its palette photo committed
@@ -10,32 +14,48 @@
 #   2. python -m sei_tpu_torch.cli.train with the recipe's flags, in f32 at
 #      --scan_steps 1 (validation.csv every 10 epochs over 16 val images);
 #   3. python -m sei_tpu_torch.cli.test of weights.pt on the 100 val images,
-#      the Identity row, and the same weights in a bf16 model
-#      (get_model(dtype=torch.bfloat16) through evaluate_pairs, beside the
-#      f32 model on the same pairs: the bf16 serving check);
-#   4. the trajectory and the scores beside the JAX run's (compare.txt).
+#      the Identity row (SR: the bicubic Upsample row), and the same weights
+#      in a bf16 model (get_model(dtype=torch.bfloat16) through
+#      evaluate_pairs, beside the f32 model on the same pairs: the bf16
+#      serving check);
+#   4. the trajectory and the scores beside the JAX run's (compare.txt; SR:
+#      the epoch losses side by side, as the JAX SR run kept no validation).
 # Every time is printed beside the card's name and power limit.
 #
-#   bash full_run_torch.sh          # on one GPU, about 40 minutes
+#   bash full_run_torch.sh                  # on one GPU, about 40 minutes
+#   FULL_RUN_TASK=sr bash full_run_torch.sh # SR x2, about 40 minutes
 #
 # The data and the run (checkpoints, weights.pt) go under $FULL_RUN_DIR
 # (default _full_run/, gitignored); the small text outputs (training.csv,
 # validation.csv, the logs, the eval summaries, times.txt, compare.txt)
-# under $FULL_RUN_EVIDENCE (default evidence_torch/).  $FULL_RUN_ARGS adds
-# flags to every command line and $FULL_RUN_EPOCHS sets the epochs (a CPU
-# rehearsal: FULL_RUN_ARGS="--device cpu --SwinIR__embed_dim 12
-# --SwinIR__depths 2 --SwinIR__num_heads 2 --SwinIR__window_size 4"
-# FULL_RUN_EPOCHS=1); $FULL_RUN_WORKERS caps the generator's processes.
+# under $FULL_RUN_EVIDENCE (default evidence_torch/, evidence_torch/sr2/ for
+# SR).  $FULL_RUN_ARGS adds flags to every command line and
+# $FULL_RUN_EPOCHS sets the epochs (a CPU rehearsal: FULL_RUN_ARGS="--device
+# cpu --SwinIR__embed_dim 12 --SwinIR__depths 2 --SwinIR__num_heads 2
+# --SwinIR__window_size 4" FULL_RUN_EPOCHS=1); $FULL_RUN_WORKERS caps the
+# generator's processes.
 set -euo pipefail
 cd "$(dirname "$0")"
 RUN_ROOT=${FULL_RUN_DIR:-_full_run}
-EV=${FULL_RUN_EVIDENCE:-evidence_torch}
+TASK=${FULL_RUN_TASK:-deblurring}
 EPOCHS=${FULL_RUN_EPOCHS:-100}
 read -r -a EXTRA <<< "${FULL_RUN_ARGS:-}"
+if [ "$TASK" = sr ]; then
+  EV=${FULL_RUN_EVIDENCE:-evidence_torch/sr2}
+  RUN=$RUN_ROOT/sr2_r2r_evalint
+  G2=(--task sr --sr_factor 2 --noise_level 5)
+  TAG=sr2_r2r_ep$EPOCHS BASELINE=Upsample BASE_TAG=sr2_upsample
+elif [ "$TASK" = deblurring ]; then
+  EV=${FULL_RUN_EVIDENCE:-evidence_torch}
+  RUN=$RUN_ROOT/dl_g2_r2r_evalint
+  G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
+  TAG=r2r_ep$EPOCHS BASELINE=Identity BASE_TAG=identity
+else
+  echo "FULL_RUN_TASK: deblurring or sr, got $TASK" >&2
+  exit 2
+fi
 mkdir -p "$EV" "$RUN_ROOT"
 DATA=$(cd "$RUN_ROOT" && pwd)/datasets
-RUN=$RUN_ROOT/dl_g2_r2r_evalint
-G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
 DD=(--dataset div2k --GroundTruthDataset__datasets_dir "$DATA")
 : > "$EV/times.txt"
 
@@ -59,10 +79,10 @@ python -m sei_tpu_torch.cli.train "${G2[@]}" --method proposed \
 stamp "cli.train, $EPOCHS epochs (data read, warm-up, capture, validations included)" "$t0"
 cp "$RUN/training.csv" "$RUN/validation.csv" "$EV/"
 
-for kind in weights Identity; do
+for kind in weights "$BASELINE"; do
   t0=$(now)
-  if [ $kind = weights ]; then flags=(--weights "$RUN/weights.pt"); tag=r2r_ep$EPOCHS
-  else flags=(--model_kind Identity); tag=identity; fi
+  if [ "$kind" = weights ]; then flags=(--weights "$RUN/weights.pt"); tag=$TAG
+  else flags=(--model_kind "$kind"); tag=$BASE_TAG; fi
   python -m sei_tpu_torch.cli.test "${G2[@]}" "${DD[@]}" "${flags[@]}" "${EXTRA[@]}" \
     2>&1 | tail -8 | tee "$EV/eval_$tag.log"
   stamp "cli.test $tag, 100 val images (reads and model build included)" "$t0"
@@ -79,7 +99,7 @@ import torch
 from sei_tpu_torch.cli.train import ground_truth, setup, swinir_overrides
 from sei_tpu_torch.config import DefaultArgParser, add_test_args
 from sei_tpu_torch.data import image_seed
-from sei_tpu_torch.evaluate import evaluate_pairs
+from sei_tpu_torch.evaluate import degraded_pair, evaluate_pairs
 from sei_tpu_torch.models import get_model
 from sei_tpu_torch.train.checkpoint import get_weights
 
@@ -88,13 +108,12 @@ add_test_args(parser)
 args = parser.parse_args(sys.argv[1:])
 device, physics = setup(args)
 gt = ground_truth(args, "val")
-pairs = []
-for i in range(len(gt)):
-    x = torch.as_tensor(gt[i], device=device)
-    pairs.append((x, physics.randomly_degrade(x[None], image_seed(0, gt.unique_id(i)))[0]))
+pairs = [degraded_pair(physics, torch.as_tensor(gt[i], device=device),
+                       image_seed(0, gt.unique_id(i))) for i in range(len(gt))]
 scores = {}
 for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
-    model = get_model(device=device, swinir_overrides=swinir_overrides(args), dtype=dtype)
+    model = get_model(task=args.task, sr_factor=args.sr_factor, device=device,
+                      swinir_overrides=swinir_overrides(args), dtype=dtype)
     model.load_weights(get_weights(args.weights))
     evaluate_pairs(model, pairs[:1])  # warm-up: plans and kernels at the first shape
     if device.type == "cuda":
@@ -114,6 +133,39 @@ print(f"bf16 - f32 per image: PSNR mean {d.mean():+.4f} dB, max |.| {np.abs(d).m
 EOF
 stamp "bf16 serving check (f32 and bf16 models, 100 val images each)" "$t0"
 smi >> "$EV/eval_bf16_serving.log"
+
+if [ "$TASK" = sr ]; then
+  python - "$EV" "$TAG" <<'EOF' | tee "$EV/compare.txt"
+# The port's SR x2 epoch losses and scores beside the JAX package's run.
+import csv, re, sys
+ev, tag = sys.argv[1], sys.argv[2]
+jax_ev = "experiments/evidence"
+def losses(path):
+    return {int(r["Epoch"]): float(r["Training Loss"]) for r in csv.DictReader(open(path))}
+def summary(path):
+    text = open(path).read()
+    return {k: float(re.search(rf"^{k}: ([-0-9.]+)$", text, re.M).group(1)) for k in ("PSNR", "SSIM")}
+port, ref = losses(f"{ev}/training.csv"), losses(f"{jax_ev}/sr2_r2r_training.csv")
+print("epoch, port training loss, JAX training loss")
+for e in sorted(set(port) | set(ref)):
+    print(f"{e}, {port.get(e, float('nan')):.6e}, {ref.get(e, float('nan')):.6e}")
+for name, data in (("port", port), ("JAX", ref)):
+    low = min(data, key=data.get)
+    print(f"{name}: lowest loss {data[low]:.6e} at epoch {low}; epoch 50 "
+          f"{data.get(50, float('nan')):.6e}; last {data[max(data)]:.6e}")
+print("port validation (16 val images): " + "; ".join(
+    f"epoch {r['Epoch']} {float(r['PSNR']):.4f} / {float(r['SSIM']):.6f}"
+    for r in csv.DictReader(open(f"{ev}/validation.csv"))))
+for name, ref_log, dp, ds in ((tag, "eval_sr2_r2r_ep100.log", 0.5, 0.01),
+                              ("sr2_upsample", "eval_sr2_upsample.log", 0.05, 0.005)):
+    got, want = summary(f"{ev}/eval_{name}.log"), summary(f"{jax_ev}/{ref_log}")
+    ok = abs(got["PSNR"] - want["PSNR"]) <= dp and abs(got["SSIM"] - want["SSIM"]) <= ds
+    print(f"{name} (100 val images): port {got['PSNR']:.2f} / {got['SSIM']:.4f}, JAX "
+          f"{want['PSNR']:.2f} / {want['SSIM']:.4f}; target within {dp} dB and {ds}: "
+          f"{'met' if ok else 'MISSED'}")
+EOF
+  exit 0
+fi
 
 python - "$EV" "$EPOCHS" <<'EOF' | tee "$EV/compare.txt"
 # The port's validation trajectory and scores beside the JAX package's run.

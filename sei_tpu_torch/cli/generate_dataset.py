@@ -5,10 +5,11 @@ physics (A + fresh noise), written under the same name to another.
     python -m sei_tpu_torch.cli.generate_dataset --task deblurring \\
         --kernel Gaussian_R2 --noise_level 5 IMAGE_DIR OUT_DIR
 
-Deblurring only (the SR task is ROADMAP, Queue 1 item 3).  Unlike
-``demo/generate_dataset.py:37``, ``--physics_antialias`` is forwarded to
-``get_physics``.  The noise comes from one generator seeded 0 on the
-device, drawn image after image.
+Deblurring, or SR (``--task sr --sr_factor F``: the low-resolution
+measurements, each side divided by F).  Unlike
+``demo/generate_dataset.py:37``, ``--physics_antialias`` and
+``--physics_true_adjoint`` are forwarded to ``get_physics``.  The noise
+comes from one generator seeded 0 on the device, drawn image after image.
 """
 
 from __future__ import annotations

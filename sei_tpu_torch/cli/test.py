@@ -5,9 +5,12 @@
 
 Each ground-truth image of the split (``--indices`` a comma-separated
 subset) is degraded with its own seed (its unique id, or 0 with
-``--no-SyntheticDataset__unique_seeds``), reflect-padded to a multiple of
-``--eval_pad_bucket``, restored, cropped back, 8-bit quantized and scored by
-Y PSNR/SSIM (:func:`sei_tpu_torch.evaluate.score_pair`).  A directory given
+``--no-SyntheticDataset__unique_seeds``; for ``--task sr`` the ground truth
+is then cut to the measurement's size times the rate), reflect-padded to a
+multiple of ``--eval_pad_bucket`` (not for ``Identity`` and ``Upsample``),
+restored, cropped to the measurement's size times the model's scale, 8-bit
+quantized and scored by Y PSNR/SSIM
+(:func:`sei_tpu_torch.evaluate.score_pair`).  A directory given
 as ``--dataset`` holds measurements only: they are restored, not scored.
 ``--save_images`` writes ``ground_truth/``, ``predictors/`` and
 ``estimates/`` under ``--out_dir``; ``--save_psf`` the PSF scaled to a
@@ -26,7 +29,7 @@ import torch
 
 from ..config import DefaultArgParser, add_test_args
 from ..data import FolderDataset, image_seed, write_image
-from ..evaluate import EvalResult, restore, score_pair
+from ..evaluate import EvalResult, degraded_pair, restore, score_pair
 from ..metrics import quantize_and_clamp
 from ..models import get_model
 from ..train.checkpoint import get_weights
@@ -43,6 +46,7 @@ def main(argv=None) -> EvalResult:
 
     model = get_model(kind=args.model_kind, architecture=args.ProposedModel__architecture,
                       task=args.task, sr_factor=args.sr_factor, device=device,
+                      homogeneous_swinir=args.homogeneous_swinir,
                       swinir_overrides=swinir_overrides(args))
     if args.weights is not None:
         model.load_weights(get_weights(args.weights))
@@ -63,10 +67,10 @@ def main(argv=None) -> EvalResult:
         def get_pair(i):
             x = torch.as_tensor(gt[i], device=model.device)
             uid = gt.unique_id(i) if args.SyntheticDataset__unique_seeds else 0
-            return x, physics.randomly_degrade(x[None], image_seed(0, uid))[0]
+            return degraded_pair(physics, x, image_seed(0, uid))
 
     if args.save_psf:
-        if args.out_dir is None or physics is None:
+        if args.out_dir is None or physics is None or physics.task != "deblurring":
             raise ValueError("--save_psf needs --out_dir and a deblurring physics")
         k = physics.kernel.cpu().numpy()
         write_image(os.path.join(args.out_dir, "psf.png"), (k / k.max())[None])

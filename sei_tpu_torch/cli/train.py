@@ -28,6 +28,13 @@ dataset without a val split prints "eval_interval disabled" and trains on.
 ``--method proposed --ProposedLoss__sure_alternative r2r`` trains with
 R2R-EI in place of SURE.
 
+``--task sr --sr_factor F`` trains the SR SwinIR (pixelshuffle head) on
+``--Loss__crop_size`` (48) px crops of the measurement and the aligned
+``F`` times larger crops of the ground truth (``demo/train.py:194-201``);
+``--homogeneous_swinir`` a rate-1 SwinIR on the bicubic pre-upsampled
+measurement (48 px crops); ``--sure_rate_hotfix``, ``--partial_sure_sr``
+and ``--physics_true_adjoint`` as in the JAX package.
+
 ``--RESUME CKP`` (with ``--lr``) resumes as the JAX package does: the LR is
 pinned with the schedule off unless ``--RESUME_keep_schedule``, and the run
 restarts at the checkpoint's ``epoch`` entry, so the epoch it was written
@@ -76,6 +83,7 @@ def setup(args, *, with_physics: bool = True):
     if with_physics:
         physics = get_physics(task=args.task, noise_level=args.noise_level, kernel=args.kernel,
                               sr_factor=args.sr_factor, physics_v2=args.physics_v2,
+                              physics_true_adjoint=args.physics_true_adjoint,
                               antialias=args.physics_antialias, device=device)
     return device, physics
 
@@ -123,6 +131,7 @@ def main(argv=None) -> dict:
         raise ValueError(f"--model_kind {args.model_kind}: nothing to train")
     model = get_model(kind=args.model_kind, architecture=args.ProposedModel__architecture,
                       task=args.task, sr_factor=args.sr_factor, device=device, seed=args.seed,
+                      homogeneous_swinir=args.homogeneous_swinir,
                       swinir_overrides=swinir_overrides(args),
                       dtype=torch.bfloat16 if args.bf16 else None)
     if args.weights is not None:
@@ -138,11 +147,13 @@ def main(argv=None) -> dict:
         alpha_tradeoff=args.ProposedLoss__alpha_tradeoff, transforms=transforms,
         scaling_kind=args.ScalingTransform__kind,
         scaling_antialias=args.ScalingTransform__antialias,
-        crop_training_pairs=args.Loss__crop_training_pairs, crop_size=args.Loss__crop_size)
+        crop_training_pairs=args.Loss__crop_training_pairs, crop_size=args.Loss__crop_size,
+        sure_rate_hotfix=args.sure_rate_hotfix)
 
     gt = ground_truth(args, args.GroundTruthDataset__split)
     cache = build_device_cache(gt, physics, seed=args.seed,
-                               unique_seeds=args.SyntheticDataset__unique_seeds)
+                               unique_seeds=args.SyntheticDataset__unique_seeds,
+                               upsample_y_to_x=args.homogeneous_swinir and args.task == "sr")
     eval_hook = validation_hook(args, physics)
 
     epochs = args.epochs if args.epochs is not None else default_epochs(args.dataset)
@@ -153,12 +164,18 @@ def main(argv=None) -> dict:
     print(f"\nSelected learning rate: {lr:e}\n")
     print(f"\nSelected optimizer: {optimizer}\n")
 
+    # the dataset crop, y side: SR crops the loss's 48 px directly, deblurring
+    # 256 then the loss 48 (demo/train.py:194-201)
+    data_crop = (args.Loss__crop_size if args.task == "sr"
+                 else args.PrepareTrainingPairs__crop_size)
+    if args.homogeneous_swinir:
+        data_crop = 48
     # the reference's RESUME pins the LR and turns the schedule off
     pinned = args.RESUME is not None and not args.RESUME_keep_schedule
     trainer = Trainer(model, loss_fn, physics, cache, batch_size=args.batch_size,
                       epochs=epochs, lr=lr, optimizer=optimizer, beta2=args.optimizer_beta2,
                       lr_scheduler_kind=None if pinned else args.lr_scheduler_kind,
-                      crop_size=args.PrepareTrainingPairs__crop_size, out_dir=args.out_dir,
+                      crop_size=data_crop, out_dir=args.out_dir,
                       checkpoint_interval=ckpt_interval, seed=args.seed,
                       scan_steps=args.scan_steps,
                       eval_interval=args.eval_interval if eval_hook is not None else 0,

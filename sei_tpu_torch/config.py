@@ -226,11 +226,7 @@ _LATER = (
     ("noise2inverse", False, "item 4: remaining methods and training modes (Noise2Inverse)"),
     ("r2r", False, "item 4: remaining methods and training modes (--r2r averaging)"),
     ("r2r_itercount", 1, "item 4: remaining methods and training modes (--r2r averaging)"),
-    ("homogeneous_swinir", False, "item 3: SR task end to end"),
-    ("sure_rate_hotfix", False, "item 3: SR task end to end"),
-    ("partial_sure_sr", False, "item 3: SR task end to end"),
-    ("physics_v2", True, "item 3: SR task end to end (the spatial blur)"),
-    ("physics_true_adjoint", False, "item 3: SR task end to end (the SR adjoint)"),
+    ("physics_v2", True, "item 3: the spatial blur"),
     ("data_parallel_devices", None, "item 5: eval at large sizes, and multi-GPU (DDP)"),
     ("ProposedModel__architecture", "Transformer", "item 6: baselines and the rest of the "
                                                    "model registry (Convolutional)"),
@@ -241,7 +237,7 @@ _LATER = (
 )
 # values of valued flags that later items port
 _LATER_VALUES = (
-    ("task", ("sr", "invert_a_tomography_like_filter"), "item 3: SR task end to end"),
+    ("task", ("invert_a_tomography_like_filter",), "item 3: the CT-like filter"),
     ("method", ("css",), "item 4: remaining methods and training modes (the CSS swap)"),
     ("method", ("ei-shift", "ei-rotate"), "item 4: remaining methods and training modes "
                                           "(shift/rotate transforms)"),
@@ -263,6 +259,6 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"--{name} {getattr(args, name)}: not ported yet "
                                       f"(ROADMAP, Queue 1 {item})")
     kind = getattr(args, "model_kind", "Proposed")
-    if kind not in ("Proposed", "swinir", "Identity", "id"):
+    if kind not in ("Proposed", "swinir", "Identity", "id", "Upsample", "up"):
         raise NotImplementedError(f"--model_kind {kind}: not ported yet (ROADMAP, Queue 1 "
                                   "item 6: baselines and the rest of the model registry)")

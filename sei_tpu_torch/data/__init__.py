@@ -9,7 +9,8 @@ read by :mod:`.loader` on the host.
 The reference's measurements are deterministic per image and frozen across
 epochs, so each (x, y) pair is synthesized once, on the device, and the
 whole dataset stays there as padded tensors (:func:`build_device_cache`).
-A step's batch is then a gather of images and an aligned random crop, with
+A step's batch is then a gather of images and an aligned random crop (for
+SR, x cropped ``rate`` times the y crop at ``rate`` times its offset), with
 no host round trip for pixels.  Fresh (non-frozen) measurements are not
 ported yet (ROADMAP, Queue 1 item 4: remaining methods and training modes),
 nor is the CT source (item 3) or the native PNG loader (item 1's remainder).
@@ -23,7 +24,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..ops.resize import resize_shorter_side_np
+from ..ops.resize import resize, resize_shorter_side_np
 from ..transforms.crop import crop_offsets, crop_pair_batch, pad_min_size
 from .loader import read_image, write_image  # noqa: F401
 from .sources import (  # noqa: F401
@@ -91,10 +92,12 @@ class GroundTruthDataset:
 class DeviceDataCache:
     """The dataset as padded device tensors.
 
-    x: (N, C, Hmax, Wmax) clean images, zero-padded bottom/right; y: the
-    measurements, same shape; heights/widths: each image's true size (on
-    the device, where the crop ranges are drawn); ids: per-image seed ids
-    (host).
+    x: (N, C, Hmax, Wmax) clean images, zero-padded bottom/right (Hmax,
+    Wmax multiples of ``rate``); y: the measurements, (N, C, Hmax / rate,
+    Wmax / rate); heights/widths: each image's true x size rounded up to a
+    multiple of ``rate`` (on the device, where the crop ranges are drawn);
+    ids: per-image seed ids (host); rate: x's size over y's (the SR rate,
+    else 1).
     """
 
     x: torch.Tensor
@@ -102,6 +105,7 @@ class DeviceDataCache:
     heights: torch.Tensor
     widths: torch.Tensor
     ids: torch.Tensor
+    rate: int = 1
 
     def __len__(self) -> int:
         return self.x.shape[0]
@@ -115,15 +119,20 @@ def image_seed(seed: int, image_id: int) -> int:
 
 def build_device_cache(images: Union[GroundTruthDataset, Sequence[np.ndarray]], physics, *,
                        seed: int = 0, ids: Optional[Sequence[int]] = None,
-                       unique_seeds: bool = True, device=None) -> DeviceDataCache:
-    """Pad the (C, H, W) images to one size, degrade each once on the
-    device with its own seeded generator (the deterministic, frozen
-    measurements), and keep both on the device (default: the physics'
-    device).  ``images``: a :class:`GroundTruthDataset` (each image's id its
-    ``unique_id``) or arrays (ids ``ids``, default their index);
-    ``unique_seeds=False`` gives every image the id 0, as the reference's
-    ``--no-SyntheticDataset__unique_seeds``."""
-    dev = physics.kernel.device if device is None else torch.device(device)
+                       unique_seeds: bool = True, upsample_y_to_x: bool = False,
+                       device=None) -> DeviceDataCache:
+    """Pad the (C, H, W) images to one size (a multiple of the SR rate),
+    degrade each padded image once on the device with its own seeded
+    generator (the deterministic, frozen measurements), and keep both on
+    the device (default: the physics' device).  ``images``: a
+    :class:`GroundTruthDataset` (each image's id its ``unique_id``) or
+    arrays (ids ``ids``, default their index); ``unique_seeds=False`` gives
+    every image the id 0, as the reference's
+    ``--no-SyntheticDataset__unique_seeds``.  ``upsample_y_to_x`` (the
+    homogeneous SwinIR's data, ``sei_tpu/data/__init__.py:214-225``): each
+    SR measurement bicubic-upsampled to x's size, and the cache has rate 1."""
+    dev = physics.device if device is None else torch.device(device)
+    rate = physics.rate if physics.task == "sr" else 1
     if isinstance(images, GroundTruthDataset):
         if ids is not None:
             raise ValueError("a GroundTruthDataset brings its own ids")
@@ -132,16 +141,24 @@ def build_device_cache(images: Union[GroundTruthDataset, Sequence[np.ndarray]], 
     ids = list(range(len(images))) if ids is None else list(ids)
     if not unique_seeds:
         ids = [0] * len(images)
-    hs = [im.shape[-2] for im in images]
-    ws = [im.shape[-1] for im in images]
-    x = np.zeros((len(images), images[0].shape[0], max(hs), max(ws)), np.float32)
+    hs = np.array([im.shape[-2] for im in images])
+    ws = np.array([im.shape[-1] for im in images])
+    hmax, wmax = int(hs.max()), int(ws.max())
+    hmax += (-hmax) % rate
+    wmax += (-wmax) % rate
+    x = np.zeros((len(images), images[0].shape[0], hmax, wmax), np.float32)
     for i, im in enumerate(images):
         x[i, :, : im.shape[-2], : im.shape[-1]] = im
     x_dev = torch.from_numpy(x).to(dev)
     y_dev = torch.cat([physics.randomly_degrade(x_dev[i:i + 1], image_seed(seed, ids[i]))
                        for i in range(len(images))])
-    return DeviceDataCache(x=x_dev, y=y_dev, heights=torch.tensor(hs, device=dev),
-                           widths=torch.tensor(ws, device=dev), ids=torch.tensor(ids))
+    if upsample_y_to_x and rate > 1:
+        y_dev = resize(y_dev, size=(hmax, wmax), antialias=False)
+        rate = 1
+    return DeviceDataCache(x=x_dev, y=y_dev,
+                           heights=torch.tensor((hs + (-hs) % rate).tolist(), device=dev),
+                           widths=torch.tensor((ws + (-ws) % rate).tolist(), device=dev),
+                           ids=torch.tensor(ids), rate=rate)
 
 
 def epoch_indices(perm: torch.Tensor, step_in_epoch: int, batch_size: int) -> torch.Tensor:
@@ -155,17 +172,22 @@ def sample_train_batch(cache: DeviceDataCache, idx: torch.Tensor, *, crop_size: 
                        generator: Optional[torch.Generator] = None,
                        offsets: Optional[torch.Tensor] = None):
     """(x, y) crops of the images ``idx`` (an int64 tensor, best on the
-    cache's device: the trainer's static index buffer): MinSizePadding to
-    ``crop_size``, then an aligned ``crop_size`` crop per image inside its
-    true region, at ``offsets`` (B, 2) or offsets drawn from ``generator``
-    (the crop stream, on the cache's device).  On the device throughout: a
-    CUDA graph of the step holds it."""
+    cache's device: the trainer's static index buffer): MinSizePadding (y to
+    ``crop_size``, x to ``crop_size * rate``), then per image a ``crop_size``
+    crop of y inside its true region (h / rate, w / rate) and the aligned
+    ``crop_size * rate`` crop of x, at y offsets ``offsets`` (B, 2) or
+    offsets drawn from ``generator`` (the crop stream, on the cache's
+    device).  On the device throughout: a CUDA graph of the step holds it."""
     idx = torch.as_tensor(idx, dtype=torch.int64, device=cache.x.device)
+    r = cache.rate
     if offsets is None:
-        offsets = crop_offsets(generator, cache.heights[idx], cache.widths[idx], crop_size)
-    x = pad_min_size(cache.x[idx], crop_size, crop_size)
+        hs, ws = cache.heights[idx], cache.widths[idx]
+        if r > 1:
+            hs, ws = hs // r, ws // r
+        offsets = crop_offsets(generator, hs, ws, crop_size)
+    x = pad_min_size(cache.x[idx], crop_size * r, crop_size * r)
     y = pad_min_size(cache.y[idx], crop_size, crop_size)
-    return crop_pair_batch(x, y, size=crop_size, offsets=offsets)
+    return crop_pair_batch(x, y, size=crop_size, xy_size_ratio=r, offsets=offsets)
 
 
 __all__ = ["DeviceDataCache", "Div2K", "FMD", "FolderDataset", "GroundTruthDataset",

@@ -6,7 +6,7 @@ package's (and so the reference's), so the per-image measurement seeds
 reproduce.  Div2K's 800 / 100 are fixed, not counted from the files.  The
 download helpers carry the same URLs; they run only with ``download=True``.
 The CT source needs ``h5py`` and is not ported yet (ROADMAP, Queue 1 item 3:
-the SR task, the CT source and the CT-like filter).
+the CT source and the CT-like filter).
 """
 
 from __future__ import annotations
@@ -116,8 +116,8 @@ class TomographyDataset(ImageSource):
 
     def __init__(self, split: str, datasets_dir: str, channels: int = 3, download: bool = False):
         raise NotImplementedError(
-            "the CT dataset: not ported yet (ROADMAP, Queue 1 item 3: the SR task, the CT "
-            "source and the CT-like filter)")
+            "the CT dataset: not ported yet (ROADMAP, Queue 1 item 3: the CT source and "
+            "the CT-like filter)")
 
 
 class FMD(ImageSource):

@@ -1,9 +1,13 @@
 """The evaluation protocol: counterpart of ``demo/test.py`` (:130-243) and
 ``sei_tpu/train/validate.py`` (:22-78).
 
-For each ground-truth image: seeded degradation, reflect-pad the measurement
-to a multiple of ``pad_bucket`` (64), restore, crop back, 8-bit quantize and
-clamp both images, then Y-channel PSNR and SSIM.  Strip tiling above
+For each ground-truth image: seeded degradation of the whole image (for SR
+the ground truth is then cut to the measurement's size times the rate),
+reflect-pad the measurement to a multiple of ``pad_bucket`` (64; a model
+with nothing trained, such as ``Identity`` or ``Upsample``, runs at the
+measurement's own size), restore, crop back to the measurement's size times
+the model's ``scale``, 8-bit quantize and clamp both images, then Y-channel
+PSNR and SSIM.  Strip tiling above
 ``MAX_EVAL_HEIGHT`` rows (the reference's ``eval_tile_height``) is not ported
 yet; such images raise.
 """
@@ -37,16 +41,19 @@ class EvalResult:
 
 
 def restore(model, y: torch.Tensor, *, pad_bucket: int = 64) -> torch.Tensor:
-    """Model output for a (B, 3, h, w) measurement, reflect-padded up to a
-    multiple of ``pad_bucket`` (0: not padded) and cropped back to (h, w)."""
+    """Model output for a (B, 3, h, w) measurement: a trainable model's
+    input reflect-padded up to a multiple of ``pad_bucket`` (0: not padded;
+    a model with ``trainable`` False is never padded), the output cropped
+    back to (h * scale, w * scale) (``scale``: the model's, default 1)."""
     h, w = y.shape[-2:]
     if h > MAX_EVAL_HEIGHT:
         raise NotImplementedError(
             f"{h} rows > {MAX_EVAL_HEIGHT}: strip tiling is not ported yet "
             "(ROADMAP, Queue 1 item 5: eval at large sizes)")
-    if pad_bucket > 0:
+    if pad_bucket > 0 and getattr(model, "trainable", True):
         y = reflect_pad(y, (-h) % pad_bucket, (-w) % pad_bucket)
-    return model(y)[..., :h, :w]
+    f = getattr(model, "scale", 1)
+    return model(y)[..., :h * f, :w * f]
 
 
 def score_pair(model, x, y, *, pad_bucket: int = 64):
@@ -69,6 +76,15 @@ def evaluate_pairs(model, pairs: Iterable, *, pad_bucket: int = 64) -> EvalResul
     return EvalResult(psnrs, ssims)
 
 
+def degraded_pair(physics, x: torch.Tensor, seed: Optional[int]):
+    """(ground truth, measurement) of a (3, H, W) image: the whole image
+    degraded with ``seed``, then the ground truth cut to the measurement's
+    size times the SR rate (``demo/test.py:100-121``)."""
+    y = physics.randomly_degrade(x[None], seed)[0]
+    rate = physics.rate if physics.task == "sr" else 1
+    return x[..., : y.shape[-2] * rate, : y.shape[-1] * rate], y
+
+
 def evaluate(model, physics, images: Sequence, *, pad_bucket: int = 64,
              seeds: Optional[Sequence[int]] = None) -> EvalResult:
     """Degrade each (3, H, W) image with its seed (default: its index), then
@@ -78,6 +94,6 @@ def evaluate(model, physics, images: Sequence, *, pad_bucket: int = 64,
     def pairs():
         for x, seed in zip(images, seeds):
             x = torch.as_tensor(x, dtype=torch.float32, device=model.device)
-            yield x, physics.randomly_degrade(x[None], seed)[0]
+            yield degraded_pair(physics, x, seed)
 
     return evaluate_pairs(model, pairs(), pad_bucket=pad_bucket)

@@ -14,11 +14,15 @@ maps a measurement batch to an estimate, ``rng`` holds the trainer's
 generators (:class:`sei_tpu_torch.rng.Streams`: ``crop``, ``probe``,
 ``transform``), and ``draws`` (:class:`LossDraws`) can pass any random input
 explicitly instead (the golden tests hand both packages the same draws).
-The pre-loss aligned 48-px crop of the reference is applied first.  A
+The pre-loss aligned 48-px crop of the reference is applied first (for SR
+x cropped ``rate`` times as large, ``xy_size_ratio``).  Each draw takes the
+shape of what it acts on: the SURE probe and R2R's noises y's, the scaling
+parameters the estimate's (``rate`` times y's size for SR).  A
 ``sure_alternative`` other than ``"r2r"`` keeps SURE, as the JAX package
-does.  The ``normal`` scaling kind, the SR crop ratio and rate hotfix and
-the supervised L1 variant are not ported yet (ROADMAP, Queue 1: the SR task,
-and the remaining methods and training modes).
+does; ``sure_rate_hotfix`` (the reference's ``_TEMPORARY_HOTFIX``) scales
+``proposed``'s SURE term by ``rate ** 2``.  The ``normal`` scaling kind and
+the supervised L1 variant are not ported yet (ROADMAP, Queue 1 item 4:
+remaining methods and training modes).
 """
 
 from __future__ import annotations
@@ -94,6 +98,8 @@ class LossConfig:
     scaling_antialias: bool = False
     crop_training_pairs: bool = True
     crop_size: int = 48
+    xy_size_ratio: int = 1
+    sure_rate_hotfix: Optional[float] = None  # SURE term times this squared
 
     @property
     def sigma(self) -> float:
@@ -138,6 +144,8 @@ class LossConfig:
 
                 def fn(x, y, model, rng, draws):
                     loss, x_net = self._sure(y, model, A, rng, draws)
+                    if self.sure_rate_hotfix is not None:
+                        loss = self.sure_rate_hotfix ** 2 * loss
                     # EI term: x2 = T(x_net) (stop-grad optional), x3 =
                     # f(A(x2)).  This forward cannot join the 2B one: its
                     # input depends on x_net's value.
@@ -154,7 +162,8 @@ class LossConfig:
         def loss(x, y, model, rng=None, draws: Optional[LossDraws] = None):
             draws = draws or LossDraws()
             if self.crop_training_pairs:
-                x, y = crop_pair_batch(x, y, size=self.crop_size, offsets=draws.crop,
+                x, y = crop_pair_batch(x, y, size=self.crop_size,
+                                       xy_size_ratio=self.xy_size_ratio, offsets=draws.crop,
                                        generator=None if rng is None else rng.crop)
             return fn(x, y, model, rng, draws)
 
@@ -187,8 +196,10 @@ def get_loss(*, method: str, physics, noise_level: float = 5.0,
              sure_alternative: Optional[str] = None, alpha_tradeoff: float = 1.0,
              transforms: str = "Scaling_Transforms", scaling_kind: str = "padded",
              scaling_antialias: bool = False, crop_training_pairs: bool = True,
-             crop_size: int = 48) -> Callable:
-    """Factory mirroring ``sei_tpu.losses.get_loss`` for the ported methods."""
+             crop_size: int = 48, sure_rate_hotfix: bool = False) -> Callable:
+    """Factory mirroring ``sei_tpu.losses.get_loss`` for the ported methods;
+    the loss crop's ratio is the physics' SR rate (else 1)."""
+    rate = physics.rate if physics.task == "sr" else 1
     method, transforms = normalize_method(method, transforms)
     margin = compute_sure_margin(
         partial_sure=partial_sure, sure_margin=sure_margin, task=physics.task,
@@ -200,7 +211,8 @@ def get_loss(*, method: str, physics, noise_level: float = 5.0,
         stop_gradient=stop_gradient, sure_alternative=sure_alternative,
         alpha_tradeoff=alpha_tradeoff, transforms=transforms, scaling_kind=scaling_kind,
         scaling_antialias=scaling_antialias, crop_training_pairs=crop_training_pairs,
-        crop_size=crop_size)
+        crop_size=crop_size, xy_size_ratio=rate,
+        sure_rate_hotfix=float(physics.rate) if sure_rate_hotfix else None)
     return cfg.build(physics.A)
 
 

@@ -19,6 +19,14 @@ relative position index are recomputed, not stored.
 the LayerNorms (f32 statistics, bf16 output) and the trunk run in bf16, and
 the output is f32 again (``x + conv_last(...)``, the input residual in f32).
 
+``upsampler="pixelshuffle"`` with ``upscale`` 2, 3 or 4 is the SR head
+(``sei_tpu/models/swinir.py:533-563``): ``conv_after_body`` + the shallow
+features, ``conv_before_upsample`` (embed_dim -> 64, LeakyReLU 0.01), one
+``Conv3x3(4 * 64)`` + ``PixelShuffle(2)`` stage per factor 2 (or one
+``Conv3x3(9 * 64)`` + ``PixelShuffle(3)``), ``conv_last`` (64 -> 3), with no
+input residual; the output is ``upscale`` times the input's size.  Its convs
+run in the compute dtype as the others do.
+
 ``fused_trunk`` (default on) runs the blocks of each RSTB through
 ``sei_tpu_torch.ops.swin_trunk.swin_trunk``, the chain of CUDA kernels; the
 TPU package turned its fused trunk off above 64x64 tokens for its VMEM
@@ -32,8 +40,7 @@ through the plain ops, as the kernel path is through the kernels' backward.
 In training mode (``module.train()``) stochastic depth draws its keep masks
 from the ``generator`` handed to ``forward`` (the trainer owns one dropout
 stream); a training forward with a drop-path rate above 0 and no generator
-raises.  The SR pixelshuffle head is not ported yet, nor the module path
-(``fused_trunk=False``) in bf16.
+raises.  The module path (``fused_trunk=False``) in bf16 is not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +58,21 @@ from ..ops.conv import Conv3x3
 from ..ops.swin_trunk import swin_trunk, trunk_reference
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
+NUM_FEAT = 64  # the SR head's feature width
+
+
+def _upsample_stages(upscale: int) -> list[int]:
+    """The pixel-shuffle factors of the SR head's tower: a 2 per factor 2,
+    then a 3 (``sei_tpu/models/swinir.py:545-556``)."""
+    stages, scale = [], upscale
+    while scale % 2 == 0 and scale > 1:
+        stages.append(2)
+        scale //= 2
+    if scale == 3:
+        stages.append(3)
+    elif scale != 1:
+        raise ValueError(f"unsupported upscale {upscale}")
+    return stages
 
 
 @lru_cache(maxsize=None)
@@ -301,19 +323,20 @@ class _PatchEmbed(nn.Module):
 
 
 class SwinIR(nn.Module):
-    """SwinIR on RGB with the denoise/deblur head (``upsampler=None``),
-    NCHW API."""
+    """SwinIR on RGB with the denoise/deblur head (``upsampler=None``) or
+    the SR pixelshuffle head (``upsampler="pixelshuffle"``), NCHW API."""
 
     def __init__(self, *, embed_dim: int = 180,
                  depths: Sequence[int] = (6,) * 6,
                  num_heads: Sequence[int] = (6,) * 6, window_size: int = 8,
                  mlp_ratio: float = 2.0, drop_path_rate: float = 0.1,
-                 upsampler: Optional[str] = None,
+                 upsampler: Optional[str] = None, upscale: int = 1,
                  fused_trunk: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if upsampler is not None:
-            raise NotImplementedError(
-                "SwinIR pixelshuffle (SR) head: not ported yet (ROADMAP, Queue 1: SR)")
+        if upsampler not in (None, "pixelshuffle"):
+            raise ValueError(f"SwinIR: unknown upsampler {upsampler!r}")
+        if upsampler is None and upscale != 1:
+            raise ValueError(f"SwinIR: upscale {upscale} needs the pixelshuffle head")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"SwinIR: compute dtype {dtype} (float32 or bfloat16)")
         dtype = None if dtype == torch.float32 else dtype
@@ -336,7 +359,18 @@ class SwinIR(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
         self.conv_after_body = Conv3x3(embed_dim, embed_dim, dtype)
-        self.conv_last = Conv3x3(embed_dim, 3, dtype)
+        self.upsampler = upsampler
+        self.upscale = upscale
+        if upsampler == "pixelshuffle":
+            self.conv_before_upsample = nn.Sequential(Conv3x3(embed_dim, NUM_FEAT, dtype),
+                                                      nn.LeakyReLU(0.01))
+            tower = []
+            for r in _upsample_stages(upscale):
+                tower += [Conv3x3(NUM_FEAT, r * r * NUM_FEAT, dtype), nn.PixelShuffle(r)]
+            self.upsample = nn.Sequential(*tower)
+            self.conv_last = Conv3x3(NUM_FEAT, 3, dtype)
+        else:
+            self.conv_last = Conv3x3(embed_dim, 3, dtype)
         self._masks = {}  # (h, w, device) -> shift mask tensor
 
     @torch.no_grad()
@@ -383,6 +417,9 @@ class SwinIR(nn.Module):
             f = layer(f, mask, plain, generator)
         f = _norm_in(self.norm, f, cdt).permute(0, 3, 1, 2)
         res = self.conv_after_body(f) + feat
-        out = x + self.conv_last(res)  # f32: the input residual promotes
-        out = out + self.mean
-        return out[..., :h_in, :w_in]
+        if self.upsampler == "pixelshuffle":
+            out = self.conv_last(self.upsample(self.conv_before_upsample(res)))
+        else:
+            out = x + self.conv_last(res)  # f32: the input residual promotes
+        out = out + self.mean  # f32: the mean promotes
+        return out[..., :h_in * self.upscale, :w_in * self.upscale]

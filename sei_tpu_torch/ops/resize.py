@@ -5,6 +5,9 @@
     by a scale factor, antialias on or off;
   * :func:`resize_shorter_side`: torchvision's ``resize(size=int)``, the
     ground truth's shorter-side resize;
+  * :func:`resize_transpose`: the exact transpose of :func:`resize` (the SR
+    physics' true adjoint, ``jax.linear_transpose`` of the resize in the JAX
+    package);
   * :func:`resize_np`, :func:`resize_shorter_side_np`: the same on the host
     (numpy), for the datasets.
 
@@ -46,18 +49,40 @@ def matrix(in_size: int, out_size: int, antialias: bool, scale: float,
     return torch.as_tensor(m, device=device).to(dtype)
 
 
+def _matrices(h: int, w: int, size, scale_factor, antialias: bool, like: torch.Tensor):
+    """The (out_h, h) and (out_w, w) matrices of a resize of an (h, w) image
+    on ``like``'s device and dtype; None where the resize is the identity."""
+    out_h, out_w, scale_h, scale_w = _sizes(h, w, size, scale_factor)
+    if (out_h, out_w) == (h, w) and scale_h == 1.0 and scale_w == 1.0:
+        return None
+    return (matrix(h, out_h, antialias, scale_h, like.device, like.dtype),
+            matrix(w, out_w, antialias, scale_w, like.device, like.dtype))
+
+
 def resize(x: torch.Tensor, *, size: tuple[int, int] | None = None,
            scale_factor: float | None = None, antialias: bool = False) -> torch.Tensor:
     """Bicubic resize of the last two axes, torch ``interpolate``'s
     semantics; exactly one of ``size`` / ``scale_factor``."""
-    h, w = x.shape[-2:]
-    out_h, out_w, scale_h, scale_w = _sizes(h, w, size, scale_factor)
-    if (out_h, out_w) == (h, w) and scale_h == 1.0 and scale_w == 1.0:
+    mats = _matrices(*x.shape[-2:], size, scale_factor, antialias, x)
+    if mats is None:
         return x
-    wh = matrix(h, out_h, antialias, scale_h, x.device, x.dtype)
-    ww = matrix(w, out_w, antialias, scale_w, x.device, x.dtype)
+    wh, ww = mats
     x = torch.einsum("oh,...hw->...ow", wh, x)
     return torch.einsum("ow,...hw->...ho", ww, x)
+
+
+def resize_transpose(y: torch.Tensor, in_size: tuple[int, int], *,
+                     size: tuple[int, int] | None = None, scale_factor: float | None = None,
+                     antialias: bool = False) -> torch.Tensor:
+    """The transpose of :func:`resize` from an ``in_size`` image, applied to
+    ``y`` (its output's shape): ``W_h^T y W_w``, so ``<resize(x), y> = <x,
+    resize_transpose(y)>``."""
+    mats = _matrices(*in_size, size, scale_factor, antialias, y)
+    if mats is None:
+        return y
+    wh, ww = mats
+    y = torch.einsum("oh,...ow->...hw", wh, y)
+    return torch.einsum("ow,...ho->...hw", ww, y)
 
 
 def resize_shorter_side(x: torch.Tensor, size: int, *, antialias: bool = True) -> torch.Tensor:

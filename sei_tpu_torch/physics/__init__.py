@@ -1,11 +1,15 @@
 """Forward operators with Gaussian noise (counterpart of
 ``sei_tpu/physics/__init__.py``).
 
-This slice ports the main path's operator: ``deblurring`` with the FFT
-circular blur (``physics_v2=True``).  Seeded degradation draws its noise
-from a ``torch.Generator`` seeded per image on the tensor's device: the draw
-is deterministic for a seed, but does not reproduce the JAX package's
-``fold_in`` bits (the golden tests hand both packages the same noise).
+Ported: ``deblurring`` with the FFT circular blur (``physics_v2=True``) and
+``sr``, the antialiased bicubic downsampling by ``1 / rate`` with its true
+adjoint (the exact transpose of the resize) or the reference's deprecated
+one (a plain bicubic upsample by ``rate``), and a CG pseudo-inverse.
+Seeded degradation draws its noise from a ``torch.Generator`` seeded per
+image on the tensor's device: the draw is deterministic for a seed, but does
+not reproduce the JAX package's ``fold_in`` bits (the golden tests hand both
+packages the same noise).  The CT-like filter and the spatial blur
+(``physics_v2=False``) are not ported yet (ROADMAP, Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -19,30 +23,65 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import blur_circular, blur_circular_adjoint, get_kernel, inverse_filter
+from ..ops.resize import resize, resize_transpose
 
 TASKS = ("deblurring", "sr", "invert_a_tomography_like_filter")
+CG_ITERS = 50  # the SR pseudo-inverse's conjugate-gradient steps
 
 
 @dataclasses.dataclass(frozen=True)
 class Physics:
     """A linear forward operator with Gaussian measurement noise.
 
-    kernel: PSF tensor on the device; sigma: noise std in [0, 1] units
-    (noise_level / 255).
+    kernel: PSF tensor on the device (deblurring), else None; task:
+    ``deblurring`` or ``sr``; sigma: noise std in [0, 1] units (noise_level
+    / 255); rate: the SR downsampling rate, else None; true_adjoint: SR's
+    exact adjoint instead of the deprecated bicubic upsample; antialias: the
+    SR resize's antialiasing; device: where the operator's tensors live.
     """
 
-    kernel: torch.Tensor
+    kernel: Optional[torch.Tensor] = None
+    task: str = "deblurring"
     sigma: float = 5.0 / 255.0
-    task = "deblurring"  # the only ported task (not a field)
+    rate: Optional[int] = None
+    true_adjoint: bool = False
+    antialias: bool = True
+    device: torch.device = torch.device("cpu")
 
     def A(self, x: torch.Tensor) -> torch.Tensor:
+        if self.task == "sr":
+            return resize(x, scale_factor=1.0 / self.rate, antialias=self.antialias)
         return blur_circular(x, self.kernel)
 
     def A_adjoint(self, y: torch.Tensor) -> torch.Tensor:
-        return blur_circular_adjoint(y, self.kernel)
+        if self.task != "sr":
+            return blur_circular_adjoint(y, self.kernel)
+        if self.true_adjoint:
+            in_size = (y.shape[-2] * self.rate, y.shape[-1] * self.rate)
+            return resize_transpose(y, in_size, scale_factor=1.0 / self.rate,
+                                    antialias=self.antialias)
+        # the reference's deprecated adjoint: a plain bicubic upsample
+        return resize(y, scale_factor=float(self.rate), antialias=False)
 
     def A_dagger(self, y: torch.Tensor) -> torch.Tensor:
-        return inverse_filter(y, self.kernel)
+        """Least-squares pseudo-inverse: the inverse filter (deblurring), or
+        ``A^T z`` with ``A A^T z = y`` solved by :data:`CG_ITERS` steps of
+        conjugate gradients over the whole batch (SR)."""
+        if self.task != "sr":
+            return inverse_filter(y, self.kernel)
+        z = torch.zeros_like(y)
+        r = y
+        p = r
+        rs = torch.sum(r * r)
+        for _ in range(CG_ITERS):
+            ap = self.A(self.A_adjoint(p))
+            alpha = rs / (torch.sum(p * ap) + 1e-12)
+            z = z + alpha * p
+            r = r - alpha * ap
+            rs_new = torch.sum(r * r)
+            p = r + (rs_new / (rs + 1e-12)) * p
+            rs = rs_new
+        return self.A_adjoint(z)
 
     def add_noise(self, y: torch.Tensor,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -75,27 +114,34 @@ def load_kernel_file(path: str) -> np.ndarray:
 def get_physics(*, task: str, noise_level: float = 5.0,
                 kernel: Union[str, np.ndarray, None] = None,
                 sr_factor: Optional[int] = None, physics_v2: bool = True,
-                antialias: bool = True, device: DeviceLike = None) -> Physics:
-    """Factory mirroring ``sei_tpu.physics.get_physics`` for deblurring;
+                physics_true_adjoint: bool = False, antialias: bool = True,
+                device: DeviceLike = None) -> Physics:
+    """Factory mirroring ``sei_tpu.physics.get_physics``.  Deblurring:
     ``kernel`` is a PSF name (``ops.kernels``), the path of a ``.npy`` or
-    ``.pt`` PSF file, or an array.  ``antialias`` shapes the SR operator's
-    resize only (not ported): deblurring does not use it, as in the JAX
-    package.  Default device the GPU; raises without one unless
+    ``.pt`` PSF file, or an array.  SR: ``sr_factor`` is the rate,
+    ``physics_true_adjoint`` picks the exact adjoint, ``antialias`` shapes
+    the resize.  Default device the GPU; raises without one unless
     ``device="cpu"``."""
     if task not in TASKS:
         raise ValueError(f"Unknown task: {task}")
-    if task != "deblurring":
+    if task == "invert_a_tomography_like_filter":
         raise NotImplementedError(
-            f"{task}: not ported yet (ROADMAP, Queue 1: SR and the CT-like filter)")
-    if not physics_v2:
+            f"{task}: not ported yet (ROADMAP, Queue 1 item 3: the CT-like filter)")
+    if task == "deblurring" and not physics_v2:
         raise NotImplementedError(
-            "spatial circular blur (physics_v2=False): not ported yet (ROADMAP, Queue 1)")
+            "spatial circular blur (physics_v2=False): not ported yet "
+            "(ROADMAP, Queue 1 item 3: the spatial blur)")
     dev = resolve_device(device)
+    common = dict(task=task, sigma=float(noise_level) / 255.0, device=dev)
+    if task == "sr":
+        if sr_factor is None:
+            raise ValueError("sr requires sr_factor")
+        return Physics(rate=sr_factor, true_adjoint=physics_true_adjoint,
+                       antialias=antialias, **common)
     if isinstance(kernel, str):
         k = load_kernel_file(kernel) if os.path.exists(kernel) else get_kernel(kernel)
     elif kernel is not None:
         k = np.asarray(kernel)
     else:
         raise ValueError("deblurring requires a kernel")
-    return Physics(kernel=torch.as_tensor(k, dtype=torch.float32, device=dev),
-                   sigma=float(noise_level) / 255.0)
+    return Physics(kernel=torch.as_tensor(k, dtype=torch.float32, device=dev), **common)

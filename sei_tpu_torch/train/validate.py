@@ -1,7 +1,8 @@
 """In-training validation (counterpart of ``sei_tpu/train/validate.py``).
 
 Every ``eval_interval`` epochs the trainer scores the val split with the
-test protocol (each image degraded with its own seed, reflect-pad to the 64
+test protocol (each image degraded with its own seed, for SR the ground
+truth cut to the measurement's size times the rate, reflect-pad to the 64
 bucket, 8-bit quantize and clamp, Y PSNR/SSIM: the pairs and the scores of
 ``python -m sei_tpu_torch.cli.test``), appends the means to
 ``validation.csv`` and keeps the best-PSNR state as ``checkpoints/ckp_best.pt``.
@@ -19,7 +20,7 @@ from typing import Optional
 import torch
 
 from ..data import image_seed
-from ..evaluate import evaluate_pairs
+from ..evaluate import degraded_pair, evaluate_pairs
 
 
 class ValidationHook:
@@ -30,15 +31,12 @@ class ValidationHook:
     live on the physics' device."""
 
     def __init__(self, gt, physics, *, max_images: Optional[int] = None):
-        dev = physics.kernel.device
-        rate = physics.rate if physics.task == "sr" else 1
         n = len(gt) if max_images is None else min(len(gt), max_images)
-        self.pairs = []
-        for i in range(n):
-            x = torch.as_tensor(gt[i], dtype=torch.float32, device=dev)
-            y = physics.randomly_degrade(x[None], image_seed(0, gt.unique_id(i)))[0]
-            x = x[..., : y.shape[-2] * rate, : y.shape[-1] * rate]
-            self.pairs.append((x, y))
+        self.pairs = [
+            degraded_pair(physics, torch.as_tensor(gt[i], dtype=torch.float32,
+                                                   device=physics.device),
+                          image_seed(0, gt.unique_id(i)))
+            for i in range(n)]
 
     def __len__(self) -> int:
         return len(self.pairs)

@@ -1,13 +1,13 @@
 """Aligned pair cropping (counterpart of ``sei_tpu/transforms/crop.py``).
 
-Both images are constant-padded bottom/right to the crop size, then both
-get a ``size`` crop at one per-image offset.  Offsets are a (B, 2) tensor on
-the images' device (drawn there from the trainer's crop stream, or passed
-in), and the crops are one gather built from them, the counterpart of
-``jax.lax.dynamic_slice`` under ``vmap`` (:56-92): no offset reaches the
-host, so a CUDA graph of the training step can hold the crops.  The SR crop
-ratio (x cropped ``size * rate`` at the scaled offset) comes with the SR
-task (ROADMAP, Queue 1: SR task end to end).
+Both images are constant-padded bottom/right to the crop size (x to
+``size * ratio``), then y gets a ``size`` crop at a per-image offset and x
+the aligned ``size * ratio`` crop at ``ratio`` times it (the SR pairs,
+``ratio`` the rate; 1 otherwise).  Offsets are a (B, 2) tensor on the
+images' device (drawn there from the trainer's crop stream, or passed in),
+and the crops are one gather built from them, the counterpart of
+``jax.lax.dynamic_slice`` under ``vmap`` (:25-92): no offset reaches the
+host, so a CUDA graph of the training step can hold the crops.
 """
 
 from __future__ import annotations
@@ -51,15 +51,18 @@ def crop_batch(img: torch.Tensor, offsets: torch.Tensor, size: int) -> torch.Ten
         b, c, size, size)
 
 
-def crop_pair_batch(x: torch.Tensor, y: torch.Tensor, *, size: int,
+def crop_pair_batch(x: torch.Tensor, y: torch.Tensor, *, size: int, xy_size_ratio: int = 1,
                     offsets: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None):
-    """Per-image aligned crops of a batch (B, C, H, W) -> (x_crop, y_crop).
+    """Per-image aligned crops of a batch (B, C, H, W) -> (x_crop, y_crop):
+    y cropped ``size`` at ``offsets``, x ``size * xy_size_ratio`` at
+    ``offsets * xy_size_ratio``.
 
-    ``offsets`` (B, 2) are (top, left); without them they are drawn from
-    ``generator`` over the padded images.
+    ``offsets`` (B, 2) are (top, left) on y; without them they are drawn
+    from ``generator`` over the padded y.
     """
-    x = pad_min_size(x, size, size)
+    r = int(xy_size_ratio)
+    x = pad_min_size(x, size * r, size * r)
     y = pad_min_size(y, size, size)
     b, _, h, w = y.shape
     if offsets is None:
@@ -67,4 +70,6 @@ def crop_pair_batch(x: torch.Tensor, y: torch.Tensor, *, size: int,
             return torch.full((b,), n, dtype=torch.int64, device=generator.device)
 
         offsets = crop_offsets(generator, full(h), full(w), size)
-    return crop_batch(x, offsets, size), crop_batch(y, offsets, size)
+    offsets = torch.as_tensor(offsets, dtype=torch.int64, device=y.device)
+    return (crop_batch(x, offsets if r == 1 else offsets * r, size * r),
+            crop_batch(y, offsets, size))

@@ -83,7 +83,5 @@ def test_randomly_degrade_is_seeded():
 
 
 def test_unported_tasks_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_physics(task="sr", sr_factor=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3"):
         get_physics(task="invert_a_tomography_like_filter", device="cpu")

@@ -98,6 +98,24 @@
    losses as without validation (validation runs eagerly between the
    graph's replays), the hook's last PSNR/SSIM equal to ``evaluate_pairs``
    on the final weights bit for bit, and its ms per validated image.
+   Then slice 20's paths (``slice20_phase``): ten training cells, each
+   eagerly and then captured (f32 at ``scan_steps`` 1, bf16 at 2) and equal
+   to its eager run bit for bit with ``proposed``'s launches per step (two
+   trunk graphs) or ``supervised``'s (one): the CT-like task's R2R-EI (f32),
+   supervised and noise2inverse-method steps (bf16); CSS (bf16), EI-rotate
+   and EI-shift R2R (f32); the normal scaling kind (f32, a graph per rate,
+   replayed in the JAX trainer's variant order); fresh measurements (f32);
+   supervised L1 (bf16); fine-tuning from the seed-0 weights (SGD at 1e-2,
+   ``conv_last`` only, every other tensor bit for bit, the weights-distance
+   term printed) on a folder of 16 written PNGs; each cell's steady ms per
+   step, replay device ms, busy share, eager ms and peak memory, one JSON
+   line.  The CT-like eval (f32, plain and Noise2Inverse: launches,
+   PSNR/SSIM, ms per image, the forward against the plain forward,
+   ``A_dagger(A x)`` against x), the spatial blur (``--no-physics_v2``)
+   against the FFT blur (1e-5) and its eval, ``--r2r --r2r_itercount 4``
+   on the deblurring eval, and the CT-like command lines (``cli.train``
+   equal to a ``Trainer``, ``cli.test --noise2inverse`` equal to the
+   ``eval_apply`` wrapper); the launches by run, one JSON line.
 7. Launch-overhead probes (K8 ``copy_probe``, K9 ``trunk_skeleton``): each
    held exactly against its plain version and timed at the probes' shapes,
    then ``sei_tpu_torch.probes`` (chains of launches eager and captured,
@@ -129,12 +147,14 @@ Imports nothing of JAX and nothing of ``sei_tpu``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): FP32 on the CUDA
 # cores (TF32 is off for the f32 paths), dense bf16 on the tensor cores (the
@@ -210,9 +230,21 @@ CLI_EVAL_COUNT = 4
 # measurement of a 256x320 image: x2 128x160 -> 128x192, x3 85x106 ->
 # 128x128, x4 64x80 -> 64x128
 SR_FACTOR, SR_OTHER_FACTORS, PAD_BUCKET = 2, (3, 4), 64
+# the CT-like task (the separable ramp filter; the JAX package's
+# experiments/queue_r3r.sh and queue_r3t.sh run it on Div2K)
+CT = "invert_a_tomography_like_filter"
 # TASK_ARGS: each task's physics flags on the command lines
 TASK_ARGS = {"deblurring": ["--task", "deblurring", "--kernel", "Gaussian_R2"],
-             "sr": ["--task", "sr", "--sr_factor", str(SR_FACTOR)]}
+             "sr": ["--task", "sr", "--sr_factor", str(SR_FACTOR)],
+             CT: ["--task", CT]}
+TASK_LABELS = {"deblurring": "", "sr": f" sr x{SR_FACTOR}", CT: " ct"}
+# Noise2Inverse's eval ensemble: 4 row combs, one forward per 3-comb sum
+N2I_FORWARDS = 4
+# --r2r's eval average: forwards per image
+R2R_ITERCOUNT = 4
+# the spatial blur (--no-physics_v2) against the FFT blur: the same circular
+# operator, cuDNN's direct sum against cuFFT's products, within f32 roundoff
+SPATIAL_ATOL = 1e-5
 # a bf16 forward against the plain bf16 forward (which rounds where the
 # kernels round; an f32 sum in another order can flip a bf16 rounding,
 # which the blocks after it carry on): within 3e-2 of the plain output's
@@ -1336,13 +1368,16 @@ def proposed_draws(trainer, physics, seed: int):
     return x, y, draws
 
 
-def task_physics(task: str, factor: int = SR_FACTOR):
-    """The cells' physics: deblurring Gaussian_R2 or SR by ``factor``, noise 5."""
+def task_physics(task: str, factor: int = SR_FACTOR, **kw):
+    """The cells' physics: deblurring Gaussian_R2 (``kw``: ``physics_v2``), SR
+    by ``factor`` or the CT-like filter, noise 5."""
     from sei_tpu_torch.physics import get_physics
 
     if task == "sr":
         return get_physics(task="sr", sr_factor=factor, noise_level=5)
-    return get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
+    if task == CT:
+        return get_physics(task=CT, noise_level=5)
+    return get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5, **kw)
 
 
 def task_model(task: str, dtype=None, factor: int = SR_FACTOR):
@@ -1354,52 +1389,102 @@ def task_model(task: str, dtype=None, factor: int = SR_FACTOR):
                      sr_factor=factor if task == "sr" else None, seed=0, dtype=dtype)
 
 
-def training_setup(task: str, dtype, sure_alternative):
-    """The training cells' model, physics, device cache, loss and dataset
-    crop (y side): deblurring 256 px dataset crops then the loss's 48, SR
-    the loss's 48 directly."""
-    from sei_tpu_torch.data import build_device_cache
-    from sei_tpu_torch.losses import get_loss
+@dataclasses.dataclass
+class Recipe:
+    """One training cell: its label, task and compute dtype (None: f32), the
+    ``get_loss`` and ``Trainer`` keywords beyond the common ones, the trunk
+    graphs one step runs (2: a 2B and a B forward, as ``proposed``; 1: one B
+    forward, as ``supervised``), the normal kind's rates (one loss each),
+    fine-tuning's folder of measurement PNGs (its cache one 256 px crop of
+    each) and trainable mask, and whether one step's gradients are held
+    against the plain path."""
 
-    model = task_model(task, dtype)
-    physics = task_physics(task)
-    cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
-    loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP,
-                       sure_alternative=sure_alternative)
-    return model, physics, cache, loss_fn, CROP if task == "sr" else DATA_CROP
+    label: str
+    task: str = "deblurring"
+    dtype: object = None
+    loss: dict = dataclasses.field(default_factory=lambda: {"method": "proposed"})
+    trainer: dict = dataclasses.field(default_factory=dict)
+    graphs: int = len(TRAIN_GRAPHS)
+    normal_rates: tuple = ()
+    folder: Optional[str] = None
+    conv_last_only: bool = False
+    grad_check: bool = False
+
+
+def default_recipe(dtype, sure_alternative, task: str) -> Recipe:
+    """``proposed`` (SURE, or R2R-EI with ``sure_alternative="r2r"``)."""
+    return Recipe(run_label(dtype, sure_alternative, task), task=task, dtype=dtype,
+                  loss={"method": "proposed", "sure_alternative": sure_alternative},
+                  grad_check=dtype is None and sure_alternative is None and task == "deblurring")
+
+
+def training_setup(recipe: Recipe):
+    """The training cell's model, physics, device cache, loss and dataset
+    crop (y side: deblurring and the CT-like task 256 px dataset crops then
+    the loss's 48, SR the loss's 48 directly), and its Trainer keywords."""
+    import numpy as np
+
+    from sei_tpu_torch.data import build_device_cache, build_finetuning_cache
+    from sei_tpu_torch.losses import get_loss
+    from sei_tpu_torch.train.optim import trainable_mask
+
+    model = task_model(recipe.task, recipe.dtype)
+    physics = task_physics(recipe.task)
+    if recipe.folder is None:
+        cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
+    else:
+        cache = build_finetuning_cache(recipe.folder, DATA_CROP, np.random.default_rng(0))
+    kw = dict(recipe.trainer)
+    if recipe.normal_rates:
+        kw["normal_rate_losses"] = [
+            get_loss(physics=physics, crop_size=CROP, scaling_kind="normal",
+                     fixed_normal_rate=r, **recipe.loss) for r in recipe.normal_rates]
+        loss_fn = kw["normal_rate_losses"][0]
+    else:
+        loss_fn = get_loss(physics=physics, crop_size=CROP, **recipe.loss)
+    if recipe.conv_last_only:
+        kw["trainable_mask"] = trainable_mask(model.module)
+    return model, physics, cache, loss_fn, CROP if recipe.task == "sr" else DATA_CROP, kw
 
 
 def run_label(dtype, sure_alternative, task: str) -> str:
     return (("bf16" if dtype is not None else "f32") + (" r2r" if sure_alternative else "")
-            + (f" sr x{SR_FACTOR}" if task == "sr" else ""))
+            + TASK_LABELS[task])
 
 
-def train_path(dtype=None, sure_alternative=None,
-               task: str = "deblurring") -> tuple[dict, object, dict]:
-    """The proposed training path on the card, eagerly (one launch at a
-    time, ``capture=False``), with SwinIR's compute dtype ``dtype`` (None:
-    f32; bfloat16: the JAX package's training recipe) and SURE or, with
-    ``sure_alternative="r2r"``, R2R-EI; returns the kernels' launch counts
-    over the run, the trainer, and the run's per-step losses, final state
-    and timings (what the captured runs are held against).  One step's
-    gradients are held against the plain path for f32 SURE deblurring.
-    ``task="sr"``: the SR x2 SwinIR on the SR measurements."""
+def train_path(dtype=None, sure_alternative=None, task: str = "deblurring",
+               recipe: Optional[Recipe] = None) -> tuple[dict, object, dict]:
+    """The training path on the card, eagerly (one launch at a time,
+    ``capture=False``): ``proposed`` with SwinIR's compute dtype ``dtype``
+    (None: f32; bfloat16: the JAX package's training recipe) and SURE or,
+    with ``sure_alternative="r2r"``, R2R-EI, or the cell ``recipe``; returns
+    the kernels' launch counts over the run, the trainer, and the run's
+    per-step losses, final state and timings (what the captured runs are
+    held against).  One step's gradients are held against the plain path
+    for f32 SURE deblurring.  ``task="sr"``: the SR x2 SwinIR on the SR
+    measurements."""
     import numpy as np
     import torch
 
+    from sei_tpu_torch.losses import weights_distance_loss
     from sei_tpu_torch.ops import swin_trunk as st
     from sei_tpu_torch.train import Trainer
 
-    label = run_label(dtype, sure_alternative, task)
+    recipe = recipe or default_recipe(dtype, sure_alternative, task)
+    dtype, label = recipe.dtype, recipe.label
     per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
-    print(f"training path ({label}): build_device_cache -> get_loss(proposed"
-          f"{', sure_alternative=' + repr(sure_alternative) if sure_alternative else ''}) -> Trainer "
-          f"({TRAIN_IMAGES} images {H}x{W}, flagship SwinIR, compute dtype {label}, batch "
-          f"{BATCH}, {CROP} px crops, {TRAIN_EPOCHS} epochs)")
+    loss_args = ", ".join(f"{k}={v!r}" for k, v in recipe.loss.items() if v is not None)
+    cache_fn = "build_device_cache" if recipe.folder is None else "build_finetuning_cache"
+    print(f"training path ({label}): {cache_fn} -> get_loss({loss_args}) -> Trainer "
+          f"({TRAIN_IMAGES} images {H}x{W}, flagship SwinIR, compute dtype "
+          f"{'bf16' if dtype is not None else 'f32'}, batch {BATCH}, {CROP} px crops, "
+          f"{TRAIN_EPOCHS} epochs{''.join(f', {k}={v!r}' for k, v in recipe.trainer.items())}"
+          f"{f', normal kind at rates {recipe.normal_rates}' if recipe.normal_rates else ''}"
+          f"{', conv_last only' if recipe.conv_last_only else ''})")
     t0 = time.perf_counter()
-    model, physics, cache, loss_fn, data_crop = training_setup(task, dtype, sure_alternative)
+    model, physics, cache, loss_fn, data_crop, kw = training_setup(recipe)
     trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
-                      crop_size=data_crop, seed=0, capture=False)
+                      crop_size=data_crop, seed=0, capture=False, **kw)
     torch.cuda.synchronize()
     print(f"  set-up {time.perf_counter() - t0:.2f} s; {trainer.steps_per_epoch} steps/epoch")
     before = {k: v.clone() for k, v in model.module.state_dict().items()}
@@ -1416,13 +1501,14 @@ def train_path(dtype=None, sure_alternative=None,
         print(f"  step {step}: loss {losses[-1]!r}, {times[-1]:.2f} ms")
 
     torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
     st.reset_launch_counts()
     stats = trainer.train(on_step=on_step, log_every_epoch=False)
     counts = st.launch_counts()
     print(f"  launch counts {counts}")
     steps = stats["steps"]
     for name, per in per_block.items():
-        want = per * BLOCKS * len(TRAIN_GRAPHS) * steps
+        want = per * BLOCKS * recipe.graphs * steps
         if counts[name] != want:  # 0 included: every kernel must run on this path
             fail(f"{label} {name}: {counts[name]} launches over {steps} training steps, "
                  f"expected {want}")
@@ -1430,8 +1516,26 @@ def train_path(dtype=None, sure_alternative=None,
         fail(f"non-finite {label} training loss: {losses}")
     after = model.module.state_dict()
     moved = sum(not torch.equal(before[k], after[k]) for k in before)
-    if moved != len(before):
+    mask = kw.get("trainable_mask")
+    if mask is None and moved != len(before):
         fail(f"{label}: only {moved} of {len(before)} parameter tensors changed")
+    if mask is not None:
+        frozen = [k for k in mask if not mask[k]]
+        changed = [k for k in frozen if not torch.equal(before[k], after[k])]
+        trained = [k for k in mask if mask[k] and not torch.equal(before[k], after[k])]
+        distance = float(weights_distance_loss([after[k] for k in mask], [before[k] for k in mask]))
+        print(f"  trainable mask: {len(trained)} of {sum(mask.values())} trained tensors moved "
+              f"({', '.join(trained)}); frozen tensors changed: {len(changed)} of {len(frozen)}; "
+              f"weights-distance term after the run {distance!r}")
+        if changed or len(trained) != sum(mask.values()):
+            fail(f"{label}: the mask let frozen tensors move ({changed}) or held trained ones")
+    if recipe.normal_rates:
+        rng = np.random.default_rng(0)
+        order = [int(rng.integers(len(recipe.normal_rates))) for _ in trainer.variants]
+        print(f"  normal-kind variants by dispatch {trainer.variants} (rates "
+              f"{list(recipe.normal_rates)}); the JAX trainer's order {order}")
+        if trainer.variants != order or len(set(order)) != len(recipe.normal_rates):
+            fail(f"{label}: the variant order is not the JAX trainer's, or a variant never ran")
     f32_state = all(t.dtype == torch.float32 for t in after.values()) and all(
         v.dtype == torch.float32 for s_ in trainer.opt.state.values() for v in s_.values()
         if torch.is_tensor(v) and v.dim())
@@ -1441,16 +1545,18 @@ def train_path(dtype=None, sure_alternative=None,
     print(f"  {steps} steps in {stats['wall_time_s']:.2f} s ({stats['images_per_sec']:.3f} img/s "
           f"over the run, first step included); steady step {steady:.2f} ms "
           f"(median of steps 1..{steps - 1}) = {BATCH * 1e3 / steady:.3f} img/s; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-          f"all {moved} parameter tensors moved; params and Adam state f32; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({base_gib:.3f} "
+          f"allocated before the run); "
+          f"{moved} of {len(before)} parameter tensors moved; params and Adam state f32; "
           f"epoch losses {stats['epoch_losses']}")
-    eager = {"losses": losses, "state": train_state(trainer),
-             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    eager = {"losses": losses, "state": train_state(trainer), "base_gib": base_gib,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "variants": list(trainer.variants)}
     eager["steady_ms"] = timed_dispatches(trainer)
     print(f"  eager steady step {eager['steady_ms']:.2f} ms ({TIMED_DISPATCHES} dispatches "
           f"back to back, one sync)")
 
-    if dtype is None and sure_alternative is None and task == "deblurring":
+    if recipe.grad_check:
         # one step's gradients: kernel path against the plain path, same draws
         x, y, draws = proposed_draws(trainer, physics, 7)
         grads = {}
@@ -1477,28 +1583,31 @@ def train_path(dtype=None, sure_alternative=None,
 
 
 def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
-                   task: str = "deblurring") -> tuple[dict, float]:
+                   task: str = "deblurring", recipe: Optional[Recipe] = None,
+                   record: Optional[dict] = None) -> tuple[dict, float]:
     """The training path as ``Trainer`` runs it by default on CUDA: one CUDA
-    graph per dispatch of ``scan_steps`` steps, from the eager run's seed-0
-    weights and streams and for as many steps.  Each step's loss, the final
-    parameters and Adam state must equal the eager run's bit for bit (the
-    same kernels in the same order on the same draws); the trunk kernels
-    captured must be the design's per step.  Returns the kernels' launch
-    counts over the run (one eager warm-up dispatch and the capture: the
-    wrappers count where they launch, and a replay calls no wrapper) and
-    the steady ms per step."""
+    graph per dispatch of ``scan_steps`` steps (one per normal-kind variant),
+    from the eager run's seed-0 weights and streams and for as many steps.
+    Each step's loss, the final parameters and optimizer state must equal
+    the eager run's bit for bit (the same kernels in the same order on the
+    same draws); the trunk kernels captured must be the design's per step.
+    Returns the kernels' launch counts over the run (one eager warm-up
+    dispatch and the capture per graph: the wrappers count where they
+    launch, and a replay calls no wrapper) and the steady ms per step;
+    ``record`` takes the cell's timings and memory."""
     import torch
 
     from sei_tpu_torch.ops import swin_trunk as st
     from sei_tpu_torch.train import Trainer
 
-    label = run_label(dtype, sure_alternative, task)
-    per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
+    recipe = recipe or default_recipe(dtype, sure_alternative, task)
+    label = recipe.label
+    per_block = PER_BLOCK_TRAIN_BF16 if recipe.dtype is not None else PER_BLOCK_TRAIN
     print(f"captured training ({label}, scan_steps {scan_steps}): the same run as one CUDA "
           f"graph per dispatch")
-    model, physics, cache, loss_fn, data_crop = training_setup(task, dtype, sure_alternative)
+    model, physics, cache, loss_fn, data_crop, kw = training_setup(recipe)
     trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
-                      crop_size=data_crop, seed=0, scan_steps=scan_steps)
+                      crop_size=data_crop, seed=0, scan_steps=scan_steps, **kw)
     if not trainer.graphed or trainer.scan_steps != scan_steps:
         fail(f"{label}: Trainer did not take the captured path at scan_steps {scan_steps}")
     losses = []
@@ -1512,18 +1621,24 @@ def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
     counts = st.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
-    want = {k: v * BLOCKS * len(TRAIN_GRAPHS) * scan_steps for k, v in per_block.items()}
-    print(f"  {stats['steps']} steps in {trainer.replays} replays, {seconds:.2f} s with the "
-          f"warm-up and the capture; launches captured {trainer.capture_launches}; "
-          f"peak memory {peak:.3f} GiB (eager {eager['peak_gib']:.3f})")
+    want = {k: v * BLOCKS * recipe.graphs * scan_steps for k, v in per_block.items()}
+    graphs = len(trainer.graphs)
+    print(f"  {stats['steps']} steps in {trainer.replays} replays of {graphs} graph(s), "
+          f"{seconds:.2f} s with the warm-up and the capture; launches captured "
+          f"{trainer.capture_launches}; peak memory {peak:.3f} GiB (eager {eager['peak_gib']:.3f})")
     if trainer.replays * scan_steps != stats["steps"]:
         fail(f"{label}: {trainer.replays} replays for {stats['steps']} steps at scan_steps "
              f"{scan_steps}")
     if trainer.capture_launches != want:
         fail(f"{label} scan_steps {scan_steps}: captured launches {trainer.capture_launches}, "
              f"expected {want}")
-    if counts != {k: 2 * v for k, v in want.items()}:
-        fail(f"{label}: launches over the warm-up and the capture {counts}, expected twice {want}")
+    if counts != {k: 2 * graphs * v for k, v in want.items()}:
+        fail(f"{label}: launches over the warm-up and the capture {counts}, expected "
+             f"{2 * graphs} times {want}")
+    if recipe.normal_rates and (trainer.variants != eager["variants"]
+                                or graphs != len(recipe.normal_rates)):
+        fail(f"{label}: variants {trainer.variants} in {graphs} graphs, eager "
+             f"{eager['variants']}")
     got = train_state(trainer)
     diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, eager["state"])]
     unequal = sum(not torch.equal(a, b) for a, b in zip(got, eager["state"]))
@@ -1539,6 +1654,12 @@ def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
           f"ms wall and {device / scan_steps:.2f} ms device per step (busy "
           f"{device / wall:.3f}) vs eager {eager['wall_ms']:.2f} / {eager['device_ms']:.2f} ms "
           f"(busy {eager['device_ms'] / eager['wall_ms']:.3f})")
+    if record is not None:
+        record.update({"captured_ms": steady, "replay_device_ms": device / scan_steps,
+                       "replay_busy": device / wall, "eager_ms": eager["steady_ms"],
+                       "eager_device_ms": eager["device_ms"], "peak_gib": eager["peak_gib"],
+                       "allocated_before_gib": eager["base_gib"],
+                       "captured_peak_gib": peak, "scan_steps": scan_steps})
     return counts, steady
 
 
@@ -1697,7 +1818,7 @@ def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str,
     of a ``Trainer`` built here from the same ``GroundTruthDataset``, seed
     and arguments, and the trunk kernels captured must be the design's per
     step.  ``task="sr"``: SR x2 (48 px crops of the measurement, the SR
-    learning rate 2e-4)."""
+    learning rate 2e-4); ``task=CT``: the CT-like filter's measurements."""
     import torch
 
     from sei_tpu_torch.cli import train as cli_train
@@ -1706,7 +1827,7 @@ def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str,
     from sei_tpu_torch.ops import swin_trunk as st
     from sei_tpu_torch.train import Trainer
 
-    label = ("bf16" if dtype is not None else "f32") + (f" sr x{SR_FACTOR}" if task == "sr" else "")
+    label = ("bf16" if dtype is not None else "f32") + TASK_LABELS[task]
     per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
     argv = [*TASK_ARGS[task], "--noise_level", "5",
             "--dataset", f"gt_folder:{folder}", "--method", "proposed", "--batch_size",
@@ -1760,10 +1881,14 @@ def cli_train_run(folder: str, out: str, dtype, scan_steps: int, smi: str,
         fail(f"cli {label}: the command line's losses differ from the Trainer's")
 
 
-def cli_test_run(folder: str, weights: str, task: str = "deblurring") -> None:
+def cli_test_run(folder: str, weights: str, task: str = "deblurring",
+                 noise2inverse: bool = False) -> None:
     """``cli.test.main`` on ``weights``: its PSNR/SSIM must equal
-    ``evaluate_pairs`` on the same pairs bit for bit, its summary lines those
-    values, and its launches the eval design's."""
+    ``evaluate_pairs`` on the same pairs bit for bit (with
+    ``noise2inverse``: ``--noise2inverse``, equal to ``score_pair`` through
+    the ``eval_apply`` wrapper called here), its summary lines those values,
+    and its launches the eval design's (4 forwards per image for
+    Noise2Inverse)."""
     import contextlib
     import io
 
@@ -1772,13 +1897,15 @@ def cli_test_run(folder: str, weights: str, task: str = "deblurring") -> None:
 
     from sei_tpu_torch.cli import test as cli_test
     from sei_tpu_torch.data import GroundTruthDataset, image_seed
-    from sei_tpu_torch.evaluate import degraded_pair, evaluate_pairs
+    from sei_tpu_torch.evaluate import (EvalResult, degraded_pair, eval_apply, evaluate_pairs,
+                                        score_pair)
     from sei_tpu_torch.models import get_model
     from sei_tpu_torch.ops import swin_trunk as st
 
     argv = [*TASK_ARGS[task], "--noise_level", "5",
             "--dataset", f"gt_folder:{folder}", "--weights", weights,
             "--indices", ",".join(map(str, CLI_TEST_INDICES))]
+    argv += ["--noise2inverse"] if noise2inverse else []
     print(f"command line: python -m sei_tpu_torch.cli.test {' '.join(argv)}")
     st.reset_launch_counts()
     printed = io.StringIO()
@@ -1789,7 +1916,8 @@ def cli_test_run(folder: str, weights: str, task: str = "deblurring") -> None:
     seconds = time.perf_counter() - t0
     counts = st.launch_counts()
     print("  " + printed.getvalue().strip().replace("\n", "\n  "))
-    want_counts = {k: v * BLOCKS * len(CLI_TEST_INDICES) for k, v in PER_BLOCK.items()}
+    forwards = len(CLI_TEST_INDICES) * (N2I_FORWARDS if noise2inverse else 1)
+    want_counts = {k: v * BLOCKS * forwards for k, v in PER_BLOCK.items()}
     if {k: counts[k] for k in PER_BLOCK} != want_counts:
         fail(f"cli test: launches {counts}, expected {want_counts}")
     gt = GroundTruthDataset(f"gt_folder:{folder}", split="val", memoize_gt=False)
@@ -1797,15 +1925,22 @@ def cli_test_run(folder: str, weights: str, task: str = "deblurring") -> None:
     model = get_model(kind="Proposed", architecture="Transformer", task=task,
                       sr_factor=SR_FACTOR if task == "sr" else None)
     model.load_weights(torch.load(weights, weights_only=False))
+    even = noise2inverse and task == "deblurring"
 
     def pairs():
         for i in CLI_TEST_INDICES:
             x = torch.as_tensor(gt[i], device=model.device)
-            yield degraded_pair(physics, x, image_seed(0, gt.unique_id(i)))
+            yield degraded_pair(physics, x, image_seed(0, gt.unique_id(i)), even=even)
 
-    want = evaluate_pairs(model, pairs())
-    print(f"  PSNR {got.psnr}, SSIM {got.ssim}; evaluate_pairs PSNR {want.psnr}, SSIM "
-          f"{want.ssim}; {seconds * 1e3 / len(CLI_TEST_INDICES):.2f} ms/image with the reads")
+    if noise2inverse:
+        apply = eval_apply(model, physics, noise2inverse=True)
+        scored = [score_pair(model, x, y, apply=apply)[:2] for x, y in pairs()]
+        want = EvalResult([p for p, _ in scored], [s_ for _, s_ in scored])
+    else:
+        want = evaluate_pairs(model, pairs())
+    print(f"  PSNR {got.psnr}, SSIM {got.ssim}; "
+          f"{'the eval_apply wrapper' if noise2inverse else 'evaluate_pairs'} PSNR {want.psnr}, "
+          f"SSIM {want.ssim}; {seconds * 1e3 / len(CLI_TEST_INDICES):.2f} ms/image with the reads")
     lines = printed.getvalue().splitlines()
     if (got.psnr, got.ssim) != (want.psnr, want.ssim) or not all(np.isfinite(got.psnr)):
         fail("cli test: its metrics differ from evaluate_pairs'")
@@ -2037,6 +2172,251 @@ def sr_phase(smi: str, proposed_ms: dict) -> None:
         cli_test_run(folder, os.path.join(out, "weights.pt"), task="sr")
     print(f"SR launches by run (eval: f32 + bf16 evaluate; train: eager + captured): "
           f"{json.dumps(total)}")
+
+
+def slice20_training(smi: str, proposed_ms: dict) -> dict:
+    """The training cells of the CT-like task and of ROADMAP Queue 1 item 4
+    on the card, each eagerly and then captured (f32 at ``scan_steps`` 1,
+    bf16 at 2) and equal to its eager run bit for bit, with ``proposed``'s
+    launches per step (2 trunk graphs) or ``supervised``'s (1): CT-like
+    R2R-EI f32, supervised bf16 and the noise2inverse method bf16
+    (``experiments/queue_r3r.sh``, ``queue_r3t.sh``); CSS bf16, EI-rotate
+    and EI-shift R2R f32 (``queue_r3q.sh``, ``queue_r3v.sh``); the normal
+    scaling kind (f32 SURE, a graph per rate, replayed in the JAX trainer's
+    variant order), fresh measurements (f32), supervised L1 (bf16), and
+    fine-tuning from the seed-0 weights (SGD at 1e-2, ``conv_last`` only,
+    the weights-distance term) on a folder of 16 written PNGs.  Returns the
+    launches by cell (eager + captured)."""
+    import tempfile
+
+    import torch
+
+    from sei_tpu_torch.data import write_image
+
+    bf = torch.bfloat16
+    cells, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "predictors")
+        for i, im in enumerate(make_images(CLI_IMAGES, H, W, seed=3)):
+            write_image(os.path.join(folder, f"{i:02d}.png"), im)
+        recipes = [
+            (Recipe("f32 r2r ct", task=CT, loss={"method": "proposed", "sure_alternative": "r2r"}),
+             1),
+            (Recipe("bf16 supervised ct", task=CT, dtype=bf, loss={"method": "supervised"},
+                    graphs=1), 2),
+            (Recipe("bf16 noise2inverse ct", task=CT, dtype=bf,
+                    loss={"method": "noise2inverse"}, graphs=1), 2),
+            (Recipe("bf16 css", dtype=bf, loss={"method": "css"}, trainer={"css": True},
+                    graphs=1), 2),
+            (Recipe("f32 r2r ei-rotate", loss={"method": "ei-rotate", "sure_alternative": "r2r"}),
+             1),
+            (Recipe("f32 r2r ei-shift", loss={"method": "ei-shift", "sure_alternative": "r2r"}),
+             1),
+            (Recipe("f32 normal kind", normal_rates=(0.75, 0.5)), 1),
+            (Recipe("f32 fresh measurements", trainer={"fresh_measurements": True}), 1),
+            (Recipe("bf16 supervised l1", dtype=bf,
+                    loss={"method": "supervised", "supervised_l1": True}, graphs=1), 2),
+            (Recipe("f32 fine-tuning", folder=folder, conv_last_only=True,
+                    trainer={"optimizer": "SGD", "lr": 1e-2, "weights_distance_lambda": 1.0}), 1),
+        ]
+        for recipe, scan_steps in recipes:
+            counts, trainer, eager = train_path(recipe=recipe)
+            del trainer
+            cells[recipe.label] = record = {}
+            captured, steady = captured_train(recipe.dtype, scan_steps, eager, recipe=recipe,
+                                              record=record)
+            launches[recipe.label] = dict(counts)
+            add_counts(launches[recipe.label], captured)
+            del eager  # its state copies: not part of the next cell's memory
+            ref = ("bf16" if recipe.dtype is not None else "f32", scan_steps)
+            print(f"  {recipe.label} captured at scan_steps {scan_steps}: {steady:.2f} ms/step = "
+                  f"{BATCH * 1e3 / steady:.3f} img/s; proposed deblurring (SURE) in this run "
+                  f"{proposed_ms[ref]:.2f} ms/step; {smi}")
+    print(f"slice 20 training cells (ms per step; peak GiB): {json.dumps(cells)}; {smi}")
+    return launches
+
+
+def ct_eval(smi: str) -> dict:
+    """The CT-like task's eval on the card (flagship SwinIR, weights from
+    seed 0, f32): ``evaluate`` on the 4 seeded images (launches, PSNR/SSIM,
+    ms per image), one forward against the plain forward (1e-3 abs),
+    ``A_dagger(A x)`` against x (printed), and the Noise2Inverse eval
+    (``eval_apply(noise2inverse=True)``: 4 forwards per image).  Returns the
+    launches of the two evals."""
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.evaluate import degraded_pair, eval_apply, evaluate, score_pair
+    from sei_tpu_torch.models.swinir import reflect_pad
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    images = make_images(N_IMAGES, H, W, seed=0)
+    physics = task_physics(CT)
+    model = task_model(CT)
+    print(f"CT-like eval (f32): get_model -> get_physics(task={CT!r}) -> evaluate ({N_IMAGES} "
+          f"images {H}x{W}, flagship SwinIR, noise 5)")
+    x = torch.as_tensor(np.stack(images), device=physics.device)
+    back = physics.A_dagger(physics.A(x))
+    print(f"  A_dagger(A x) against x: max |diff| {float((back - x).abs().max()):.3e} "
+          f"(max |x| {float(x.abs().max()):.3f}); A x spans "
+          f"[{float(physics.A(x).min()):.4f}, {float(physics.A(x).max()):.4f}]")
+    evaluate(model, physics, images[:1])
+    torch.cuda.synchronize()
+    out = {}
+    for label, n2i in (("plain", False), ("noise2inverse", True)):
+        apply = eval_apply(model, physics, noise2inverse=n2i)
+        st.reset_launch_counts()
+        t0 = time.perf_counter()
+        if n2i:
+            pairs = (degraded_pair(physics, torch.as_tensor(im, device=physics.device), i)
+                     for i, im in enumerate(images))
+            scored = [score_pair(model, x_, y_, apply=apply)[:2] for x_, y_ in pairs]
+        else:
+            result = evaluate(model, physics, images)
+            scored = list(zip(result.psnr, result.ssim))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = out[label] = st.launch_counts()
+        forwards = N_IMAGES * (N2I_FORWARDS if n2i else 1)
+        want = {k: v * BLOCKS * forwards for k, v in PER_BLOCK.items()}
+        if {k: counts[k] for k in PER_BLOCK} != want:
+            fail(f"CT-like eval {label}: launches {counts}, expected {want}")
+        psnr, ssim = [p for p, _ in scored], [s_ for _, s_ in scored]
+        if not (np.all(np.isfinite(psnr)) and np.all(np.isfinite(ssim))):
+            fail(f"CT-like eval {label}: non-finite metrics")
+        print(f"  {label}: PSNR {psnr} SSIM {ssim}; mean {float(np.mean(psnr))!r} / "
+              f"{float(np.mean(ssim))!r}; {seconds * 1e3 / N_IMAGES:.2f} ms/image end to end; "
+              f"launches {counts}; {smi}")
+    y = physics.randomly_degrade(x[:1], 0)
+    y = reflect_pad(y, (-y.shape[-2]) % PAD_BUCKET, (-y.shape[-1]) % PAD_BUCKET)
+    sr_forward_check(model, y, "CT-like f32", None)
+    return out
+
+
+def spatial_blur_eval(smi: str) -> dict:
+    """``--no-physics_v2`` on the card: the spatial blur's degradation of the
+    4 seeded images against the FFT blur's (the same circular operator and
+    the same seeded noise: to SPATIAL_ATOL), each operator timed, then
+    ``evaluate`` with the spatial physics (PSNR/SSIM, ms per image, beside
+    the FFT physics' on the same images).  Returns the eval's launches."""
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.evaluate import evaluate
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    images = make_images(N_IMAGES, H, W, seed=0)
+    fft, spatial = task_physics("deblurring"), task_physics("deblurring", physics_v2=False)
+    x = torch.as_tensor(np.stack(images), device=fft.device)
+    err = float((spatial.A(x) - fft.A(x)).abs().max())
+    err_t = float((spatial.A_adjoint(x) - fft.A_adjoint(x)).abs().max())
+    err_y = max(float((spatial.randomly_degrade(x[i:i + 1], i) - fft.randomly_degrade(
+        x[i:i + 1], i)).abs().max()) for i in range(N_IMAGES))
+    ms_sp, ms_fft = time_ms(lambda: spatial.A(x)), time_ms(lambda: fft.A(x))
+    print(f"spatial blur (--no-physics_v2) on {N_IMAGES} images {H}x{W}: A against the FFT blur "
+          f"max |diff| {err:.3e}, A^T {err_t:.3e}, the seeded measurements {err_y:.3e} "
+          f"(tolerance {SPATIAL_ATOL:g}); A {ms_sp:.4f} ms (cuDNN depthwise) vs {ms_fft:.4f} ms "
+          f"(cuFFT) for the batch")
+    if not max(err, err_t, err_y) <= SPATIAL_ATOL:
+        fail("the spatial blur disagrees with the FFT blur")
+    model = task_model("deblurring")
+    evaluate(model, spatial, images[:1])
+    torch.cuda.synchronize()
+    st.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = evaluate(model, spatial, images)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = st.launch_counts()
+    want = {k: v * BLOCKS * N_IMAGES for k, v in PER_BLOCK.items()}
+    if {k: counts[k] for k in PER_BLOCK} != want:
+        fail(f"spatial blur eval: launches {counts}, expected {want}")
+    ref = evaluate(model, fft, images)
+    print(f"  evaluate with the spatial physics: PSNR {result.psnr} SSIM {result.ssim}; mean "
+          f"{result.psnr_mean!r} / {result.ssim_mean!r} (FFT physics {ref.psnr_mean!r} / "
+          f"{ref.ssim_mean!r}); {seconds * 1e3 / N_IMAGES:.2f} ms/image; {smi}")
+    if not np.all(np.isfinite(result.psnr)):
+        fail("spatial blur eval: non-finite PSNR")
+    return counts
+
+
+def r2r_eval(smi: str) -> dict:
+    """``--r2r --r2r_itercount 4`` on the deblurring eval: each of the 4
+    seeded images scored on the mean of 4 restorations of y + sigma / 2 * n
+    (one generator seeded 1 for the eval), 4 forwards per image; ms per
+    image beside the plain eval's.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.evaluate import degraded_pair, eval_apply, evaluate, r2r_average, score_pair
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    images = make_images(N_IMAGES, H, W, seed=0)
+    physics = task_physics("deblurring")
+    model = task_model("deblurring")
+    restore_one = eval_apply(model, physics)
+    gen = torch.Generator(device=physics.device).manual_seed(1)
+
+    def apply(y):
+        return r2r_average(restore_one, y, sigma=physics.sigma, itercount=R2R_ITERCOUNT,
+                           generator=gen)
+
+    evaluate(model, physics, images[:1])
+    torch.cuda.synchronize()
+    st.reset_launch_counts()
+    t0 = time.perf_counter()
+    pairs = (degraded_pair(physics, torch.as_tensor(im, device=physics.device), i)
+             for i, im in enumerate(images))
+    scored = [score_pair(model, x_, y_, apply=apply)[:2] for x_, y_ in pairs]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = st.launch_counts()
+    want = {k: v * BLOCKS * N_IMAGES * R2R_ITERCOUNT for k, v in PER_BLOCK.items()}
+    if {k: counts[k] for k in PER_BLOCK} != want:
+        fail(f"--r2r eval: launches {counts}, expected {want}")
+    t0 = time.perf_counter()
+    plain = evaluate(model, physics, images)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / N_IMAGES
+    psnr = [p for p, _ in scored]
+    if not np.all(np.isfinite(psnr)):
+        fail("--r2r eval: non-finite PSNR")
+    print(f"--r2r eval (itercount {R2R_ITERCOUNT}, deblurring, {N_IMAGES} images {H}x{W}): PSNR "
+          f"{psnr} SSIM {[s_ for _, s_ in scored]}; {seconds * 1e3 / N_IMAGES:.2f} ms/image vs "
+          f"{plain_ms:.2f} plain (PSNR {plain.psnr_mean!r}); {smi}")
+    return counts
+
+
+def ct_cli_phase(smi: str) -> None:
+    """The CT-like task's command lines: ``cli.train --task
+    invert_a_tomography_like_filter`` for 2 captured steps (its losses equal
+    to a directly built ``Trainer``'s bit for bit), then ``cli.test
+    --noise2inverse`` on its ``weights.pt``, equal to the ``eval_apply``
+    wrapper called directly."""
+    import tempfile
+
+    from sei_tpu_torch.data import write_image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "gt")
+        for i, im in enumerate(make_images(CLI_IMAGES, 2 * H, 2 * W, seed=2)):
+            write_image(os.path.join(folder, f"{i:02d}.png"), im)
+        out = os.path.join(tmp, "ct")
+        cli_train_run(folder, out, None, 1, smi, task=CT)
+        cli_test_run(folder, os.path.join(out, "weights.pt"), task=CT, noise2inverse=True)
+
+
+def slice20_phase(smi: str, proposed_ms: dict) -> None:
+    """Every path of slice 20 on the card: the training cells, the CT-like
+    eval (plain and Noise2Inverse), the spatial blur, ``--r2r`` and the
+    CT-like command lines; the launches by run, one JSON line."""
+    launches = {"train " + k: v for k, v in slice20_training(smi, proposed_ms).items()}
+    for label, counts in ct_eval(smi).items():
+        launches["eval ct " + label] = counts
+    launches["eval spatial blur"] = spatial_blur_eval(smi)
+    launches[f"eval r2r x{R2R_ITERCOUNT}"] = r2r_eval(smi)
+    ct_cli_phase(smi)
+    print(f"slice 20 launches by run (train: eager + captured): {json.dumps(launches)}")
 
 
 def cli_phase(smi: str) -> None:
@@ -2292,6 +2672,7 @@ def main(argv: list[str]) -> int:
     r2r_phase(smi, steady)
     sr_phase(smi, steady)
     cli_phase(smi)
+    slice20_phase(smi, steady)
     probe_counts = probe_phase()
     bench = bench_line()
     print(HISTORICAL)

@@ -5,8 +5,10 @@
 
 Each ground-truth image of the split (``--indices`` a comma-separated
 subset) is degraded with its own seed (its unique id, or 0 with
-``--no-SyntheticDataset__unique_seeds``; for ``--task sr`` the ground truth
-is then cut to the measurement's size times the rate), reflect-padded to a
+``--no-SyntheticDataset__unique_seeds``; a draw of the global generator
+with ``--no-SyntheticDataset__deterministic_measurements``; for ``--task
+sr`` the ground truth is then cut to the measurement's size times the
+rate), reflect-padded to a
 multiple of ``--eval_pad_bucket`` (not for ``Identity`` and ``Upsample``),
 restored, cropped to the measurement's size times the model's scale, 8-bit
 quantized and scored by Y PSNR/SSIM
@@ -17,6 +19,12 @@ as ``--dataset`` holds measurements only: they are restored, not scored.
 maximum of 1.  The summary lines are ``demo/test.py``'s.  LPIPS needs
 weights the repository does not hold: its line says n/a.  Images above
 ``--eval_tile_height`` rows raise (strip tiling: ROADMAP, Queue 1 item 5).
+
+``--noise2inverse`` restores through the Noise2Inverse ensemble (4 row
+combs, backprojected; for deblurring both images are first cut to even
+sizes), ``--r2r --r2r_itercount N`` scores the mean of N restorations of
+y + sigma / 2 * n, n from one generator seeded 1 for the whole eval
+(``demo/test.py:117-120, 179-205``).
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 
 from ..config import DefaultArgParser, add_test_args
 from ..data import FolderDataset, image_seed, write_image
-from ..evaluate import EvalResult, degraded_pair, restore, score_pair
+from ..evaluate import EvalResult, degraded_pair, eval_apply, r2r_average, score_pair
 from ..metrics import quantize_and_clamp
 from ..models import get_model
 from ..train.checkpoint import get_weights
@@ -66,14 +74,29 @@ def main(argv=None) -> EvalResult:
 
         def get_pair(i):
             x = torch.as_tensor(gt[i], device=model.device)
-            uid = gt.unique_id(i) if args.SyntheticDataset__unique_seeds else 0
-            return degraded_pair(physics, x, image_seed(0, uid))
+            seed = None
+            if args.SyntheticDataset__deterministic_measurements:
+                seed = image_seed(0, gt.unique_id(i) if args.SyntheticDataset__unique_seeds else 0)
+            return degraded_pair(physics, x, seed,
+                                 even=args.noise2inverse and physics.task == "deblurring")
 
     if args.save_psf:
         if args.out_dir is None or physics is None or physics.task != "deblurring":
             raise ValueError("--save_psf needs --out_dir and a deblurring physics")
         k = physics.kernel.cpu().numpy()
         write_image(os.path.join(args.out_dir, "psf.png"), (k / k.max())[None])
+
+    if (args.noise2inverse or args.r2r) and physics is None:
+        raise ValueError("--noise2inverse and --r2r need the physics: a dataset of ground truth")
+    apply = eval_apply(model, physics, pad_bucket=args.eval_pad_bucket,
+                       noise2inverse=args.noise2inverse)
+    if args.r2r:
+        r2r_gen = torch.Generator(device=model.device).manual_seed(1)
+        restore_one = apply
+
+        def apply(y):
+            return r2r_average(restore_one, y, sigma=physics.sigma,
+                               itercount=args.r2r_itercount, generator=r2r_gen)
 
     indices = range(n) if args.indices is None else [int(i) for i in args.indices.split(",")]
     psnrs, ssims = [], []
@@ -84,9 +107,9 @@ def main(argv=None) -> EvalResult:
                 f"image {i}: {y.shape[-2]} rows > --eval_tile_height {args.eval_tile_height}: "
                 "strip tiling is not ported yet (ROADMAP, Queue 1 item 5: eval at large sizes)")
         if x is None:
-            x_hat = quantize_and_clamp(restore(model, y[None], pad_bucket=args.eval_pad_bucket))[0]
+            x_hat = quantize_and_clamp(apply(y[None]))[0]
         else:
-            p, s, x_hat = score_pair(model, x, y, pad_bucket=args.eval_pad_bucket)
+            p, s, x_hat = score_pair(model, x, y, apply=apply)
             psnrs.append(p)
             ssims.append(s)
             if args.print_all_metrics:

@@ -35,6 +35,22 @@ R2R-EI in place of SURE.
 measurement (48 px crops); ``--sure_rate_hotfix``, ``--partial_sure_sr``
 and ``--physics_true_adjoint`` as in the JAX package.
 
+``--task invert_a_tomography_like_filter`` trains on the CT-like ramp
+filter's measurements (no kernel), ``--no-physics_v2`` deblurs with the
+spatial blur.  The training modes of ``demo/train.py:140-300``: ``--method
+css`` trains on (y, degrade(y)); ``--method ei-shift|ei-rotate`` (or
+``--ProposedLoss__transforms Shifts|Rotations|Rotations+Shifts``) is
+``proposed`` with that EI group; ``--ScalingTransform__kind normal`` builds
+one loss (and one CUDA graph) per rate, 0.75 and 0.5, picked per dispatch
+as the JAX trainer picks them; ``--no-SyntheticDataset__deterministic_measurements``
+degrades the images anew at every step; ``--supervised_l1`` trains
+``supervised`` with the L1 loss.  ``--fine_tuning`` (SGD at 1e-2 by
+default) with ``--fine_tuning_params`` trains ``conv_last`` only and with
+``--weights_distance_loss`` adds the distance to the starting weights (lambda
+1); a directory given as ``--dataset`` holds measurements only and needs
+``--fine_tuning`` and ``proposed`` (one ``--PrepareTrainingPairs__crop_size``
+crop of each, drawn from ``--seed``).
+
 ``--RESUME CKP`` (with ``--lr``) resumes as the JAX package does: the LR is
 pinned with the schedule off unless ``--RESUME_keep_schedule``, and the run
 restarts at the checkpoint's ``epoch`` entry, so the epoch it was written
@@ -49,18 +65,20 @@ import contextlib
 import os
 import sys
 
+import numpy as np
 import torch
 
 from ..config import (DefaultArgParser, add_train_args, check_ported,
                       default_checkpoint_interval, default_epochs, default_lr,
                       default_optimizer)
-from ..data import GroundTruthDataset, build_device_cache
+from ..data import GroundTruthDataset, build_device_cache, build_finetuning_cache
 from ..device import resolve_device
 from ..losses import get_loss, normalize_method
 from ..models import KIND_ALIASES, get_model
 from ..physics import get_physics
 from ..train import Trainer
 from ..train.checkpoint import get_weights
+from ..train.optim import trainable_mask
 from ..train.validate import ValidationHook
 
 
@@ -122,8 +140,16 @@ def main(argv=None) -> dict:
     add_train_args(parser)
     args = parser.parse_args(argv)
     device, physics = setup(args)
+    method, transforms = normalize_method(args.method, args.ProposedLoss__transforms)
     if os.path.isdir(args.dataset):
-        raise ValueError("Datasets of predictors only are only supported for fine-tuning")
+        if not args.fine_tuning:
+            raise ValueError("Datasets of predictors only are only supported for fine-tuning")
+        if method != "proposed":
+            raise ValueError("Fine-tuning is only supported for the proposed method")
+    if args.fine_tuning_params and not args.fine_tuning:
+        raise ValueError("Fine-tuning parameters are only supported for fine-tuning")
+    if args.weights_distance_loss and not args.fine_tuning:
+        raise ValueError("Weights distance loss is only supported for fine-tuning")
     if args.RESUME is not None and args.lr is None:
         raise ValueError("RESUME requires an explicit --lr")
 
@@ -137,8 +163,7 @@ def main(argv=None) -> dict:
     if args.weights is not None:
         model.load_weights(get_weights(args.weights))
 
-    method, transforms = normalize_method(args.method, args.ProposedLoss__transforms)
-    loss_fn = get_loss(
+    loss_kwargs = dict(
         method=method, physics=physics, noise_level=args.noise_level,
         partial_sure=args.partial_sure, partial_sure_sr=args.partial_sure_sr,
         sure_margin=args.sure_margin, sure_cropped_div=args.sure_cropped_div,
@@ -148,13 +173,32 @@ def main(argv=None) -> dict:
         scaling_kind=args.ScalingTransform__kind,
         scaling_antialias=args.ScalingTransform__antialias,
         crop_training_pairs=args.Loss__crop_training_pairs, crop_size=args.Loss__crop_size,
-        sure_rate_hotfix=args.sure_rate_hotfix)
+        supervised_l1=args.supervised_l1, sure_rate_hotfix=args.sure_rate_hotfix)
+    normal_rate_losses = None
+    if (transforms == "Scaling_Transforms" and args.ScalingTransform__kind == "normal"
+            and method == "proposed"):
+        normal_rate_losses = [get_loss(**loss_kwargs, fixed_normal_rate=r) for r in (0.75, 0.5)]
+        loss_fn = normal_rate_losses[0]
+    else:
+        loss_fn = get_loss(**loss_kwargs)
 
-    gt = ground_truth(args, args.GroundTruthDataset__split)
-    cache = build_device_cache(gt, physics, seed=args.seed,
-                               unique_seeds=args.SyntheticDataset__unique_seeds,
-                               upsample_y_to_x=args.homogeneous_swinir and args.task == "sr")
-    eval_hook = validation_hook(args, physics)
+    eval_hook = None
+    if os.path.isdir(args.dataset):
+        cache = build_finetuning_cache(args.dataset, args.PrepareTrainingPairs__crop_size,
+                                       np.random.default_rng(args.seed), device=device)
+        data_crop = args.PrepareTrainingPairs__crop_size
+    else:
+        gt = ground_truth(args, args.GroundTruthDataset__split)
+        cache = build_device_cache(
+            gt, physics, seed=args.seed, unique_seeds=args.SyntheticDataset__unique_seeds,
+            upsample_y_to_x=args.homogeneous_swinir and args.task == "sr")
+        eval_hook = validation_hook(args, physics)
+        # the dataset crop, y side: SR crops the loss's 48 px directly,
+        # deblurring 256 then the loss 48 (demo/train.py:194-201)
+        data_crop = (args.Loss__crop_size if args.task == "sr"
+                     else args.PrepareTrainingPairs__crop_size)
+        if args.homogeneous_swinir:
+            data_crop = 48
 
     epochs = args.epochs if args.epochs is not None else default_epochs(args.dataset)
     lr = args.lr if args.lr is not None else default_lr(args.task, args.fine_tuning)
@@ -164,12 +208,6 @@ def main(argv=None) -> dict:
     print(f"\nSelected learning rate: {lr:e}\n")
     print(f"\nSelected optimizer: {optimizer}\n")
 
-    # the dataset crop, y side: SR crops the loss's 48 px directly, deblurring
-    # 256 then the loss 48 (demo/train.py:194-201)
-    data_crop = (args.Loss__crop_size if args.task == "sr"
-                 else args.PrepareTrainingPairs__crop_size)
-    if args.homogeneous_swinir:
-        data_crop = 48
     # the reference's RESUME pins the LR and turns the schedule off
     pinned = args.RESUME is not None and not args.RESUME_keep_schedule
     trainer = Trainer(model, loss_fn, physics, cache, batch_size=args.batch_size,
@@ -179,7 +217,12 @@ def main(argv=None) -> dict:
                       checkpoint_interval=ckpt_interval, seed=args.seed,
                       scan_steps=args.scan_steps,
                       eval_interval=args.eval_interval if eval_hook is not None else 0,
-                      eval_hook=eval_hook)
+                      eval_hook=eval_hook, css=method == "css",
+                      fresh_measurements=not args.SyntheticDataset__deterministic_measurements,
+                      trainable_mask=(trainable_mask(model.module)
+                                      if args.fine_tuning_params else None),
+                      weights_distance_lambda=1.0 if args.weights_distance_loss else None,
+                      normal_rate_losses=normal_rate_losses)
     if args.RESUME is not None:
         data = trainer.load_checkpoint(args.RESUME)
         trainer.start_epoch = int(data["epoch"])  # the JAX trainer's restart epoch

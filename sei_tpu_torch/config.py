@@ -213,20 +213,6 @@ def default_optimizer(fine_tuning: bool) -> str:
 # flags of features that later ROADMAP items port: (attribute, its default,
 # the item); set away from its default, a flag raises
 _LATER = (
-    ("fine_tuning", False, "item 4: remaining methods and training modes (fine-tuning)"),
-    ("fine_tuning_params", False, "item 4: remaining methods and training modes "
-                                  "(trainable_mask)"),
-    ("weights_distance_loss", False, "item 4: remaining methods and training modes "
-                                     "(weights-distance fine-tuning)"),
-    ("supervised_l1", False, "item 4: remaining methods and training modes (supervised L1)"),
-    ("ScalingTransform__kind", "padded", "item 4: remaining methods and training modes "
-                                         "(the normal scaling kind)"),
-    ("SyntheticDataset__deterministic_measurements", True,
-     "item 4: remaining methods and training modes (fresh measurements)"),
-    ("noise2inverse", False, "item 4: remaining methods and training modes (Noise2Inverse)"),
-    ("r2r", False, "item 4: remaining methods and training modes (--r2r averaging)"),
-    ("r2r_itercount", 1, "item 4: remaining methods and training modes (--r2r averaging)"),
-    ("physics_v2", True, "item 3: the spatial blur"),
     ("data_parallel_devices", None, "item 5: eval at large sizes, and multi-GPU (DDP)"),
     ("ProposedModel__architecture", "Transformer", "item 6: baselines and the rest of the "
                                                    "model registry (Convolutional)"),
@@ -234,15 +220,6 @@ _LATER = (
     ("tv_lambd", None, "item 6: baselines and the rest of the model registry"),
     ("tv_max_iter", 300, "item 6: baselines and the rest of the model registry"),
     ("lpips_weights", None, "item 6: baselines and the rest of the model registry (LPIPS)"),
-)
-# values of valued flags that later items port
-_LATER_VALUES = (
-    ("task", ("invert_a_tomography_like_filter",), "item 3: the CT-like filter"),
-    ("method", ("css",), "item 4: remaining methods and training modes (the CSS swap)"),
-    ("method", ("ei-shift", "ei-rotate"), "item 4: remaining methods and training modes "
-                                          "(shift/rotate transforms)"),
-    ("ProposedLoss__transforms", ("Rotations+Shifts", "Rotations", "Shifts"),
-     "item 4: remaining methods and training modes (shift/rotate transforms)"),
 )
 
 
@@ -253,10 +230,6 @@ def check_ported(args) -> None:
     for name, default, item in _LATER:
         if hasattr(args, name) and getattr(args, name) != default:
             raise NotImplementedError(f"--{name} {getattr(args, name)!r}: not ported yet "
-                                      f"(ROADMAP, Queue 1 {item})")
-    for name, values, item in _LATER_VALUES:
-        if getattr(args, name, None) in values:
-            raise NotImplementedError(f"--{name} {getattr(args, name)}: not ported yet "
                                       f"(ROADMAP, Queue 1 {item})")
     kind = getattr(args, "model_kind", "Proposed")
     if kind not in ("Proposed", "swinir", "Identity", "id", "Upsample", "up"):

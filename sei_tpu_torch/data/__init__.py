@@ -11,9 +11,12 @@ epochs, so each (x, y) pair is synthesized once, on the device, and the
 whole dataset stays there as padded tensors (:func:`build_device_cache`).
 A step's batch is then a gather of images and an aligned random crop (for
 SR, x cropped ``rate`` times the y crop at ``rate`` times its offset), with
-no host round trip for pixels.  Fresh (non-frozen) measurements are not
-ported yet (ROADMAP, Queue 1 item 4: remaining methods and training modes),
-nor is the CT source (item 3) or the native PNG loader (item 1's remainder).
+no host round trip for pixels.  Fresh measurements (y degraded anew at
+every step) and CSS (the pair (y, degrade(y)) in place of (x, y)) degrade
+the gathered whole images on the device before the crop, with the step's
+``noise`` stream.  :func:`build_finetuning_cache` is the fine-tuning set of
+a folder of measurements.  The CT source (ROADMAP, Queue 1 item 3) and the
+native PNG loader (item 1's remainder) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.resize import resize, resize_shorter_side_np
 from ..transforms.crop import crop_offsets, crop_pair_batch, pad_min_size
 from .loader import read_image, write_image  # noqa: F401
@@ -130,7 +134,9 @@ def build_device_cache(images: Union[GroundTruthDataset, Sequence[np.ndarray]], 
     every image the id 0, as the reference's
     ``--no-SyntheticDataset__unique_seeds``.  ``upsample_y_to_x`` (the
     homogeneous SwinIR's data, ``sei_tpu/data/__init__.py:214-225``): each
-    SR measurement bicubic-upsampled to x's size, and the cache has rate 1."""
+    SR measurement bicubic-upsampled to x's size, and the cache has rate 1.
+    With fresh measurements the trainer degrades x anew at every step and
+    never reads this y."""
     dev = physics.device if device is None else torch.device(device)
     rate = physics.rate if physics.task == "sr" else 1
     if isinstance(images, GroundTruthDataset):
@@ -168,29 +174,71 @@ def epoch_indices(perm: torch.Tensor, step_in_epoch: int, batch_size: int) -> to
     return perm[(step_in_epoch * batch_size + torch.arange(batch_size)) % n]
 
 
+def build_finetuning_cache(dataset_dir: str, crop_size: int, rng: np.random.Generator, *,
+                           device=None) -> DeviceDataCache:
+    """The fine-tuning set of a folder of measurements (``demo/train.py:38-62``):
+    y a ``crop_size`` crop of each image (zero-padded bottom/right to the
+    crop first where smaller) at offsets drawn from ``rng`` on the host (top,
+    then left), x all zeros (the proposed loss never reads it)."""
+    src = FolderDataset(dataset_dir)
+    ys = []
+    for i in range(len(src)):
+        im = src.load(i)
+        _, h, w = im.shape
+        if h < crop_size or w < crop_size:
+            im = np.pad(im, ((0, 0), (0, max(0, crop_size - h)), (0, max(0, crop_size - w))))
+            _, h, w = im.shape
+        top = int(rng.integers(0, h - crop_size + 1))
+        left = int(rng.integers(0, w - crop_size + 1))
+        ys.append(im[:, top:top + crop_size, left:left + crop_size])
+    dev = resolve_device(device)
+    y = torch.from_numpy(np.stack(ys).astype(np.float32)).to(dev)
+    n = y.shape[0]
+    size = torch.full((n,), crop_size, dtype=torch.int64, device=dev)
+    return DeviceDataCache(x=torch.zeros_like(y), y=y, heights=size, widths=size.clone(),
+                           ids=torch.arange(n), rate=1)
+
+
 def sample_train_batch(cache: DeviceDataCache, idx: torch.Tensor, *, crop_size: int = 256,
                        generator: Optional[torch.Generator] = None,
-                       offsets: Optional[torch.Tensor] = None):
+                       offsets: Optional[torch.Tensor] = None, physics=None,
+                       css: bool = False, fresh_measurements: bool = False,
+                       noise_generator: Optional[torch.Generator] = None):
     """(x, y) crops of the images ``idx`` (an int64 tensor, best on the
     cache's device: the trainer's static index buffer): MinSizePadding (y to
     ``crop_size``, x to ``crop_size * rate``), then per image a ``crop_size``
     crop of y inside its true region (h / rate, w / rate) and the aligned
     ``crop_size * rate`` crop of x, at y offsets ``offsets`` (B, 2) or
     offsets drawn from ``generator`` (the crop stream, on the cache's
-    device).  On the device throughout: a CUDA graph of the step holds it."""
+    device).  First, on the gathered whole images, ``fresh_measurements``
+    makes y = degrade(x) and then ``css`` (x, y) -> (y, degrade(y)), each
+    by ``physics`` with noise from ``noise_generator``
+    (``sei_tpu/data/__init__.py:285-293``).  On the device throughout: a
+    CUDA graph of the step holds it."""
     idx = torch.as_tensor(idx, dtype=torch.int64, device=cache.x.device)
     r = cache.rate
+    if css and r > 1:
+        # the JAX package runs this combination, but its swapped pair has
+        # the measurement's size on both sides: its crops clamp into pairs
+        # that do not line up; the port gives it no meaning
+        raise ValueError("css with sr: the swapped pair (y, degrade(y)) has no x at "
+                         f"{r} times the measurement's size")
     if offsets is None:
         hs, ws = cache.heights[idx], cache.widths[idx]
         if r > 1:
             hs, ws = hs // r, ws // r
         offsets = crop_offsets(generator, hs, ws, crop_size)
-    x = pad_min_size(cache.x[idx], crop_size * r, crop_size * r)
-    y = pad_min_size(cache.y[idx], crop_size, crop_size)
+    x, y = cache.x[idx], cache.y[idx]
+    if fresh_measurements:
+        y = physics.degrade(x, noise_generator)
+    if css:
+        x, y = y, physics.degrade(y, noise_generator)
+    x = pad_min_size(x, crop_size * r, crop_size * r)
+    y = pad_min_size(y, crop_size, crop_size)
     return crop_pair_batch(x, y, size=crop_size, xy_size_ratio=r, offsets=offsets)
 
 
 __all__ = ["DeviceDataCache", "Div2K", "FMD", "FolderDataset", "GroundTruthDataset",
            "ImageSource", "SingleImageDataset", "TomographyDataset", "Urban100",
-           "build_device_cache", "epoch_indices", "image_seed", "read_image",
-           "sample_train_batch", "write_image"]
+           "build_device_cache", "build_finetuning_cache", "epoch_indices", "image_seed",
+           "read_image", "sample_train_batch", "write_image"]

@@ -112,12 +112,14 @@ class Urban100(ImageSource):
 
 
 class TomographyDataset(ImageSource):
-    """deepinv's HDF5 CT dataset (4992 train / 100 val): not ported yet."""
+    """deepinv's HDF5 CT dataset (4992 train / 100 val): not ported yet (it
+    needs ``h5py`` and ``CT/dinv_dataset0.h5``, neither of which the
+    machines have)."""
 
     def __init__(self, split: str, datasets_dir: str, channels: int = 3, download: bool = False):
         raise NotImplementedError(
-            "the CT dataset: not ported yet (ROADMAP, Queue 1 item 3: the CT source and "
-            "the CT-like filter)")
+            "the CT dataset: not ported yet (ROADMAP, Queue 1 item 3: the CT source, which "
+            "needs h5py and CT/dinv_dataset0.h5)")
 
 
 class FMD(ImageSource):

@@ -10,18 +10,25 @@ the model's ``scale``, 8-bit quantize and clamp both images, then Y-channel
 PSNR and SSIM.  Strip tiling above
 ``MAX_EVAL_HEIGHT`` rows (the reference's ``eval_tile_height``) is not ported
 yet; such images raise.
+
+The test command line's wrappers (``demo/test.py:179-205``):
+:func:`eval_apply` with ``noise2inverse`` restores through the
+Noise2Inverse ensemble (:mod:`sei_tpu_torch.noise2inverse`), and
+:func:`r2r_average` is ``--r2r``'s mean of ``itercount`` restorations of
+y + sigma / 2 * n, n drawn from one generator through the whole eval.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .metrics import compute_metrics, quantize_and_clamp
 from .models.swinir import reflect_pad
+from .noise2inverse import noise2inverse_model
 
 MAX_EVAL_HEIGHT = 768
 
@@ -56,12 +63,45 @@ def restore(model, y: torch.Tensor, *, pad_bucket: int = 64) -> torch.Tensor:
     return model(y)[..., :h * f, :w * f]
 
 
-def score_pair(model, x, y, *, pad_bucket: int = 64):
+def eval_apply(model, physics=None, *, pad_bucket: int = 64,
+               noise2inverse: bool = False) -> Callable:
+    """The restoration of a (B, 3, h, w) measurement: :func:`restore`, or
+    with ``noise2inverse`` the Noise2Inverse ensemble of it (4 row combs,
+    each backprojected by the physics' inverse filter or ``A_dagger``)."""
+    def apply(y):
+        return restore(model, y, pad_bucket=pad_bucket)
+
+    if not noise2inverse:
+        return apply
+    return noise2inverse_model(apply, task=physics.task, kernel=physics.kernel,
+                               degradation_inverse_fn=physics.A_dagger)
+
+
+def r2r_average(apply: Callable, y: torch.Tensor, *, sigma: float, itercount: int,
+                generator: Optional[torch.Generator] = None,
+                normals: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """``--r2r``: the mean of ``itercount`` restorations of y + 0.5 * pert,
+    pert = sigma * N(0, I) of y's shape drawn from ``generator`` (on y's
+    device) for each, or taken from ``normals`` (the N(0, I) draws)."""
+    acc = None
+    for t in range(itercount):
+        n = (torch.randn(y.shape, generator=generator, device=y.device, dtype=y.dtype)
+             if normals is None else normals[t])
+        out = apply(y + 0.5 * (sigma * n))
+        acc = out if acc is None else acc + out
+    return acc / itercount
+
+
+def score_pair(model, x, y, *, pad_bucket: int = 64, apply: Optional[Callable] = None):
     """(PSNR, SSIM, quantized estimate (3, H, W)) of one (ground truth,
-    measurement) pair, each (3, H, W)."""
+    measurement) pair, each (3, H, W); ``apply`` (a batch restoration, such
+    as :func:`eval_apply`'s) in place of :func:`restore`."""
     x = torch.as_tensor(x, dtype=torch.float32, device=model.device)
     y = torch.as_tensor(y, dtype=torch.float32, device=model.device)
-    x_hat = quantize_and_clamp(restore(model, y[None], pad_bucket=pad_bucket))[0]
+    if apply is None:
+        x_hat = quantize_and_clamp(restore(model, y[None], pad_bucket=pad_bucket))[0]
+    else:
+        x_hat = quantize_and_clamp(apply(y[None]))[0]
     p, s, _ = compute_metrics(quantize_and_clamp(x), x_hat)
     return p, s, x_hat
 
@@ -76,13 +116,19 @@ def evaluate_pairs(model, pairs: Iterable, *, pad_bucket: int = 64) -> EvalResul
     return EvalResult(psnrs, ssims)
 
 
-def degraded_pair(physics, x: torch.Tensor, seed: Optional[int]):
+def degraded_pair(physics, x: torch.Tensor, seed: Optional[int], *,
+                  even: bool = False):
     """(ground truth, measurement) of a (3, H, W) image: the whole image
     degraded with ``seed``, then the ground truth cut to the measurement's
-    size times the SR rate (``demo/test.py:100-121``)."""
+    size times the SR rate (``demo/test.py:100-121``); ``even`` (the
+    Noise2Inverse eval of deblurring) cuts both to even sizes."""
     y = physics.randomly_degrade(x[None], seed)[0]
     rate = physics.rate if physics.task == "sr" else 1
-    return x[..., : y.shape[-2] * rate, : y.shape[-1] * rate], y
+    x = x[..., : y.shape[-2] * rate, : y.shape[-1] * rate]
+    if even:
+        y = y[..., : 2 * (y.shape[-2] // 2), : 2 * (y.shape[-1] // 2)]
+        x = x[..., : y.shape[-2] * rate, : y.shape[-1] * rate]
+    return x, y
 
 
 def evaluate(model, physics, images: Sequence, *, pad_bucket: int = 64,

@@ -1,8 +1,13 @@
 """Training losses (counterpart of ``sei_tpu/losses/__init__.py``).
 
-  supervised / css / noise2inverse -> MSE on the (x, y) pair;
+  supervised / css / noise2inverse -> MSE on the (x, y) pair (supervised
+                with ``supervised_l1``: the mean absolute error);
   sure       -> MC-SURE in measurement space;
-  proposed   -> SURE + EI under the padded scaling transform, with optional
+  proposed   -> SURE + EI under a transform group (the padded scaling
+                transform by default; ``transforms`` ``Rotations``,
+                ``Shifts`` or ``Rotations+Shifts``, the EI-rotate and
+                EI-shift baselines; the ``normal`` scaling kind at the fixed
+                ``fixed_normal_rate``, one loss per rate), with optional
                 stop-gradient on the transformed branch; with
                 ``sure_alternative="r2r"`` R2R-EI in SURE's place
                 (:mod:`.r2r`: one 2B forward on [y + pert/2, y + eps1], then
@@ -20,9 +25,8 @@ shape of what it acts on: the SURE probe and R2R's noises y's, the scaling
 parameters the estimate's (``rate`` times y's size for SR).  A
 ``sure_alternative`` other than ``"r2r"`` keeps SURE, as the JAX package
 does; ``sure_rate_hotfix`` (the reference's ``_TEMPORARY_HOTFIX``) scales
-``proposed``'s SURE term by ``rate ** 2``.  The ``normal`` scaling kind and
-the supervised L1 variant are not ported yet (ROADMAP, Queue 1 item 4:
-remaining methods and training modes).
+``proposed``'s SURE term by ``rate ** 2``.  :mod:`.weights_distance` is the
+fine-tuning regularizer the trainer adds.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from .sure import (  # noqa: F401
     sure_gaussian_loss,
     sure_gaussian_loss_from_outputs,
 )
+from .weights_distance import weights_distance_loss
 
 METHOD_ALIASES = {
     "sup": "supervised",
@@ -65,6 +70,10 @@ def _mse(a, b):
     return torch.mean(d * d)
 
 
+def _l1(a, b):
+    return torch.mean(torch.abs(a - b))
+
+
 @dataclasses.dataclass
 class LossDraws:
     """The random inputs of one loss evaluation; a field left None is drawn
@@ -74,11 +83,18 @@ class LossDraws:
     probe: Optional[torch.Tensor] = None    # SURE probe b, the cropped y's shape
     rates: Optional[torch.Tensor] = None    # (B,) scaling rates
     centers: Optional[torch.Tensor] = None  # (B, 2) scaling centers (cx, cy)
+    angle: Optional[torch.Tensor] = None    # 0-d rotation angle in degrees
+    shifts: Optional[torch.Tensor] = None   # (2,) cyclic shift (rows, columns)
     # R2R-EI's noises as added to the cropped y: pert ~ N(0, sigma^2),
     # eps1 ~ N(0, (sigma / 2)^2), eps2 ~ N(0, (3 sigma / 2)^2)
     pert: Optional[torch.Tensor] = None
     eps1: Optional[torch.Tensor] = None
     eps2: Optional[torch.Tensor] = None
+
+    def transform_draws(self) -> dict:
+        """The draws a transform takes, by keyword."""
+        return {"rates": self.rates, "centers": self.centers, "angle": self.angle,
+                "shifts": self.shifts}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +115,11 @@ class LossConfig:
     crop_training_pairs: bool = True
     crop_size: int = 48
     xy_size_ratio: int = 1
+    supervised_l1: bool = False
     sure_rate_hotfix: Optional[float] = None  # SURE term times this squared
+    # the normal scaling kind's rate: its output size depends on it, so each
+    # rate is a loss of its own (the trainer's normal_rate_losses)
+    fixed_normal_rate: Optional[float] = None
 
     @property
     def sigma(self) -> float:
@@ -121,9 +141,10 @@ class LossConfig:
         """Return ``loss(x, y, model, rng=None, draws=None) -> scalar``."""
         method = self.method
         if method in ("supervised", "css", "noise2inverse"):
+            metric = _l1 if method == "supervised" and self.supervised_l1 else _mse
 
             def fn(x, y, model, rng, draws):
-                return _mse(model(y), x)
+                return metric(model(y), x)
 
         elif method == "sure":
 
@@ -132,7 +153,8 @@ class LossConfig:
 
         elif method == "proposed":
             transform = get_ei_transform(self.transforms, kind=self.scaling_kind,
-                                         antialias=self.scaling_antialias)
+                                         antialias=self.scaling_antialias,
+                                         normal_rate=self.fixed_normal_rate)
 
             if self.sure_alternative == "r2r":
 
@@ -150,7 +172,7 @@ class LossConfig:
                     # f(A(x2)).  This forward cannot join the 2B one: its
                     # input depends on x_net's value.
                     x2 = transform(x_net, None if rng is None else rng.transform,
-                                   rates=draws.rates, centers=draws.centers)
+                                   **draws.transform_draws())
                     if self.stop_gradient:
                         x2 = x2.detach()
                     x3 = model(A(x2))
@@ -196,9 +218,11 @@ def get_loss(*, method: str, physics, noise_level: float = 5.0,
              sure_alternative: Optional[str] = None, alpha_tradeoff: float = 1.0,
              transforms: str = "Scaling_Transforms", scaling_kind: str = "padded",
              scaling_antialias: bool = False, crop_training_pairs: bool = True,
-             crop_size: int = 48, sure_rate_hotfix: bool = False) -> Callable:
-    """Factory mirroring ``sei_tpu.losses.get_loss`` for the ported methods;
-    the loss crop's ratio is the physics' SR rate (else 1)."""
+             crop_size: int = 48, supervised_l1: bool = False,
+             fixed_normal_rate: Optional[float] = None,
+             sure_rate_hotfix: bool = False) -> Callable:
+    """Factory mirroring ``sei_tpu.losses.get_loss``; the loss crop's ratio
+    is the physics' SR rate (else 1)."""
     rate = physics.rate if physics.task == "sr" else 1
     method, transforms = normalize_method(method, transforms)
     margin = compute_sure_margin(
@@ -211,11 +235,12 @@ def get_loss(*, method: str, physics, noise_level: float = 5.0,
         stop_gradient=stop_gradient, sure_alternative=sure_alternative,
         alpha_tradeoff=alpha_tradeoff, transforms=transforms, scaling_kind=scaling_kind,
         scaling_antialias=scaling_antialias, crop_training_pairs=crop_training_pairs,
-        crop_size=crop_size, xy_size_ratio=rate,
+        crop_size=crop_size, xy_size_ratio=rate, supervised_l1=supervised_l1,
+        fixed_normal_rate=fixed_normal_rate,
         sure_rate_hotfix=float(physics.rate) if sure_rate_hotfix else None)
     return cfg.build(physics.A)
 
 
 __all__ = ["LossConfig", "LossDraws", "METHODS", "compute_sure_margin", "get_loss",
            "mc_divergence", "normalize_method", "r2r_ei_loss", "r2r_loss", "sample_probe",
-           "sure_gaussian_loss", "sure_gaussian_loss_from_outputs"]
+           "sure_gaussian_loss", "sure_gaussian_loss_from_outputs", "weights_distance_loss"]

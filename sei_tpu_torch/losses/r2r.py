@@ -13,7 +13,7 @@ depends on x1's value.  It runs the same forwards and backward as
 
 The noises come from the trainer's ``probe`` stream (R2R takes SURE's
 place, so it draws from SURE's generator: pert, eps1, then eps2), the
-scaling parameters from ``transform``; a :class:`LossDraws` field that is set
+transform's draws from ``transform``; a :class:`LossDraws` field that is set
 is used as it is (the noise as it is added to y).
 """
 
@@ -55,7 +55,7 @@ def r2r_ei_loss(y: torch.Tensor, model: Callable, A: Callable, transform: Callab
     """R2R + EI in the fused form (``sei_tpu/losses/r2r.py:38-71``).
 
     ``rng``: the trainer's streams (``probe`` for pert, eps1, eps2;
-    ``transform`` for the scaling parameters); ``draws``: a
+    ``transform`` for the transform's draws); ``draws``: a
     :class:`~sei_tpu_torch.losses.LossDraws` whose set fields replace the
     draws."""
     probe = None if rng is None else rng.probe
@@ -67,7 +67,7 @@ def r2r_ei_loss(y: torch.Tensor, model: Callable, A: Callable, transform: Callab
     loss = _mse(A(x_r2r), y - pert / ALPHA)
 
     x2 = transform(x1, None if rng is None else rng.transform,
-                   rates=getattr(draws, "rates", None), centers=getattr(draws, "centers", None))
+                   **({} if draws is None else draws.transform_draws()))
     if stop_gradient:
         x2 = x2.detach()
     y2 = A(x2)

@@ -16,8 +16,8 @@ size.  The rates are drawn on the device, so no branch is chosen on the
 host: both rates' branches run for the whole batch, and each image takes
 its own by a ``torch.where`` on its rate (the JAX package's ``lax.switch``
 under ``vmap``).  Shapes stay static, and a CUDA graph holds the step.  The
-``normal`` kind is not ported yet (ROADMAP, Queue 1: remaining methods and
-training modes).
+``normal`` kind (:func:`normal_scaling_transform`) resizes the whole batch
+by one fixed rate: the image shrinks.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from .bicubic import cubic_weights_from_frac, output_size_for_scale
-from .resize import matrix
+from .resize import matrix, resize
 
 DEFAULT_RATES = (0.75, 0.5)  # the paper's downscaling rates
 
@@ -95,3 +95,9 @@ def padded_scaling_transform(x: torch.Tensor, rates: torch.Tensor,
         branch = _sample(torch.einsum("oh,bchw,pw->bcop", ph, x, pw), rates, centers, h, w)
         out = branch if out is None else torch.where((rates == r).view(b, 1, 1, 1), branch, out)
     return out
+
+
+def normal_scaling_transform(x: torch.Tensor, rate: float, *, antialias: bool) -> torch.Tensor:
+    """The normal kind: the whole batch bicubic-resized by the fixed ``rate``
+    (``sei_tpu/ops/scaling.py:132-141``); the output is floor(size * rate)."""
+    return resize(x, scale_factor=rate, antialias=antialias)

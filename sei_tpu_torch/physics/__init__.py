@@ -1,15 +1,20 @@
 """Forward operators with Gaussian noise (counterpart of
 ``sei_tpu/physics/__init__.py``).
 
-Ported: ``deblurring`` with the FFT circular blur (``physics_v2=True``) and
-``sr``, the antialiased bicubic downsampling by ``1 / rate`` with its true
-adjoint (the exact transpose of the resize) or the reference's deprecated
-one (a plain bicubic upsample by ``rate``), and a CG pseudo-inverse.
+Every task is ported: ``deblurring`` with the FFT circular blur
+(``physics_v2=True``) or the spatial blur with circular padding
+(``physics_v2=False``, :mod:`.conv`; its pseudo-inverse is the spectral
+inverse filter in both cases, as in the JAX package); ``sr``, the
+antialiased bicubic downsampling by ``1 / rate`` with its true adjoint (the
+exact transpose of the resize) or the reference's deprecated one (a plain
+bicubic upsample by ``rate``), and a CG pseudo-inverse; and
+``invert_a_tomography_like_filter``, the separable ramp filter
+(``ops.fft_conv.ct_like_filter``: A and its adjoint the smoothing
+direction, A_dagger the sharpening one; no kernel).
 Seeded degradation draws its noise from a ``torch.Generator`` seeded per
 image on the tensor's device: the draw is deterministic for a seed, but does
 not reproduce the JAX package's ``fold_in`` bits (the golden tests hand both
-packages the same noise).  The CT-like filter and the spatial blur
-(``physics_v2=False``) are not ported yet (ROADMAP, Queue 1 item 3).
+packages the same noise).
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import blur_circular, blur_circular_adjoint, get_kernel, inverse_filter
+from ..ops.fft_conv import ct_like_filter
 from ..ops.resize import resize, resize_transpose
+from .conv import blur_spatial, blur_spatial_adjoint
 
 TASKS = ("deblurring", "sr", "invert_a_tomography_like_filter")
 CG_ITERS = 50  # the SR pseudo-inverse's conjugate-gradient steps
@@ -34,8 +41,10 @@ class Physics:
     """A linear forward operator with Gaussian measurement noise.
 
     kernel: PSF tensor on the device (deblurring), else None; task:
-    ``deblurring`` or ``sr``; sigma: noise std in [0, 1] units (noise_level
-    / 255); rate: the SR downsampling rate, else None; true_adjoint: SR's
+    ``deblurring``, ``sr`` or ``invert_a_tomography_like_filter``; sigma:
+    noise std in [0, 1] units (noise_level / 255); rate: the SR
+    downsampling rate, else None; v2: deblurring by the FFT circular blur
+    (True) or the spatial one (False); true_adjoint: SR's
     exact adjoint instead of the deprecated bicubic upsample; antialias: the
     SR resize's antialiasing; device: where the operator's tensors live.
     """
@@ -44,18 +53,27 @@ class Physics:
     task: str = "deblurring"
     sigma: float = 5.0 / 255.0
     rate: Optional[int] = None
+    v2: bool = True
     true_adjoint: bool = False
     antialias: bool = True
     device: torch.device = torch.device("cpu")
 
     def A(self, x: torch.Tensor) -> torch.Tensor:
+        if self.task == "deblurring":
+            if self.v2:
+                return blur_circular(x, self.kernel)
+            return blur_spatial(x, self.kernel, padding="circular")
         if self.task == "sr":
             return resize(x, scale_factor=1.0 / self.rate, antialias=self.antialias)
-        return blur_circular(x, self.kernel)
+        return ct_like_filter(x, inverse=True)
 
     def A_adjoint(self, y: torch.Tensor) -> torch.Tensor:
-        if self.task != "sr":
-            return blur_circular_adjoint(y, self.kernel)
+        if self.task == "deblurring":
+            if self.v2:
+                return blur_circular_adjoint(y, self.kernel)
+            return blur_spatial_adjoint(y, self.kernel, padding="circular")
+        if self.task != "sr":  # the ramp filter is diagonal in Fourier: self-adjoint
+            return ct_like_filter(y, inverse=True)
         if self.true_adjoint:
             in_size = (y.shape[-2] * self.rate, y.shape[-1] * self.rate)
             return resize_transpose(y, in_size, scale_factor=1.0 / self.rate,
@@ -64,11 +82,14 @@ class Physics:
         return resize(y, scale_factor=float(self.rate), antialias=False)
 
     def A_dagger(self, y: torch.Tensor) -> torch.Tensor:
-        """Least-squares pseudo-inverse: the inverse filter (deblurring), or
-        ``A^T z`` with ``A A^T z = y`` solved by :data:`CG_ITERS` steps of
-        conjugate gradients over the whole batch (SR)."""
-        if self.task != "sr":
+        """Least-squares pseudo-inverse: the inverse filter (deblurring, both
+        blurs), the inverse ramp filter (CT-like), or ``A^T z`` with ``A A^T
+        z = y`` solved by :data:`CG_ITERS` steps of conjugate gradients over
+        the whole batch (SR)."""
+        if self.task == "deblurring":
             return inverse_filter(y, self.kernel)
+        if self.task != "sr":
+            return ct_like_filter(y, inverse=False)
         z = torch.zeros_like(y)
         r = y
         p = r
@@ -118,21 +139,17 @@ def get_physics(*, task: str, noise_level: float = 5.0,
                 device: DeviceLike = None) -> Physics:
     """Factory mirroring ``sei_tpu.physics.get_physics``.  Deblurring:
     ``kernel`` is a PSF name (``ops.kernels``), the path of a ``.npy`` or
-    ``.pt`` PSF file, or an array.  SR: ``sr_factor`` is the rate,
+    ``.pt`` PSF file, or an array; ``physics_v2`` picks the FFT blur (True)
+    or the spatial one.  The CT-like task takes no kernel.  SR: ``sr_factor`` is the rate,
     ``physics_true_adjoint`` picks the exact adjoint, ``antialias`` shapes
     the resize.  Default device the GPU; raises without one unless
     ``device="cpu"``."""
     if task not in TASKS:
         raise ValueError(f"Unknown task: {task}")
-    if task == "invert_a_tomography_like_filter":
-        raise NotImplementedError(
-            f"{task}: not ported yet (ROADMAP, Queue 1 item 3: the CT-like filter)")
-    if task == "deblurring" and not physics_v2:
-        raise NotImplementedError(
-            "spatial circular blur (physics_v2=False): not ported yet "
-            "(ROADMAP, Queue 1 item 3: the spatial blur)")
     dev = resolve_device(device)
-    common = dict(task=task, sigma=float(noise_level) / 255.0, device=dev)
+    common = dict(task=task, sigma=float(noise_level) / 255.0, v2=physics_v2, device=dev)
+    if task == "invert_a_tomography_like_filter":
+        return Physics(**common)
     if task == "sr":
         if sr_factor is None:
             raise ValueError("sr requires sr_factor")

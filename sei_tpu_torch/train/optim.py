@@ -15,8 +15,12 @@ it equals the float form rounded to f32.  Adam is the stock
 ``torch.optim.Adam`` with a tensor LR, ``capturable`` on a CUDA device (its
 step count and bias corrections on the device, updated inside a CUDA
 graph): the JAX package left its elementwise update to XLA (optax), outside
-any Pallas kernel.  The ``trainable_mask`` of fine-tuning is not ported yet
-(ROADMAP, Queue 1).
+any Pallas kernel.  SGD (fine-tuning's default) is :class:`SGD`, optax's
+``sgd`` as two elementwise ops that read a tensor LR on the device, so a
+CUDA graph holds it too.  :func:`trainable_mask` is fine-tuning's
+``--fine_tuning_params``: only ``conv_last`` is handed to the optimizer, and
+every other parameter stays as it was, bit for bit (optax's ``masked`` with
+``set_to_zero``).
 """
 
 from __future__ import annotations
@@ -98,17 +102,40 @@ def get_lr_schedule_tensor(kind, lr: float, epochs: int, steps_per_epoch: int) -
     raise ValueError(f"Unknown lr scheduler: {kind}")
 
 
+class SGD(torch.optim.Optimizer):
+    """Plain SGD as optax's ``sgd`` computes it: u = g * (-lr), then p + u
+    (two f32 roundings, no fused multiply-add).  ``lr`` may be a tensor on
+    the parameters' device, read there: nothing goes to the host."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr):
+        super().__init__(params, {"lr": lr})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            neg_lr = -group["lr"]
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.add_(p.grad * neg_lr)
+
+
+def trainable_mask(module: torch.nn.Module, names: tuple = ("conv_last",)) -> dict:
+    """Parameter name -> whether it trains: those under a submodule named in
+    ``names`` (``demo/train.py:214-225``: ``conv_last`` only)."""
+    return {n: any(part in names for part in n.split(".")) for n, _ in module.named_parameters()}
+
+
 def get_optimizer(params: Iterable[torch.Tensor], *, kind: str = "Adam", lr,
                   beta2: float = 0.999, capturable: bool = False) -> torch.optim.Optimizer:
-    """Adam (betas (0.9, beta2), eps 1e-8, as optax.adam) or plain SGD.
+    """Adam (betas (0.9, beta2), eps 1e-8, as optax.adam) or :class:`SGD`.
     ``lr`` is a float or a 1-element f32 tensor that the trainer rewrites
     each step; ``capturable`` (Adam on a CUDA device) keeps Adam's step
-    count on the device, so a CUDA graph can hold the update.  SGD reads a
-    tensor LR on the host, so it cannot be captured."""
+    count on the device, so a CUDA graph can hold the update (SGD needs
+    nothing more)."""
     if kind == "Adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, beta2), eps=1e-8,
                                 capturable=capturable)
     if kind == "SGD":
-        return torch.optim.SGD(params, lr=lr)
+        return SGD(params, lr=lr)
     raise ValueError(f"Unknown optimizer: {kind}")
 

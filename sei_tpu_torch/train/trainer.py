@@ -31,10 +31,21 @@ at a time (what per-kernel profiling needs).  A capture that fails raises;
 nothing falls back.
 
 Randomness comes from the trainer's own generators (:mod:`sei_tpu_torch.rng`):
-permutation (host), crops, SURE probe, scaling parameters and drop-path
-(device) each draw from their own stream.  Not ported yet (ROADMAP, Queue
-1): multi-GPU (DDP), ``trainable_mask`` fine-tuning and the weights-distance
-term.
+permutation (host), crops, SURE probe, transform draws, drop-path and
+measurement noise (device) each draw from their own stream.
+
+The training modes of the JAX trainer (:150-160, :244-246, :324-327,
+:349-401): ``css`` and ``fresh_measurements`` degrade the step's images on
+the device (``data.sample_train_batch``, the ``noise`` stream);
+``trainable_mask`` (parameter name -> bool, ``optim.trainable_mask``) hands
+only the True parameters to the optimizer, so the others stay bit for bit;
+``weights_distance_lambda`` adds ``losses.weights_distance_loss`` against a
+frozen copy of the starting weights; ``normal_rate_losses`` (the normal
+scaling kind, one loss per rate) gives each loss its own step and CUDA
+graph, and before each dispatch the host picks one with
+``np.random.default_rng(0).integers(n)``, reset at each :meth:`train`, as
+the JAX trainer does.  Not ported yet (ROADMAP, Queue 1 item 5):
+multi-GPU (DDP).
 """
 
 from __future__ import annotations
@@ -47,9 +58,11 @@ import time
 from datetime import datetime
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from ..data import DeviceDataCache, epoch_indices, sample_train_batch
+from ..losses import weights_distance_loss
 from ..ops.swin_trunk import launch_counts
 from ..rng import Streams, make_streams
 from .optim import get_lr_schedule_tensor, get_optimizer
@@ -81,6 +94,11 @@ class Trainer:
     # (psnr, ssim), validation.csv and ckp_best; 0 = off
     eval_interval: int = 0
     eval_hook: Optional[Callable] = None
+    css: bool = False  # (x, y) -> (y, degrade(y)) before the crop
+    fresh_measurements: bool = False  # y = degrade(x) anew at every step
+    trainable_mask: Optional[dict] = None  # parameter name -> trains
+    weights_distance_lambda: Optional[float] = None
+    normal_rate_losses: Optional[list] = None  # one loss per normal-kind rate
 
     def __post_init__(self):
         dev = self.model.device
@@ -90,15 +108,19 @@ class Trainer:
         # an epoch is a whole number of dispatches (the JAX trainer's rule, :195-198)
         self.scan_steps = math.gcd(self.scan_steps, self.steps_per_epoch)
         self.graphed = self.capture and dev.type == "cuda"
-        if self.graphed and self.optimizer != "Adam":
-            raise ValueError(f"capture needs Adam (capturable); {self.optimizer} reads its LR "
-                             "on the host: pass capture=False")
         self.lr_schedule = get_lr_schedule_tensor(self.lr_scheduler_kind, self.lr,
                                                   self.epochs, self.steps_per_epoch)
         self.step_t = torch.zeros((), dtype=torch.int64, device=dev)  # what the LR reads
         self.lr_t = self.lr_schedule(self.step_t)
-        self.opt = get_optimizer(self.model.module.parameters(), kind=self.optimizer,
-                                 lr=self.lr_t, beta2=self.beta2, capturable=dev.type == "cuda")
+        named = list(self.model.module.named_parameters())
+        mask = self.trainable_mask
+        self.opt = get_optimizer([p for n, p in named if mask is None or mask[n]],
+                                 kind=self.optimizer, lr=self.lr_t, beta2=self.beta2,
+                                 capturable=dev.type == "cuda")
+        self._pretrained = None
+        if self.weights_distance_lambda is not None:
+            with torch.no_grad():
+                self._pretrained = [p.detach().clone() for _, p in named]
         self.streams: Streams = make_streams(self.seed, dev)
         self.step_count = 0
         self._perm = None
@@ -107,9 +129,11 @@ class Trainer:
         self._idx_host = torch.zeros(shape, dtype=torch.int64, pin_memory=dev.type == "cuda")
         self._idx_copied = torch.cuda.Event() if dev.type == "cuda" else None
         self._losses = torch.zeros(self.scan_steps, device=dev)
-        self._graph = None
+        self.graphs: dict = {}  # variant -> its captured CUDA graph
         self.replays = 0
-        self.capture_launches: Optional[dict] = None  # trunk kernel launches in the graph
+        self.capture_launches: Optional[dict] = None  # trunk kernel launches in the last graph
+        self.variants: list = []  # the variant of every dispatch, in order
+        self._variant_rng = np.random.default_rng(0)
 
     def apply(self, y: torch.Tensor) -> torch.Tensor:
         """The model as the loss calls it: training mode, drop-path from the
@@ -124,19 +148,31 @@ class Trainer:
             self._perm = torch.randperm(len(self.cache), generator=self.streams.batch)
         return epoch_indices(self._perm, step_in_epoch, self.batch_size)
 
+    def _sample(self, idx: torch.Tensor):
+        return sample_train_batch(self.cache, idx, crop_size=self.crop_size,
+                                  generator=self.streams.crop, physics=self.physics,
+                                  css=self.css, fresh_measurements=self.fresh_measurements,
+                                  noise_generator=self.streams.noise)
+
     def batch(self, step: int):
         """(x, y) of a global step, crops drawn from the crop stream."""
-        return sample_train_batch(self.cache, self.indices(step), crop_size=self.crop_size,
-                                  generator=self.streams.crop)
+        return self._sample(self.indices(step))
 
-    def _one_step(self, i: int) -> None:
+    @property
+    def n_variants(self) -> int:
+        return len(self.normal_rate_losses) if self.normal_rate_losses else 1
+
+    def _one_step(self, i: int, variant: int = 0) -> None:
         """Inner step ``i`` of a dispatch, all on the device: what the graph
         holds."""
-        x, y = sample_train_batch(self.cache, self._idx[i], crop_size=self.crop_size,
-                                  generator=self.streams.crop)
+        x, y = self._sample(self._idx[i])
         self.lr_t.copy_(self.lr_schedule(self.step_t))
-        self.opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(x, y, self.apply, self.streams)
+        self.model.module.zero_grad(set_to_none=True)
+        loss_fn = self.normal_rate_losses[variant] if self.normal_rate_losses else self.loss_fn
+        loss = loss_fn(x, y, self.apply, self.streams)
+        if self._pretrained is not None:
+            loss = loss + weights_distance_loss(self.model.module.parameters(), self._pretrained,
+                                                self.weights_distance_lambda)
         loss.backward()
         self.opt.step()
         self.step_t += 1
@@ -157,7 +193,7 @@ class Trainer:
         opt_state = [v for s in self.opt.state.values() for v in s.values() if torch.is_tensor(v)]
         return [*self.model.module.parameters(), *opt_state, self.step_t, self.lr_t]
 
-    def _warm_up(self) -> None:
+    def _warm_up(self, variant: int = 0) -> None:
         """One eager dispatch on a side stream, then the trainer's state and
         device streams put back as they were: the warm-up builds what a
         capture cannot (kernels, cuFFT plans, cuDNN choices, the shift-mask
@@ -172,7 +208,7 @@ class Trainer:
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for i in range(self.scan_steps):
-                self._one_step(i)
+                self._one_step(i, variant)
         torch.cuda.current_stream().wait_stream(side)
         with torch.no_grad():
             if fresh:  # zero, as a first step would find it
@@ -185,33 +221,36 @@ class Trainer:
             g.set_state(s)
         torch.cuda.synchronize()
 
-    def _capture(self) -> None:
-        """Warm up, then capture ``scan_steps`` steps into one CUDA graph."""
-        self._warm_up()
+    def _capture(self, variant: int = 0) -> None:
+        """Warm up, then capture ``scan_steps`` steps of ``variant`` into one
+        CUDA graph."""
+        self._warm_up(variant)
         graph = torch.cuda.CUDAGraph()
         for g in self.streams.device_generators():
             graph.register_generator_state(g)
-        self.opt.zero_grad(set_to_none=True)
+        self.model.module.zero_grad(set_to_none=True)
         before = launch_counts()
         with torch.cuda.graph(graph):
             for i in range(self.scan_steps):
-                self._one_step(i)
+                self._one_step(i, variant)
         self.capture_launches = {k: v - before[k] for k, v in launch_counts().items()}
-        self._graph = graph
+        self.graphs[variant] = graph
 
     def step(self) -> torch.Tensor:
         """One dispatch: ``scan_steps`` optimizer steps; returns their losses
         (a (scan_steps,) device tensor, no sync)."""
         self.model.module.train()
+        variant = int(self._variant_rng.integers(self.n_variants)) if self.n_variants > 1 else 0
+        self.variants.append(variant)
         self._load_indices()
         if self.graphed:
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
+            if variant not in self.graphs:
+                self._capture(variant)
+            self.graphs[variant].replay()
             self.replays += 1
         else:
             for i in range(self.scan_steps):
-                self._one_step(i)
+                self._one_step(i, variant)
         self.step_count += self.scan_steps
         return self._losses.clone()
 
@@ -222,6 +261,7 @@ class Trainer:
         ssim)``.  ``on_step(step, loss)`` is called for every step, after the
         dispatch that ran it.  A resumed run appends to the CSV files."""
         validating = bool(self.eval_interval) and self.eval_hook is not None
+        self._variant_rng = np.random.default_rng(0)  # the JAX trainer's, per train()
         files, writer, val_writer = [], None, None
         if self.out_dir:
             os.makedirs(os.path.join(self.out_dir, "checkpoints"), exist_ok=True)
@@ -324,5 +364,5 @@ class Trainer:
         self.streams.set_state(data["streams"])
         self.start_epoch = self.step_count // self.steps_per_epoch
         self._perm = None
-        self._graph = None
+        self.graphs = {}
         return data

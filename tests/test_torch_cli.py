@@ -4,8 +4,10 @@
   ``sei_tpu.config``'s, ``device`` aside, for the commands of
   ``tests/test_cli_compat.py`` and the reference's namespaced flags.
 * Each flag of a feature a later ROADMAP item ports raises
-  ``NotImplementedError`` naming the item; without a GPU, an entry point
-  run without ``--device cpu`` raises.
+  ``NotImplementedError`` naming the item, and ``config.check_ported``
+  passes every flag ported since (the CT-like task, the spatial blur, the
+  training modes, the eval wrappers); without a GPU, an entry point run
+  without ``--device cpu`` raises.
 * End to end: ``cli.train.main`` with ``--device cpu`` trains a tiny SwinIR
   on 8 PNGs of a ``gt_folder:`` and writes ``training.csv``,
   ``checkpoints/ckp_*.pt`` and ``weights.pt``; ``demo/test.py`` (the JAX
@@ -107,29 +109,46 @@ def test_device_flag_is_checked():
 
 
 LATER = [
-    (cli_train, ["--fine_tuning"], "item 4"),
-    (cli_train, ["--fine_tuning_params"], "item 4"),
-    (cli_train, ["--weights_distance_loss"], "item 4"),
-    (cli_train, ["--supervised_l1"], "item 4"),
-    (cli_train, ["--ScalingTransform__kind", "normal"], "item 4"),
-    (cli_train, ["--no-SyntheticDataset__deterministic_measurements"], "item 4"),
-    (cli_train, ["--method", "css"], "item 4"),
-    (cli_train, ["--method", "ei-shift"], "item 4"),
-    (cli_train, ["--ProposedLoss__transforms", "Rotations"], "item 4"),
-    (cli_train, ["--no-physics_v2"], "item 3"),
     (cli_train, ["--data_parallel_devices", "0,1"], "item 5"),
     (cli_train, ["--model_kind", "dip"], "item 6"),
     (cli_train, ["--ProposedModel__architecture", "Convolutional"], "item 6"),
-    (cli_test, ["--r2r"], "item 4"),
-    (cli_test, ["--r2r_itercount", "4"], "item 4"),
-    (cli_test, ["--noise2inverse"], "item 4"),
-    (cli_test, ["--no-SyntheticDataset__deterministic_measurements"], "item 4"),
-    (cli_test, ["--task", "invert_a_tomography_like_filter"], "item 3"),
+    (cli_train, ["--dataset", "ct", *TINY], "item 3"),
     (cli_test, ["--model_kind", "bm3d"], "item 6"),
     (cli_test, ["--dip_iterations", "3"], "item 6"),
     (cli_test, ["--tv_lambd", "0.1"], "item 6"),
+    (cli_test, ["--tv_max_iter", "10"], "item 6"),
     (cli_test, ["--lpips_weights", "lpips.pt"], "item 6"),
+    (cli_test, ["--dataset", "ct", *TINY], "item 3"),
 ]
+# the flags of ROADMAP Queue 1 items 3 and 4, ported: check_ported passes them
+PORTED = [
+    (config.add_train_args, ["--fine_tuning"]),
+    (config.add_train_args, ["--fine_tuning", "--fine_tuning_params"]),
+    (config.add_train_args, ["--fine_tuning", "--weights_distance_loss"]),
+    (config.add_train_args, ["--supervised_l1"]),
+    (config.add_train_args, ["--ScalingTransform__kind", "normal"]),
+    (config.add_train_args, ["--no-SyntheticDataset__deterministic_measurements"]),
+    (config.add_train_args, ["--method", "css"]),
+    (config.add_train_args, ["--method", "ei-shift"]),
+    (config.add_train_args, ["--method", "ei-rotate"]),
+    (config.add_train_args, ["--ProposedLoss__transforms", "Rotations"]),
+    (config.add_train_args, ["--ProposedLoss__transforms", "Shifts"]),
+    (config.add_train_args, ["--ProposedLoss__transforms", "Rotations+Shifts"]),
+    (config.add_train_args, ["--no-physics_v2"]),
+    (config.add_train_args, ["--task", "invert_a_tomography_like_filter"]),
+    (config.add_test_args, ["--r2r"]),
+    (config.add_test_args, ["--r2r", "--r2r_itercount", "4"]),
+    (config.add_test_args, ["--noise2inverse"]),
+    (config.add_test_args, ["--no-SyntheticDataset__deterministic_measurements"]),
+    (config.add_test_args, ["--task", "invert_a_tomography_like_filter"]),
+]
+
+
+@pytest.mark.parametrize("add_args,argv", PORTED)
+def test_ported_flags_pass_check_ported(add_args, argv):
+    parser = config.DefaultArgParser()
+    add_args(parser)
+    config.check_ported(parser.parse_args(["--device", "cpu", *TASK, *argv]))
 
 
 @pytest.mark.parametrize("cli,argv,item", LATER)
@@ -301,3 +320,37 @@ def test_generate_dataset_writes_the_jax_packages_measurements(run, tmp_path):
         got = np.round(jax_read_image(str(out / src.basename(i))) * 255.0).astype(np.uint8)
         diff = np.abs(got.astype(int) - want.astype(int))
         assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+CT = ["--task", "invert_a_tomography_like_filter"]
+
+
+@pytest.fixture(scope="module")
+def ct_run(run, tmp_path_factory):
+    """The tiny SwinIR trained by the command line for 1 epoch on the CT-like
+    task (proposed R2R-EI, the JAX package's recipe) on the same PNGs."""
+    out = tmp_path_factory.mktemp("ct") / "run"
+    argv = ["--device", "cpu", *CT, "--method", "proposed", "--ProposedLoss__sure_alternative",
+            "r2r", *run.data, *TINY, "--epochs", "1", "--batch_size", "4",
+            "--PrepareTrainingPairs__crop_size", "32", "--Loss__crop_size", "24",
+            "--out_dir", str(out)]
+    return types.SimpleNamespace(out=out, result=cli_train.main(argv))
+
+
+def test_ct_like_task_trains_and_scores_as_the_jax_package(run, ct_run, capsys, monkeypatch):
+    """``cli.train --task invert_a_tomography_like_filter`` trains; ``cli.test``
+    on its ``weights.pt`` at noise 0 prints ``demo/test.py``'s PSNR and SSIM
+    (to 0.01 dB and 1e-4).  (``--noise2inverse``'s ensemble is held against
+    the JAX package's in ``tests/test_torch_n2i.py``.)"""
+    assert np.all(np.isfinite([float(v) for v in ct_run.result["losses"]]))
+    assert ct_run.result["trainer"].physics.task == "invert_a_tomography_like_filter"
+    argv = ["--device", "cpu", *CT, "--noise_level", "0", *run.data, *TINY,
+            "--weights", str(ct_run.out / "weights.pt")]
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", ["demo/test.py", *argv])
+    runpy.run_path(os.path.join(REPO, "demo", "test.py"), run_name="__main__")
+    want = _metrics(capsys.readouterr().out)
+    result = cli_test.main(argv)
+    got = _metrics(capsys.readouterr().out)
+    assert got["N"] == want["N"] == 8 == len(result.psnr)
+    assert abs(got["PSNR"] - want["PSNR"]) <= 0.01 and abs(got["SSIM"] - want["SSIM"]) <= 1e-4

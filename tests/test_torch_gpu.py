@@ -1419,4 +1419,4 @@ def test_capture_raises_on_a_host_sync(gpu):
     tr = _tiny_trainer(F32, loss_fn=syncing_loss)
     with pytest.raises(RuntimeError):
         tr.step()
-    assert tr._graph is None and tr.replays == 0
+    assert tr.graphs == {} and tr.replays == 0

@@ -235,8 +235,12 @@ def test_proposed_draws_from_the_streams(physics):
 
 
 def test_unported_options_raise(physics):
+    # every option is ported now: the normal scaling kind still needs its
+    # fixed rate (one loss per rate), and unknown names raise
     _, phys = physics
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="fixed rate"):
         get_loss(method="proposed", physics=phys, scaling_kind="normal")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_loss(method="ei-shift", physics=phys)
+    with pytest.raises(ValueError, match="Unknown transforms"):
+        get_loss(method="proposed", physics=phys, transforms="Flips")
+    with pytest.raises(ValueError, match="Unknown method"):
+        get_loss(method="ei-flip", physics=phys)

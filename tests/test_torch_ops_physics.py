@@ -83,5 +83,8 @@ def test_randomly_degrade_is_seeded():
 
 
 def test_unported_tasks_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3"):
-        get_physics(task="invert_a_tomography_like_filter", device="cpu")
+    # every task is ported now (the CT-like task takes no kernel); an
+    # unknown task raises
+    assert get_physics(task="invert_a_tomography_like_filter", device="cpu").kernel is None
+    with pytest.raises(ValueError, match="Unknown task"):
+        get_physics(task="inpainting", device="cpu")

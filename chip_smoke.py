@@ -59,7 +59,13 @@
    must equal the eager run's bit for bit, and the kernels launched at
    capture must be the design's per step; steady ms per step (host clock
    over replays) and the device time of one replayed dispatch beside the
-   eager trainer's, peak memory.  Then R2R-EI (``get_loss(method="proposed",
+   eager trainer's, peak memory.  The data-parallel step
+   (``Trainer(data_parallel=...)``, this process the one rank of an NCCL
+   group, f32 at ``scan_steps`` 1 and bf16 at 2, captured with the
+   all-reduce of the flat gradient buffer in the graph) must equal the
+   one-process eager run bit for bit; its steady ms per step beside
+   proposed's, and the all-reduce's device time in a replay's profile and
+   alone.  Then R2R-EI (``get_loss(method="proposed",
    sure_alternative="r2r")``) on the same path: eagerly, then captured, f32
    at ``scan_steps`` 1 and bf16 at 2, equal to its eager run bit for bit,
    with ``proposed``'s launches per step and finite losses; its steady ms
@@ -97,8 +103,10 @@
    ``validation.csv`` rows and ``checkpoints/ckp_best.pt``, the same
    losses as without validation (validation runs eagerly between the
    graph's replays), the hook's last PSNR/SSIM equal to ``evaluate_pairs``
-   on the final weights bit for bit, and its ms per validated image.
-   Then slice 20's paths (``slice20_phase``): ten training cells, each
+   on the final weights bit for bit, and its ms per validated image.  Then
+   ``cli.train --data_parallel_devices 0`` (a process of its own, one
+   NCCL rank): its ``training.csv`` and final checkpoint equal the f32
+   command line's bit for bit.  Then slice 20's paths (``slice20_phase``): ten training cells, each
    eagerly and then captured (f32 at ``scan_steps`` 1, bf16 at 2) and equal
    to its eager run bit for bit with ``proposed``'s launches per step (two
    trunk graphs) or ``supervised``'s (one): the CT-like task's R2R-EI (f32),
@@ -115,7 +123,15 @@
    against the FFT blur (1e-5) and its eval, ``--r2r --r2r_itercount 4``
    on the deblurring eval, and the CT-like command lines (``cli.train``
    equal to a ``Trainer``, ``cli.test --noise2inverse`` equal to the
-   ``eval_apply`` wrapper); the launches by run, one JSON line.
+   ``eval_apply`` wrapper); the launches by run, one JSON line.  Then the
+   tiled eval (``tiled_eval_phase``): one seeded 1356x2040 image (Div2K's
+   validation shape) through ``evaluate`` at ``eval_tile_height`` 768, 2
+   strips of 678 rows with a halo of 64 (T = 3,296,640 tokens per
+   forward): the strips' kernel path against the plain versions
+   (FORWARD_ATOL), the forward's ms (CUDA events) and peak memory, ms per
+   image, one forward's launches, a profile by kernel, and ``cli.test`` on
+   the image as a PNG, equal to ``evaluate_pairs``; slice 21's launches by
+   run, one JSON line.
 7. Launch-overhead probes (K8 ``copy_probe``, K9 ``trunk_skeleton``): each
    held exactly against its plain version and timed at the probes' shapes,
    then ``sei_tpu_torch.probes`` (chains of launches eager and captured,
@@ -254,6 +270,10 @@ FORWARD_FRAC_BF16 = 3e-2
 # the probes' shape (experiments/perf_probe_r3*.py: b, h, w, c) and depth
 PROBE_SHAPE, PROBE_DEPTH = (8, 48, 48, 180), 6
 PROBE_BLOCKS = (1, 4, 8, 24, 132, 1056)
+# the tiled eval: one image of Div2K's validation shape above the eval tile
+# height (demo/test.py:157-167): 2 strips of 678 rows, halo 64, windows of
+# 806 rows (808 after SwinIR's window pad), T = 2 x 808 x 2040 tokens
+TILED_H, TILED_W, TILE_HEIGHT = 1356, 2040, 768
 
 
 def fail(msg: str) -> None:
@@ -2419,6 +2439,232 @@ def slice20_phase(smi: str, proposed_ms: dict) -> None:
     print(f"slice 20 launches by run (train: eager + captured): {json.dumps(launches)}")
 
 
+def tiled_eval_phase(smi: str) -> dict:
+    """One seeded dead-leaves-like 1356x2040 image (Div2K's validation shape)
+    through ``evaluate`` with ``eval_tile_height`` 768 (flagship SwinIR,
+    weights from seed 0, f32, deblurring Gaussian_R2 at noise 5): the kernel
+    path's output on the strips against the plain versions on the same
+    strips (FORWARD_ATOL), the strips' forward (CUDA events) and its peak
+    memory, T, ms per image, PSNR/SSIM, the trunk kernels' launches (one
+    forward's), the forward profiled by kernel; then ``cli.test`` on the
+    image written as a PNG, equal to ``evaluate_pairs`` on the same pair
+    with one forward's launches.  Returns the launches by run."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.cli import test as cli_test
+    from sei_tpu_torch.data import GroundTruthDataset, image_seed, write_image
+    from sei_tpu_torch.evaluate import degraded_pair, evaluate, evaluate_pairs, tile_plan
+    from sei_tpu_torch.ops import swin_trunk as st
+    from sei_tpu_torch.parallel.tiling import strips
+
+    t0 = time.perf_counter()
+    image = make_images(1, TILED_H, TILED_W, seed=4)[0]
+    physics = task_physics("deblurring")
+    model = task_model("deblurring")
+    n_tiles, halo = tile_plan(TILED_H, TILE_HEIGHT)
+    strip, win, parts = strips(TILED_H, n_tiles, halo)
+    tokens = n_tiles * (win + (-win) % WS) * (TILED_W + (-TILED_W) % WS)
+    x = torch.as_tensor(image, device=physics.device)
+    _, y = degraded_pair(physics, x, 0)
+    tiles = torch.cat([y[None, :, s_:s_ + win] for s_, _, _ in parts])
+    torch.cuda.synchronize()
+    print(f"tiled eval (f32): one {TILED_H}x{TILED_W} image, evaluate(eval_tile_height="
+          f"{TILE_HEIGHT}): {n_tiles} strips of {strip} rows, halo {halo}, windows of {win} "
+          f"rows at {[s_ for s_, _, _ in parts]}, {win + (-win) % WS} after the window pad: "
+          f"T = {tokens} tokens per forward (256x320: {H * W}); set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches, err = {}, 0.0
+    with torch.no_grad():
+        st.reset_launch_counts()
+        out_k = model.module(tiles)
+        launches["forward"] = st.launch_counts()
+        torch.cuda.empty_cache()
+        # the plain versions one strip at a time: their intermediates (the
+        # scores, qkv) of both strips outgrow the card's 80 GB at T = 3.3M
+        for i in range(n_tiles):
+            out_p = model.module(tiles[i:i + 1], plain=True)
+            err = max(err, compare(f"tiled strip {i}, kernel path (both strips in one batch) "
+                                   "vs plain versions (this strip alone)", out_k[i:i + 1],
+                                   out_p, FORWARD_ATOL, 0.0))
+            del out_p
+    del out_k
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    model(tiles)
+    end.record()
+    end.synchronize()
+    fwd_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = evaluate(model, physics, [image], eval_tile_height=TILE_HEIGHT)
+    torch.cuda.synchronize()
+    ms_image = (time.perf_counter() - t0) * 1e3
+    counts = launches["evaluate"] = st.launch_counts()
+    want = {k: v * BLOCKS for k, v in PER_BLOCK.items()}
+    for label, got in launches.items():
+        if {k: got[k] for k in PER_BLOCK} != want:
+            fail(f"tiled eval {label}: launches {got}, expected one forward's {want}")
+    if not (np.isfinite(result.psnr[0]) and np.isfinite(result.ssim[0])):
+        fail("tiled eval: non-finite metrics")
+    print(f"  forward of the strips {fwd_ms:.2f} ms (CUDA events); peak memory {peak:.3f} GiB "
+          f"({base:.3f} allocated before); evaluate {ms_image:.2f} ms per image end to end; "
+          f"PSNR {result.psnr[0]!r} SSIM {result.ssim[0]!r}; launches {counts}; max_abs_err "
+          f"{err:.3e}; {smi}")
+    profile_forward(model, tiles)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "gt")
+        t0 = time.perf_counter()
+        write_image(os.path.join(folder, "0.png"), image)
+        write_s = time.perf_counter() - t0
+        argv = [*TASK_ARGS["deblurring"], "--noise_level", "5", "--dataset",
+                f"gt_folder:{folder}", "--GroundTruthDataset__no_resize", "--indices", "0",
+                "--eval_tile_height", str(TILE_HEIGHT)]
+        print(f"  command line: python -m sei_tpu_torch.cli.test {' '.join(argv)} (PNG written "
+              f"in {write_s:.2f} s)")
+        st.reset_launch_counts()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            got = cli_test.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches["cli.test"] = st.launch_counts()
+        gt = GroundTruthDataset(f"gt_folder:{folder}", split="val", size=None)
+        pair = degraded_pair(physics, torch.as_tensor(gt[0], device=physics.device),
+                             image_seed(0, gt.unique_id(0)))
+        want_eval = evaluate_pairs(model, [pair], eval_tile_height=TILE_HEIGHT)
+    print(f"  cli.test: PSNR {got.psnr} SSIM {got.ssim}, {seconds:.2f} s with the read; "
+          f"evaluate_pairs PSNR {want_eval.psnr} SSIM {want_eval.ssim}; launches {counts}")
+    if {k: counts[k] for k in PER_BLOCK} != want:
+        fail(f"tiled cli.test: launches {counts}, expected one forward's {want}")
+    if (got.psnr, got.ssim) != (want_eval.psnr, want_eval.ssim):
+        fail("tiled cli.test: its metrics differ from evaluate_pairs'")
+    return launches
+
+
+def dp_group():
+    """This process as the one rank of an NCCL process group (file
+    rendezvous in a temporary directory)."""
+    import tempfile
+
+    import torch
+
+    from sei_tpu_torch import parallel
+
+    tmp = tempfile.mkdtemp()
+    return parallel.init(0, 1, os.path.join(tmp, "dist_init"), torch.device("cuda", 0))
+
+
+def dp_train(dtype, scan_steps: int, eager: dict, dp, proposed_ms: float, smi: str) -> dict:
+    """The data-parallel step (``Trainer(data_parallel=...)``, this process
+    the one rank of an NCCL group) captured at ``scan_steps``: from the eager
+    run's seed-0 weights and streams and for as many steps, each step's loss
+    and the final parameters and Adam state must equal the one-process
+    eager run's bit for bit (an all-reduce over one rank, divided by 1, is
+    exact), with the design's launches per step; steady ms per step beside
+    proposed's of this run, the all-reduce's device time in the profile of
+    one replayed dispatch and timed alone (CUDA events).  Returns the
+    launches (warm-up and capture) and the numbers."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from sei_tpu_torch.ops import swin_trunk as st
+    from sei_tpu_torch.train import Trainer
+
+    recipe = default_recipe(dtype, None, "deblurring")
+    label = recipe.label
+    per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
+    print(f"data-parallel training ({label}, scan_steps {scan_steps}): Trainer(data_parallel="
+          f"rank 0 of {dp.world}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}), "
+          f"captured")
+    model, physics, cache, loss_fn, data_crop, kw = training_setup(recipe)
+    trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
+                      crop_size=data_crop, seed=0, scan_steps=scan_steps, data_parallel=dp, **kw)
+    losses = []
+    st.reset_launch_counts()
+    stats = trainer.train(log_every_epoch=False, on_step=lambda s_, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    counts = st.launch_counts()
+    losses = [float(v) for v in losses]
+    want = {k: v * BLOCKS * recipe.graphs * scan_steps for k, v in per_block.items()}
+    got = train_state(trainer)
+    unequal = sum(not torch.equal(a, b) for a, b in zip(got, eager["state"]))
+    print(f"  {stats['steps']} steps in {trainer.replays} replays; losses {losses}; eager "
+          f"one-process {eager['losses']}; state tensors unequal: {unequal} of {len(got)}; "
+          f"launches captured {trainer.capture_launches}")
+    if not trainer.graphed or trainer.capture_launches != want:
+        fail(f"data parallel {label}: captured launches {trainer.capture_launches}, expected "
+             f"{want}")
+    if losses != eager["losses"] or unequal or len(got) != len(eager["state"]):
+        fail(f"data parallel {label}: differs from the one-process run")
+    steady = timed_dispatches(trainer)
+    wall, device = profile_step(trainer.step, f"one replayed data-parallel {label} dispatch "
+                                              f"({scan_steps} steps)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        trainer.step()
+        torch.cuda.synchronize()
+    # the all-reduce's device activity: NCCL's kernels, device-to-device copies
+    in_graph = {e.key[:60]: (e.count, e.self_device_time_total / 1e3) for e in device_events(prof)
+                if "nccl" in e.key.lower() or "DtoD" in e.key}
+    flat = trainer.flat_grads
+    alone = time_ms(lambda: dist.all_reduce(flat), iters=20, warmup=3)
+    record = {"captured_ms": steady, "replay_device_ms": device / scan_steps,
+              "replay_busy": device / wall, "proposed_ms": proposed_ms,
+              "allreduce_in_graph": in_graph, "allreduce_alone_ms": alone,
+              "flat_mb": flat.numel() * 4 / 1e6}
+    print(f"  steady step {steady:.2f} ms captured (proposed one-process in this run "
+          f"{proposed_ms:.2f}; PERF.md section 5: 199.55 f32 / 86.04 bf16); replay "
+          f"{device / scan_steps:.2f} ms device per step (busy {device / wall:.3f}); "
+          f"all-reduce of the flat buffer "
+          f"({record['flat_mb']:.2f} MB) in the replayed graph {in_graph}, alone "
+          f"{alone:.4f} ms (CUDA events, 20 calls); {smi}")
+    return {"launches": counts, **record}
+
+
+def cli_dp_run(folder: str, one: str, out: str) -> None:
+    """``cli.train --data_parallel_devices 0`` (one rank in a process of its
+    own, NCCL) with the flags of the f32 command-line run written to
+    ``one``: its ``training.csv`` and final checkpoint (parameters, Adam
+    state, streams' step) must equal the one-process run's bit for bit."""
+    import torch
+
+    from sei_tpu_torch.cli import train as cli_train
+
+    argv = [*TASK_ARGS["deblurring"], "--noise_level", "5", "--dataset", f"gt_folder:{folder}",
+            "--method", "proposed", "--batch_size", str(BATCH), "--epochs", "1", "--out_dir",
+            out, "--scan_steps", "1", "--data_parallel_devices", "0"]
+    print(f"command line (f32, data parallel): python -m sei_tpu_torch.cli.train "
+          f"{' '.join(argv)}")
+    t0 = time.perf_counter()
+    if cli_train.main(argv) is not None:
+        fail("cli.train --data_parallel_devices: main returned a result in the parent")
+    seconds = time.perf_counter() - t0
+    rows = [open(os.path.join(d, "training.csv")).read() for d in (one, out)]
+    ckp = [torch.load(os.path.join(d, "checkpoints", "ckp_1.pt"), map_location="cpu",
+                      weights_only=False) for d in (one, out)]
+    params = sum(not torch.equal(v, ckp[1]["params"][k]) for k, v in ckp[0]["params"].items())
+    opt = [v for st_ in ckp[0]["optimizer"]["state"].values() for v in st_.values()]
+    opt_dp = [v for st_ in ckp[1]["optimizer"]["state"].values() for v in st_.values()]
+    unequal = sum(not torch.equal(a, b) for a, b in zip(opt, opt_dp))
+    print(f"  {seconds:.2f} s with the process start, the data, the warm-up and the capture; "
+          f"training.csv {rows[1].split()[1:]} vs one process {rows[0].split()[1:]}; unequal "
+          f"parameter tensors {params}, Adam state tensors {unequal} of {len(opt)}")
+    if rows[0] != rows[1] or params or unequal or len(opt) != len(opt_dp) or (
+            ckp[0]["step"] != ckp[1]["step"]):
+        fail("cli.train --data_parallel_devices 0 differs from the one-process command line")
+
+
 def cli_phase(smi: str) -> None:
     """The command lines on the card: PNGs written by the port's writer
     into a temporary ``gt_folder:``, the training command line in f32 and in
@@ -2442,6 +2688,7 @@ def cli_phase(smi: str) -> None:
             cli_train_run(folder, out, dtype, scan_steps, smi)
             cli_test_run(folder, os.path.join(out, "weights.pt"))
         cli_validate_run(folder, os.path.join(tmp, "r2r_val"), smi)
+        cli_dp_run(folder, os.path.join(tmp, "f32"), os.path.join(tmp, "dp"))
 
 
 def bench_line() -> str:
@@ -2661,10 +2908,14 @@ def main(argv: list[str]) -> int:
     for scan_steps in SCAN_STEPS:
         counts, steady["f32", scan_steps] = captured_train(None, scan_steps, eager)
         add_counts(captured.setdefault("f32", {}), counts)
+    dp = dp_group()
+    dp_runs = {"f32": dp_train(None, 1, eager, dp, steady["f32", 1], smi)}
     bf16_counts, trainer, eager = train_path(torch.bfloat16)
     for scan_steps in SCAN_STEPS:
         counts, steady["bf16", scan_steps] = captured_train(torch.bfloat16, scan_steps, eager)
         add_counts(captured.setdefault("bf16", {}), counts)
+    dp_runs["bf16"] = dp_train(torch.bfloat16, 2, eager, dp, steady["bf16", 2], smi)
+    torch.distributed.destroy_process_group()
     del eager
     bf16_trunk_grads()
     bf16_loss_vs_f32(trainer)
@@ -2673,6 +2924,11 @@ def main(argv: list[str]) -> int:
     sr_phase(smi, steady)
     cli_phase(smi)
     slice20_phase(smi, steady)
+    slice21 = {"train data parallel " + k: v.pop("launches") for k, v in dp_runs.items()}
+    for label, counts in tiled_eval_phase(smi).items():
+        slice21["eval tiled " + label] = counts
+    print(f"slice 21 launches by run: {json.dumps(slice21)}; data-parallel steps: "
+          f"{json.dumps(dp_runs)}")
     probe_counts = probe_phase()
     bench = bench_line()
     print(HISTORICAL)

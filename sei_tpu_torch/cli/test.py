@@ -17,8 +17,11 @@ as ``--dataset`` holds measurements only: they are restored, not scored.
 ``--save_images`` writes ``ground_truth/``, ``predictors/`` and
 ``estimates/`` under ``--out_dir``; ``--save_psf`` the PSF scaled to a
 maximum of 1.  The summary lines are ``demo/test.py``'s.  LPIPS needs
-weights the repository does not hold: its line says n/a.  Images above
-``--eval_tile_height`` rows raise (strip tiling: ROADMAP, Queue 1 item 5).
+weights the repository does not hold: its line says n/a.  A trainable
+model restores a measurement of more than ``--eval_tile_height`` rows (768)
+by halo strips instead of padding it (``demo/test.py:157-167``,
+:func:`sei_tpu_torch.evaluate.restore`); ``Identity`` and ``Upsample`` run
+whole at any height.
 
 ``--noise2inverse`` restores through the Noise2Inverse ensemble (4 row
 combs, backprojected; for deblurring both images are first cut to even
@@ -89,6 +92,7 @@ def main(argv=None) -> EvalResult:
     if (args.noise2inverse or args.r2r) and physics is None:
         raise ValueError("--noise2inverse and --r2r need the physics: a dataset of ground truth")
     apply = eval_apply(model, physics, pad_bucket=args.eval_pad_bucket,
+                       eval_tile_height=args.eval_tile_height,
                        noise2inverse=args.noise2inverse)
     if args.r2r:
         r2r_gen = torch.Generator(device=model.device).manual_seed(1)
@@ -102,10 +106,6 @@ def main(argv=None) -> EvalResult:
     psnrs, ssims = [], []
     for i in indices:
         x, y = get_pair(i)
-        if y.shape[-2] > args.eval_tile_height:
-            raise NotImplementedError(
-                f"image {i}: {y.shape[-2]} rows > --eval_tile_height {args.eval_tile_height}: "
-                "strip tiling is not ported yet (ROADMAP, Queue 1 item 5: eval at large sizes)")
         if x is None:
             x_hat = quantize_and_clamp(apply(y[None]))[0]
         else:

@@ -57,6 +57,14 @@ restarts at the checkpoint's ``epoch`` entry, so the epoch it was written
 after runs again (``sei_tpu/train/trainer.py:476-485``).
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of the run to
 ``DIR/trace.json``.
+
+``--data_parallel_devices 0,1,..`` trains data-parallel
+(:mod:`sei_tpu_torch.parallel`): this command starts one process (rank)
+per listed device, rank r on ``cuda:<device r>`` (NCCL) or, under
+``--device cpu``, on the CPU (gloo); they meet through the file
+``--out_dir/dist_init`` and together compute the one-process run's steps
+over the same global ``--batch_size``.  Rank 0 writes the outputs and
+prints; :func:`main` then returns None.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -75,6 +84,7 @@ from ..data import GroundTruthDataset, build_device_cache, build_finetuning_cach
 from ..device import resolve_device
 from ..losses import get_loss, normalize_method
 from ..models import KIND_ALIASES, get_model
+from ..parallel import DataParallel, init
 from ..physics import get_physics
 from ..train import Trainer
 from ..train.checkpoint import get_weights
@@ -133,13 +143,58 @@ def validation_hook(args, physics):
         return None
 
 
-def main(argv=None) -> dict:
-    """Train as the flags say; returns the trainer, its ``train`` stats and
-    each step's loss (device tensors, in step order)."""
+def parse(argv=None):
     parser = DefaultArgParser(prog="python -m sei_tpu_torch.cli.train")
     add_train_args(parser)
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def data_parallel_devices(args) -> list:
+    return [int(d) for d in args.data_parallel_devices.split(",")]
+
+
+def main(argv=None) -> Optional[dict]:
+    """Train as the flags say; returns the trainer, its ``train`` stats and
+    each step's loss (device tensors, in step order), or None after a
+    data-parallel run (``--data_parallel_devices``), whose ranks ran in
+    processes of their own."""
+    args = parse(argv)
+    if args.data_parallel_devices is None:
+        return train(args)
+    check_ported(args)
+    if not args.out_dir:
+        raise ValueError("--data_parallel_devices needs --out_dir (the ranks meet through a "
+                         "file there)")
+    resolve_device(args.device)  # no GPU: raise here, not in the ranks
+    os.makedirs(args.out_dir, exist_ok=True)
+    init_file = os.path.join(args.out_dir, "dist_init")
+    if os.path.exists(init_file):  # a finished or failed run's
+        os.remove(init_file)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # fresh interpreters (run_rank pickled by its import path); raises if a rank fails
+    torch.multiprocessing.spawn(run_rank, args=(argv, init_file),
+                                nprocs=len(data_parallel_devices(args)), join=True)
+    return None
+
+
+def run_rank(rank: int, argv: list, init_file: str) -> None:
+    """Rank ``rank`` of a data-parallel run: join the process group, then
+    train as :func:`main` does."""
+    args = parse(argv)
+    devices = data_parallel_devices(args)
+    if args.device != "cpu":
+        args.device = f"cuda:{devices[rank]}"
+    dp = init(rank, len(devices), init_file, resolve_device(args.device))
+    try:
+        train(args, data_parallel=dp)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def train(args, data_parallel: Optional[DataParallel] = None) -> dict:
+    """One process's training run for the parsed flags."""
     device, physics = setup(args)
+    leader = data_parallel is None or data_parallel.rank == 0
     method, transforms = normalize_method(args.method, args.ProposedLoss__transforms)
     if os.path.isdir(args.dataset):
         if not args.fine_tuning:
@@ -205,8 +260,9 @@ def main(argv=None) -> dict:
     optimizer = args.optimizer or default_optimizer(args.fine_tuning)
     ckpt_interval = (args.checkpoint_interval if args.checkpoint_interval is not None
                      else default_checkpoint_interval(args.dataset))
-    print(f"\nSelected learning rate: {lr:e}\n")
-    print(f"\nSelected optimizer: {optimizer}\n")
+    if leader:
+        print(f"\nSelected learning rate: {lr:e}\n")
+        print(f"\nSelected optimizer: {optimizer}\n")
 
     # the reference's RESUME pins the LR and turns the schedule off
     pinned = args.RESUME is not None and not args.RESUME_keep_schedule
@@ -222,28 +278,30 @@ def main(argv=None) -> dict:
                       trainable_mask=(trainable_mask(model.module)
                                       if args.fine_tuning_params else None),
                       weights_distance_lambda=1.0 if args.weights_distance_loss else None,
-                      normal_rate_losses=normal_rate_losses)
+                      normal_rate_losses=normal_rate_losses, data_parallel=data_parallel)
     if args.RESUME is not None:
         data = trainer.load_checkpoint(args.RESUME)
         trainer.start_epoch = int(data["epoch"])  # the JAX trainer's restart epoch
-        print("Loading checkpoint from epoch", trainer.start_epoch)
+        if leader:
+            print("Loading checkpoint from epoch", trainer.start_epoch)
 
     losses = []
     profiling = contextlib.nullcontext()
-    if args.profile_dir:
+    if args.profile_dir and leader:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiling = torch.profiler.profile(activities=activities)
     with profiling as prof:
         stats = trainer.train(on_step=lambda step, loss: losses.append(loss))
-    if args.profile_dir:
+    if args.profile_dir and leader:
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
 
-    print(f"\nTrained {stats['steps']} steps in {stats['wall_time_s']:.1f}s "
-          f"({stats['images_per_sec']:.1f} images/sec)\n")
-    if args.out_dir:
+    if leader:
+        print(f"\nTrained {stats['steps']} steps in {stats['wall_time_s']:.1f}s "
+              f"({stats['images_per_sec']:.1f} images/sec)\n")
+    if args.out_dir and leader:
         model.save_reference_format(os.path.join(args.out_dir, "weights.pt"))
     return {"trainer": trainer, "stats": stats, "losses": losses}
 

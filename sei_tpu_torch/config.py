@@ -76,8 +76,8 @@ class DefaultArgParser(argparse.ArgumentParser):
         self.add_argument("--SingleImageDataset__image_path", type=str, default=None)
         self.add_argument("--SingleImageDataset__duplicates_count", type=int,
                           default=800)
-        # DataParallel device list in the reference; here: how many mesh
-        # devices to use (default: all available).
+        # DataParallel device list in the reference; here: one training
+        # process (rank) per listed device (cli.train)
         self.add_argument("--data_parallel_devices", type=str, default=None)
         self.add_argument("--physics_v2", action=BooleanOptionalAction, default=True)
         # explicit spellings of the reference's env-var backdoors
@@ -213,7 +213,6 @@ def default_optimizer(fine_tuning: bool) -> str:
 # flags of features that later ROADMAP items port: (attribute, its default,
 # the item); set away from its default, a flag raises
 _LATER = (
-    ("data_parallel_devices", None, "item 5: eval at large sizes, and multi-GPU (DDP)"),
     ("ProposedModel__architecture", "Transformer", "item 6: baselines and the rest of the "
                                                    "model registry (Convolutional)"),
     ("dip_iterations", None, "item 6: baselines and the rest of the model registry"),

@@ -15,8 +15,8 @@ no host round trip for pixels.  Fresh measurements (y degraded anew at
 every step) and CSS (the pair (y, degrade(y)) in place of (x, y)) degrade
 the gathered whole images on the device before the crop, with the step's
 ``noise`` stream.  :func:`build_finetuning_cache` is the fine-tuning set of
-a folder of measurements.  The CT source (ROADMAP, Queue 1 item 3) and the
-native PNG loader (item 1's remainder) are not ported yet.
+a folder of measurements.  The native PNG loader (ROADMAP, Queue 1 item
+1's remainder) is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ class GroundTruthDataset:
     """Name registry + shorter-side resize + in-memory memoization
     (``sei_tpu/data/__init__.py:48-121``).
 
-    ``dataset_name``: ``div2k``, ``urban100``, ``fmd``, ``ct`` (raises: not
-    ported), ``single_image`` (``single_image_blueprint``: ``image_path``,
+    ``dataset_name``: ``div2k``, ``urban100``, ``fmd``, ``ct`` (deepinv's
+    HDF5 file, read with ``h5py``), ``single_image`` (``single_image_blueprint``: ``image_path``,
     ``duplicates_count``) or ``gt_folder:DIR``, a directory of images used
     as ground truth (unique id = sorted index).  ``size``: the shorter side
     after the antialiased bicubic resize, None to keep the files' size.

@@ -5,8 +5,8 @@ File layouts, split offsets, split sizes and unique ids are the JAX
 package's (and so the reference's), so the per-image measurement seeds
 reproduce.  Div2K's 800 / 100 are fixed, not counted from the files.  The
 download helpers carry the same URLs; they run only with ``download=True``.
-The CT source needs ``h5py`` and is not ported yet (ROADMAP, Queue 1 item 3:
-the CT source and the CT-like filter).
+The CT source reads deepinv's HDF5 file with ``h5py``, imported when the
+source is made; without it the source raises.
 """
 
 from __future__ import annotations
@@ -112,14 +112,53 @@ class Urban100(ImageSource):
 
 
 class TomographyDataset(ImageSource):
-    """deepinv's HDF5 CT dataset (4992 train / 100 val): not ported yet (it
-    needs ``h5py`` and ``CT/dinv_dataset0.h5``, neither of which the
-    machines have)."""
+    """deepinv's HDF5 CT dataset ``CT/dinv_dataset0.h5``: 4992 train / 100
+    val images, grey repeated to 3 channels (``channels=3``), ids ``index``
+    (train) and ``index + 4992`` (val).  The key layouts of deepinv's
+    versions are probed in the JAX package's order."""
+
+    KEY_LAYOUTS = (("x_train", "x_test"), ("train_x", "test_x"), ("x/train", "x/test"))
 
     def __init__(self, split: str, datasets_dir: str, channels: int = 3, download: bool = False):
-        raise NotImplementedError(
-            "the CT dataset: not ported yet (ROADMAP, Queue 1 item 3: the CT source, which "
-            "needs h5py and CT/dinv_dataset0.h5)")
+        if split not in ("train", "val"):
+            raise ValueError(f"Invalid split {split}")
+        if channels not in (1, 3):
+            raise ValueError(f"channels must be 1 or 3, got {channels}")
+        self.split = split
+        self.channels = channels
+        self.h5_path = f"{datasets_dir}/CT/dinv_dataset0.h5"
+        try:
+            import h5py
+        except ImportError as e:
+            raise ImportError(f"the CT dataset needs the h5py package to read "
+                              f"{self.h5_path}") from e
+        self._h5 = h5py.File(self.h5_path, "r")
+        col = 0 if split == "train" else 1
+        self._key = next((keys[col] for keys in self.KEY_LAYOUTS if keys[col] in self._h5), None)
+        if self._key is None:
+            raise KeyError(f"no known CT dataset keys in {self.h5_path}: {list(self._h5.keys())}")
+        size = self._h5[self._key].shape[0]
+        want = 4992 if split == "train" else 100
+        if size != want:
+            raise ValueError(f"{self.h5_path}:{self._key} holds {size} images, expected {want}")
+        self.split_size = size
+
+    def __len__(self):
+        return self.split_size
+
+    def load(self, index):
+        x = np.asarray(self._h5[self._key][index], dtype=np.float32)
+        if x.ndim == 2:
+            x = x[None]
+        if self.channels == 3 and x.shape[0] == 1:
+            x = np.repeat(x, 3, axis=0)
+        if x.shape[0] != self.channels:
+            raise ValueError(f"{self.h5_path}:{self._key}[{index}] has {x.shape[0]} channels, "
+                             f"expected {self.channels}")
+        return x
+
+    def unique_id(self, index):
+        return index if self.split == "train" else index + 4992
 
 
 class FMD(ImageSource):

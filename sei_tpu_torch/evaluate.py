@@ -7,9 +7,12 @@ reflect-pad the measurement to a multiple of ``pad_bucket`` (64; a model
 with nothing trained, such as ``Identity`` or ``Upsample``, runs at the
 measurement's own size), restore, crop back to the measurement's size times
 the model's ``scale``, 8-bit quantize and clamp both images, then Y-channel
-PSNR and SSIM.  Strip tiling above
-``MAX_EVAL_HEIGHT`` rows (the reference's ``eval_tile_height``) is not ported
-yet; such images raise.
+PSNR and SSIM.  A trainable model's measurement of more than
+``eval_tile_height`` rows (768) is restored by halo strips instead
+(:func:`sei_tpu_torch.parallel.tiling.tiled_apply`, ``demo/test.py:157-167``):
+``max(2, ceil(h / 768))`` strips, a halo of ``min(64, (h - strip) // 2)``
+rows, the strips unpadded (SwinIR pads them to its window itself); any
+other model runs whole at any height.
 
 The test command line's wrappers (``demo/test.py:179-205``):
 :func:`eval_apply` with ``noise2inverse`` restores through the
@@ -29,8 +32,9 @@ import torch
 from .metrics import compute_metrics, quantize_and_clamp
 from .models.swinir import reflect_pad
 from .noise2inverse import noise2inverse_model
+from .parallel.tiling import tiled_apply
 
-MAX_EVAL_HEIGHT = 768
+EVAL_TILE_HEIGHT = 768  # the JAX package's --eval_tile_height default
 
 
 @dataclasses.dataclass
@@ -47,29 +51,41 @@ class EvalResult:
         return float(np.mean(self.ssim))
 
 
-def restore(model, y: torch.Tensor, *, pad_bucket: int = 64) -> torch.Tensor:
+def tile_plan(h: int, eval_tile_height: int = EVAL_TILE_HEIGHT) -> tuple[int, int]:
+    """(strips, halo) of ``demo/test.py:162-164`` for a measurement of ``h``
+    rows."""
+    n_tiles = max(2, -(-h // eval_tile_height))
+    strip = -(-h // n_tiles)
+    return n_tiles, min(64, (h - strip) // 2)
+
+
+def restore(model, y: torch.Tensor, *, pad_bucket: int = 64,
+            eval_tile_height: int = EVAL_TILE_HEIGHT) -> torch.Tensor:
     """Model output for a (B, 3, h, w) measurement: a trainable model's
     input reflect-padded up to a multiple of ``pad_bucket`` (0: not padded;
     a model with ``trainable`` False is never padded), the output cropped
-    back to (h * scale, w * scale) (``scale``: the model's, default 1)."""
+    back to (h * scale, w * scale) (``scale``: the model's, default 1).  A
+    trainable model with ``pad_bucket`` > 0 restores a single measurement
+    of more than ``eval_tile_height`` rows by halo strips (:func:`tile_plan`),
+    unpadded, as ``demo/test.py:157-167`` does."""
     h, w = y.shape[-2:]
-    if h > MAX_EVAL_HEIGHT:
-        raise NotImplementedError(
-            f"{h} rows > {MAX_EVAL_HEIGHT}: strip tiling is not ported yet "
-            "(ROADMAP, Queue 1 item 5: eval at large sizes)")
-    if pad_bucket > 0 and getattr(model, "trainable", True):
-        y = reflect_pad(y, (-h) % pad_bucket, (-w) % pad_bucket)
     f = getattr(model, "scale", 1)
+    if pad_bucket > 0 and getattr(model, "trainable", True):
+        if h > eval_tile_height:
+            n_tiles, halo = tile_plan(h, eval_tile_height)
+            return tiled_apply(model, y, n_tiles=n_tiles, halo=halo, out_scale=f)
+        y = reflect_pad(y, (-h) % pad_bucket, (-w) % pad_bucket)
     return model(y)[..., :h * f, :w * f]
 
 
 def eval_apply(model, physics=None, *, pad_bucket: int = 64,
+               eval_tile_height: int = EVAL_TILE_HEIGHT,
                noise2inverse: bool = False) -> Callable:
     """The restoration of a (B, 3, h, w) measurement: :func:`restore`, or
     with ``noise2inverse`` the Noise2Inverse ensemble of it (4 row combs,
     each backprojected by the physics' inverse filter or ``A_dagger``)."""
     def apply(y):
-        return restore(model, y, pad_bucket=pad_bucket)
+        return restore(model, y, pad_bucket=pad_bucket, eval_tile_height=eval_tile_height)
 
     if not noise2inverse:
         return apply
@@ -92,25 +108,27 @@ def r2r_average(apply: Callable, y: torch.Tensor, *, sigma: float, itercount: in
     return acc / itercount
 
 
-def score_pair(model, x, y, *, pad_bucket: int = 64, apply: Optional[Callable] = None):
+def score_pair(model, x, y, *, pad_bucket: int = 64,
+               eval_tile_height: int = EVAL_TILE_HEIGHT, apply: Optional[Callable] = None):
     """(PSNR, SSIM, quantized estimate (3, H, W)) of one (ground truth,
     measurement) pair, each (3, H, W); ``apply`` (a batch restoration, such
     as :func:`eval_apply`'s) in place of :func:`restore`."""
     x = torch.as_tensor(x, dtype=torch.float32, device=model.device)
     y = torch.as_tensor(y, dtype=torch.float32, device=model.device)
     if apply is None:
-        x_hat = quantize_and_clamp(restore(model, y[None], pad_bucket=pad_bucket))[0]
-    else:
-        x_hat = quantize_and_clamp(apply(y[None]))[0]
+        apply = eval_apply(model, pad_bucket=pad_bucket, eval_tile_height=eval_tile_height)
+    x_hat = quantize_and_clamp(apply(y[None]))[0]
     p, s, _ = compute_metrics(quantize_and_clamp(x), x_hat)
     return p, s, x_hat
 
 
-def evaluate_pairs(model, pairs: Iterable, *, pad_bucket: int = 64) -> EvalResult:
+def evaluate_pairs(model, pairs: Iterable, *, pad_bucket: int = 64,
+                   eval_tile_height: int = EVAL_TILE_HEIGHT) -> EvalResult:
     """Score (ground truth (3, H, W), measurement (3, H, W)) pairs."""
     psnrs, ssims = [], []
     for x, y in pairs:
-        p, s, _ = score_pair(model, x, y, pad_bucket=pad_bucket)
+        p, s, _ = score_pair(model, x, y, pad_bucket=pad_bucket,
+                             eval_tile_height=eval_tile_height)
         psnrs.append(p)
         ssims.append(s)
     return EvalResult(psnrs, ssims)
@@ -132,6 +150,7 @@ def degraded_pair(physics, x: torch.Tensor, seed: Optional[int], *,
 
 
 def evaluate(model, physics, images: Sequence, *, pad_bucket: int = 64,
+             eval_tile_height: int = EVAL_TILE_HEIGHT,
              seeds: Optional[Sequence[int]] = None) -> EvalResult:
     """Degrade each (3, H, W) image with its seed (default: its index), then
     restore and score it as :func:`evaluate_pairs` does."""
@@ -142,4 +161,5 @@ def evaluate(model, physics, images: Sequence, *, pad_bucket: int = 64,
             x = torch.as_tensor(x, dtype=torch.float32, device=model.device)
             yield degraded_pair(physics, x, seed)
 
-    return evaluate_pairs(model, pairs(), pad_bucket=pad_bucket)
+    return evaluate_pairs(model, pairs(), pad_bucket=pad_bucket,
+                          eval_tile_height=eval_tile_height)

@@ -23,6 +23,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import draw_rows
+
 ALPHA = 0.5
 
 
@@ -34,9 +36,9 @@ def _mse(a, b):
 def _normal(generator: Optional[torch.Generator], like: torch.Tensor, scale: float):
     """``scale`` * N(0, I) of ``like``'s shape and dtype, drawn on the
     generator's device (a CUDA graph holds the draw)."""
-    n = torch.randn(like.shape, generator=generator,
-                    device=like.device if generator is None else generator.device,
-                    dtype=like.dtype)
+    dev = like.device if generator is None else generator.device
+    n = draw_rows(lambda s: torch.randn(s, generator=generator, device=dev, dtype=like.dtype),
+                  like.shape)
     return scale * n.to(like.device)
 
 

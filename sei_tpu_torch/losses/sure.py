@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from ..parallel import draw_rows, global_rows
+
 
 def _crop_margin(t: torch.Tensor, m: int) -> torch.Tensor:
     return t if m == 0 else t[..., m:-m, m:-m]
@@ -22,8 +24,8 @@ def _crop_margin(t: torch.Tensor, m: int) -> torch.Tensor:
 
 def sample_probe(generator: torch.Generator, y: torch.Tensor, margin: int = 0) -> torch.Tensor:
     """The MC probe b ~ N(0, I) of y's shape, zeroed outside the margin window."""
-    b = torch.randn(y.shape, generator=generator, device=generator.device,
-                    dtype=y.dtype).to(y.device)
+    b = draw_rows(lambda s: torch.randn(s, generator=generator, device=generator.device,
+                                        dtype=y.dtype), y.shape).to(y.device)
     if margin:
         mask = torch.zeros_like(y)
         mask[..., margin:-margin, margin:-margin] = 1.0
@@ -52,7 +54,7 @@ def sure_gaussian_loss_from_outputs(y, x_net, x_tau, b, A: Callable, *, sigma: f
     div = 2.0 * sigma2 * out.mean()
     mse = _crop_margin(y1 - y, margin)
     mse = torch.mean(mse * mse)
-    cst = sigma2 if averaged_cst else sigma2 / y.shape[0]
+    cst = sigma2 if averaged_cst else sigma2 / global_rows(y.shape[0])
     return mse + div - cst
 
 
@@ -66,5 +68,5 @@ def sure_gaussian_loss(generator: torch.Generator, y, x_net, model: Callable, A:
                                        margin=margin if cropped_div else 0)
     mse = _crop_margin(y1 - y, margin)
     mse = torch.mean(mse * mse)
-    cst = sigma2 if averaged_cst else sigma2 / y.shape[0]
+    cst = sigma2 if averaged_cst else sigma2 / global_rows(y.shape[0])
     return mse + div - cst

@@ -56,6 +56,7 @@ from torch import nn
 from ..ops.attention import _torch_attention, window_attention
 from ..ops.conv import Conv3x3
 from ..ops.swin_trunk import swin_trunk, trunk_reference
+from ..parallel import draw_rows
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 NUM_FEAT = 64  # the SR head's feature width
@@ -194,9 +195,12 @@ def _need_generator(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator
 
 
-def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """U[0, 1) draws from ``generator`` (on its own device), moved to ``device``."""
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+def _uniform(shape, generator: torch.Generator, device, rows_dim: int = 0) -> torch.Tensor:
+    """U[0, 1) draws from ``generator`` (on its own device), moved to
+    ``device``; dimension ``rows_dim`` runs over the batch's rows
+    (:func:`sei_tpu_torch.parallel.draw_rows`)."""
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=generator.device),
+                     shape, rows_dim).to(device)
 
 
 class DropPath(nn.Module):
@@ -297,7 +301,7 @@ class RSTB(nn.Module):
         if not self.training or max(self.drop_paths) == 0.0:
             return torch.ones((d, 2, b), device=device)
         keep = self.keep_probs.to(device)[:, None, None]
-        u = _uniform((d, 2, b), _need_generator(generator), device)
+        u = _uniform((d, 2, b), _need_generator(generator), device, rows_dim=2)
         return (u < keep).float() / keep
 
     def forward(self, x, mask: Optional[torch.Tensor], plain: bool = False,

@@ -471,6 +471,8 @@ def gemm_wgrad(a, dy, *, scale=None, window: Optional[WindowMap] = None,
     a, dy = a.contiguous(), dy.contiguous()
     scale = None if scale is None else scale.contiguous()
     require_cuda("gemm_wgrad", a=(a, KERNEL_DTYPES), dy=(dy, (a.dtype, F32)), scale=(scale, F32))
+    if m > 2 ** 31 - 1:  # the kernel takes M as a 32-bit int (its offsets are 64-bit)
+        raise ValueError(f"gemm_wgrad: M={m} exceeds a 32-bit int")
     built = _build.library()
     if a.dtype == F32:
         splits = _wgrad_f32_splits(built, a.device.index, m, k, n)
@@ -739,7 +741,7 @@ def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, saves=None, full
         a = ln_rows(x, p["ln1_s"], p["ln1_b"], window=wm)
         probs = (torch.empty((dm.b_, dm.nh, dm.n, dm.n), device=x.device, dtype=x.dtype)
                  if full else None)
-        _, att = _attention(a, p, rpb[i], mask if shifted else None, dm, probs)
+        att = _attention(a, p, rpb[i], mask if shifted else None, dm, probs)[1]
         x2 = gemm_bias_epilogue(att, p["proj_w"], p["proj_b"], "residual",
                                 res=x, dpm=dpm[i, 0], window=wm)
         z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
@@ -753,6 +755,9 @@ def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, saves=None, full
                                  res=x2, dpm=dpm[i, 1])
         if saves is not None:
             saves.append(_Saved(x, x2, hid, gp, probs, att) if full else _Saved(x, x2))
+        # nothing of this block outlives it unless saved: at the eval's
+        # tokens each buffer is GBs, and the next block allocates its own
+        del a, att, x2, z, hid, gp, probs
         x = out
     return x
 

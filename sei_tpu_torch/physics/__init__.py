@@ -30,6 +30,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import blur_circular, blur_circular_adjoint, get_kernel, inverse_filter
 from ..ops.fft_conv import ct_like_filter
 from ..ops.resize import resize, resize_transpose
+from ..parallel import draw_rows
 from .conv import blur_spatial, blur_spatial_adjoint
 
 TASKS = ("deblurring", "sr", "invert_a_tomography_like_filter")
@@ -106,7 +107,8 @@ class Physics:
 
     def add_noise(self, y: torch.Tensor,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        noise = torch.randn(y.shape, generator=generator, device=y.device, dtype=y.dtype)
+        noise = draw_rows(lambda s: torch.randn(s, generator=generator, device=y.device,
+                                                dtype=y.dtype), y.shape)
         return y + self.sigma * noise
 
     def degrade(self, x: torch.Tensor,

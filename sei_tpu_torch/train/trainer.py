@@ -44,12 +44,24 @@ frozen copy of the starting weights; ``normal_rate_losses`` (the normal
 scaling kind, one loss per rate) gives each loss its own step and CUDA
 graph, and before each dispatch the host picks one with
 ``np.random.default_rng(0).integers(n)``, reset at each :meth:`train`, as
-the JAX trainer does.  Not ported yet (ROADMAP, Queue 1 item 5):
-multi-GPU (DDP).
+the JAX trainer does.
+
+``data_parallel`` (a :class:`~sei_tpu_torch.parallel.DataParallel`, this
+process's rank in a process group; the JAX trainer's mesh, :182-193,
+:258-293): every rank keeps the whole state and the global batch's
+indices, draws the step's random numbers at the global batch's shapes and
+keeps its own rows (:func:`sei_tpu_torch.parallel.sharded_rows`), runs
+forward and backward on its ``batch_size / R`` images, copies the
+gradients and the loss into one flat buffer, all-reduces it and divides it
+by R (each ``.grad`` then a view into it) before the optimizer step; so R
+ranks compute the one-process step.  The all-reduce is part of the captured step.  Rank 0
+alone writes ``training.csv``, ``validation.csv`` and the checkpoints, and
+validates while the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import math
@@ -64,6 +76,7 @@ import torch
 from ..data import DeviceDataCache, epoch_indices, sample_train_batch
 from ..losses import weights_distance_loss
 from ..ops.swin_trunk import launch_counts
+from ..parallel import DataParallel, sharded_rows
 from ..rng import Streams, make_streams
 from .optim import get_lr_schedule_tensor, get_optimizer
 
@@ -99,9 +112,13 @@ class Trainer:
     trainable_mask: Optional[dict] = None  # parameter name -> trains
     weights_distance_lambda: Optional[float] = None
     normal_rate_losses: Optional[list] = None  # one loss per normal-kind rate
+    data_parallel: Optional[DataParallel] = None  # this process's rank; None: one process
 
     def __post_init__(self):
         dev = self.model.device
+        dp = self.data_parallel
+        self._rows = None if dp is None else dp.rows(self.batch_size)  # raises if R does not divide
+        self.leader = dp is None or dp.rank == 0  # writes the files, validates, prints
         self.steps_per_epoch = max(len(self.cache) // self.batch_size, 1)
         if self.scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got {self.scan_steps}")
@@ -122,6 +139,11 @@ class Trainer:
             with torch.no_grad():
                 self._pretrained = [p.detach().clone() for _, p in named]
         self.streams: Streams = make_streams(self.seed, dev)
+        self.flat_grads = None  # data parallel: [every gradient, the loss], all-reduced at once
+        if dp is not None:
+            self._grad_params = [p for p in self.model.module.parameters() if p.requires_grad]
+            self.flat_grads = torch.empty(sum(p.numel() for p in self._grad_params) + 1,
+                                          device=dev)
         self.step_count = 0
         self._perm = None
         shape = (self.scan_steps, self.batch_size)
@@ -162,18 +184,42 @@ class Trainer:
     def n_variants(self) -> int:
         return len(self.normal_rate_losses) if self.normal_rate_losses else 1
 
+    def _all_reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """The step's gradients and loss copied into one flat buffer, summed
+        over the ranks and divided by their number; each ``.grad`` is then a
+        view into it.  Returns the mean loss."""
+        grads = [p.grad for p in self._grad_params]
+        if any(g is None for g in grads):  # Adam would skip it in one process
+            raise RuntimeError("data parallel: a parameter got no gradient")
+        flat = self.flat_grads
+        torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)], out=flat)
+        self.data_parallel.all_reduce_mean_(flat)
+        offset = 0
+        for p in self._grad_params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        return flat[-1]
+
     def _one_step(self, i: int, variant: int = 0) -> None:
         """Inner step ``i`` of a dispatch, all on the device: what the graph
         holds."""
-        x, y = self._sample(self._idx[i])
-        self.lr_t.copy_(self.lr_schedule(self.step_t))
-        self.model.module.zero_grad(set_to_none=True)
-        loss_fn = self.normal_rate_losses[variant] if self.normal_rate_losses else self.loss_fn
-        loss = loss_fn(x, y, self.apply, self.streams)
-        if self._pretrained is not None:
-            loss = loss + weights_distance_loss(self.model.module.parameters(), self._pretrained,
-                                                self.weights_distance_lambda)
-        loss.backward()
+        idx, rows = self._idx[i], contextlib.nullcontext()
+        dp = self.data_parallel
+        if dp is not None:
+            idx = idx[self._rows]
+            rows = sharded_rows(dp.rank, dp.world, self._rows.stop - self._rows.start)
+        with rows:
+            x, y = self._sample(idx)
+            self.lr_t.copy_(self.lr_schedule(self.step_t))
+            self.model.module.zero_grad(set_to_none=True)
+            loss_fn = self.normal_rate_losses[variant] if self.normal_rate_losses else self.loss_fn
+            loss = loss_fn(x, y, self.apply, self.streams)
+            if self._pretrained is not None:
+                loss = loss + weights_distance_loss(self.model.module.parameters(),
+                                                    self._pretrained, self.weights_distance_lambda)
+            loss.backward()
+        if dp is not None:
+            loss = self._all_reduce(loss)
         self.opt.step()
         self.step_t += 1
         self._losses[i].copy_(loss.detach())
@@ -230,7 +276,10 @@ class Trainer:
             graph.register_generator_state(g)
         self.model.module.zero_grad(set_to_none=True)
         before = launch_counts()
-        with torch.cuda.graph(graph):
+        # NCCL's watchdog thread queries the events of earlier collectives
+        # (the warm-up's); "global" mode would let that break the capture
+        mode = "global" if self.data_parallel is None else "thread_local"
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             for i in range(self.scan_steps):
                 self._one_step(i, variant)
         self.capture_launches = {k: v - before[k] for k, v in launch_counts().items()}
@@ -263,7 +312,8 @@ class Trainer:
         validating = bool(self.eval_interval) and self.eval_hook is not None
         self._variant_rng = np.random.default_rng(0)  # the JAX trainer's, per train()
         files, writer, val_writer = [], None, None
-        if self.out_dir:
+        writes = bool(self.out_dir) and self.leader
+        if writes:
             os.makedirs(os.path.join(self.out_dir, "checkpoints"), exist_ok=True)
             fresh = self.start_epoch == 0
 
@@ -295,17 +345,19 @@ class Trainer:
                         on_step(first + i, dispatch[i])
             epoch_loss = float(torch.cat(losses).mean())
             epoch_losses.append(epoch_loss)
-            if log_every_epoch:
+            if log_every_epoch and self.leader:
                 ts = datetime.now().strftime("%Y-%m-%d %H:%M:%S")
                 nd = len(str(self.epochs))
                 print(f"\t{ts}\t[{epoch + 1:{nd}d}/{self.epochs}]\tTraining_Loss: {epoch_loss:.2e}")
             if writer:
                 writer.writerow([epoch + 1, epoch_loss])
-            if self.out_dir and (epoch % self.checkpoint_interval == 0
-                                 or epoch == self.epochs - 1):
+            if writes and (epoch % self.checkpoint_interval == 0 or epoch == self.epochs - 1):
                 self.save_checkpoint(epoch + 1, epoch=epoch)
             if validating and ((epoch + 1) % self.eval_interval == 0
                                or epoch == self.epochs - 1):
+                if not self.leader:  # rank 0 validates
+                    self.data_parallel.barrier()
+                    continue
                 psnr, ssim = self.eval_hook(self.model)
                 best = psnr > best_psnr
                 print(f"\tValidation [{epoch + 1}/{self.epochs}] PSNR: {psnr:.2f} "
@@ -315,8 +367,10 @@ class Trainer:
                     val_writer.writerow([epoch + 1, f"{psnr:.4f}", f"{ssim:.6f}"])
                 if best:
                     best_psnr = psnr
-                    if self.out_dir:
+                    if writes:
                         self.save_checkpoint("best", epoch=epoch)
+                if self.data_parallel is not None:
+                    self.data_parallel.barrier()
         for f in files:
             f.close()
         self.model.module.eval()

@@ -27,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.scaling import DEFAULT_RATES, normal_scaling_transform, padded_scaling_transform
+from ..parallel import draw_rows
 from .crop import crop_offsets, crop_pair_batch, pad_min_size  # noqa: F401
 
 SCALING_KINDS = ("padded", "normal")
@@ -53,12 +54,13 @@ class ScalingTransform:
         index (no host-to-device copy, so a CUDA graph can hold the draw)."""
         n = len(DEFAULT_RATES)
         dev = generator.device
-        u = torch.rand((batch,), generator=generator, device=dev)
+        u = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (batch,))
         idx = torch.floor(n * u).long().clamp(0, n - 1)
         rates = torch.full((batch,), DEFAULT_RATES[0], dtype=torch.float32, device=dev)
         for i, rate in enumerate(DEFAULT_RATES[1:], 1):
             rates = torch.where(idx == i, rate, rates)
-        centers = 2.0 * torch.rand((batch, 2), generator=generator, device=dev) - 1.0
+        centers = 2.0 * draw_rows(lambda s: torch.rand(s, generator=generator, device=dev),
+                                  (batch, 2)) - 1.0
         return rates, idx, centers
 
     def __call__(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,

@@ -17,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import draw_rows
+
 
 def pad_min_size(x: torch.Tensor, size_h: int, size_w: int) -> torch.Tensor:
     """Constant-pad the bottom/right of (..., H, W) to reach a minimum size."""
@@ -33,7 +35,8 @@ def crop_offsets(generator: torch.Generator, heights, widths, size: int) -> torc
     heights = torch.as_tensor(heights, dtype=torch.int64, device=dev)
     widths = torch.as_tensor(widths, dtype=torch.int64, device=dev)
     hi = torch.stack([(heights - size + 1).clamp_min(1), (widths - size + 1).clamp_min(1)], 1)
-    u = torch.rand(hi.shape, generator=generator, device=dev, dtype=torch.float64)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev, dtype=torch.float64),
+                  hi.shape)
     return torch.minimum((u * hi).long(), hi - 1)
 
 

@@ -6,8 +6,9 @@
 * Each flag of a feature a later ROADMAP item ports raises
   ``NotImplementedError`` naming the item, and ``config.check_ported``
   passes every flag ported since (the CT-like task, the spatial blur, the
-  training modes, the eval wrappers); without a GPU, an entry point run
-  without ``--device cpu`` raises.
+  training modes, the eval wrappers, the CT source, the tiled eval,
+  data-parallel training); without a GPU, an entry point run without
+  ``--device cpu`` raises.
 * End to end: ``cli.train.main`` with ``--device cpu`` trains a tiny SwinIR
   on 8 PNGs of a ``gt_folder:`` and writes ``training.csv``,
   ``checkpoints/ckp_*.pt`` and ``weights.pt``; ``demo/test.py`` (the JAX
@@ -45,7 +46,10 @@ from sei_tpu_torch import bench, config
 from sei_tpu_torch.cli import generate_dataset as cli_generate
 from sei_tpu_torch.cli import test as cli_test
 from sei_tpu_torch.cli import train as cli_train
-from sei_tpu_torch.data import write_image
+from sei_tpu_torch.data import GroundTruthDataset, image_seed, write_image
+from sei_tpu_torch.evaluate import degraded_pair, eval_apply, score_pair
+from sei_tpu_torch.models import get_model
+from sei_tpu_torch.physics import get_physics
 from sei_tpu_torch.train.checkpoint import latest_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -109,19 +113,20 @@ def test_device_flag_is_checked():
 
 
 LATER = [
-    (cli_train, ["--data_parallel_devices", "0,1"], "item 5"),
     (cli_train, ["--model_kind", "dip"], "item 6"),
     (cli_train, ["--ProposedModel__architecture", "Convolutional"], "item 6"),
-    (cli_train, ["--dataset", "ct", *TINY], "item 3"),
     (cli_test, ["--model_kind", "bm3d"], "item 6"),
     (cli_test, ["--dip_iterations", "3"], "item 6"),
     (cli_test, ["--tv_lambd", "0.1"], "item 6"),
     (cli_test, ["--tv_max_iter", "10"], "item 6"),
     (cli_test, ["--lpips_weights", "lpips.pt"], "item 6"),
-    (cli_test, ["--dataset", "ct", *TINY], "item 3"),
 ]
-# the flags of ROADMAP Queue 1 items 3 and 4, ported: check_ported passes them
+# the flags of ROADMAP Queue 1 items 3-5, ported: check_ported passes them
 PORTED = [
+    (config.add_train_args, ["--data_parallel_devices", "0,1"]),
+    (config.add_train_args, ["--dataset", "ct"]),
+    (config.add_test_args, ["--dataset", "ct"]),
+    (config.add_test_args, ["--eval_tile_height", "512"]),
     (config.add_train_args, ["--fine_tuning"]),
     (config.add_train_args, ["--fine_tuning", "--fine_tuning_params"]),
     (config.add_train_args, ["--fine_tuning", "--weights_distance_loss"]),
@@ -354,3 +359,23 @@ def test_ct_like_task_trains_and_scores_as_the_jax_package(run, ct_run, capsys, 
     got = _metrics(capsys.readouterr().out)
     assert got["N"] == want["N"] == 8 == len(result.psnr)
     assert abs(got["PSNR"] - want["PSNR"]) <= 0.01 and abs(got["SSIM"] - want["SSIM"]) <= 1e-4
+
+
+def test_ct_like_noise2inverse_eval_matches_eval_apply(run, ct_run, capsys):
+    """``cli.test --noise2inverse`` on the CT-like task scores two images as
+    ``score_pair`` with ``eval_apply(..., noise2inverse=True)`` does (the
+    same pairs, bit for bit)."""
+    argv = ["--device", "cpu", *CT, *run.data, *TINY, "--weights",
+            str(ct_run.out / "weights.pt"), "--noise2inverse", "--indices", "0,1"]
+    result = cli_test.main(argv)
+    assert "PSNR:" in capsys.readouterr().out
+    model = get_model(device="cpu", swinir_overrides=dict(embed_dim=12, depths=(2,),
+                                                          num_heads=(2,), window_size=4))
+    model.load_weights(torch.load(ct_run.out / "weights.pt", weights_only=False))
+    phys = get_physics(task="invert_a_tomography_like_filter", device="cpu")
+    gt = GroundTruthDataset(run.data[1], size=40)
+    apply = eval_apply(model, phys, noise2inverse=True)
+    want = [score_pair(model, *degraded_pair(phys, torch.as_tensor(gt[i]),
+                                             image_seed(0, gt.unique_id(i))), apply=apply)[:2]
+            for i in (0, 1)]
+    assert list(zip(result.psnr, result.ssim)) == want

@@ -191,7 +191,7 @@ def test_ground_truth_dataset_matches_jax(trees, name, split, n_items, size):
 def test_unknown_and_ct_datasets_raise(trees):
     with pytest.raises(ValueError, match="Unknown dataset"):
         GroundTruthDataset("imagenet", datasets_dir=str(trees))
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3"):
+    with pytest.raises(FileNotFoundError):  # no CT/dinv_dataset0.h5 there
         GroundTruthDataset("ct", datasets_dir=str(trees))
     with pytest.raises(ValueError, match="split"):
         GroundTruthDataset("div2k", datasets_dir=str(trees), split="test")

@@ -21,7 +21,7 @@ import torch
 import sei_tpu.metrics as jm
 from sei_tpu.models import get_model as jax_get_model
 from sei_tpu.physics import get_physics as jax_get_physics
-from sei_tpu_torch.evaluate import MAX_EVAL_HEIGHT, evaluate, evaluate_pairs, restore
+from sei_tpu_torch.evaluate import EVAL_TILE_HEIGHT, evaluate, evaluate_pairs, restore
 from sei_tpu_torch.models import get_model
 from sei_tpu_torch.physics import get_physics
 
@@ -102,8 +102,10 @@ def test_restore_pads_to_bucket_and_crops():
     y = torch.rand(1, 3, 37, 70)
     out = restore(Probe(), y)
     assert seen == [(1, 3, 64, 128)] and torch.equal(out, y)
-    with pytest.raises(NotImplementedError, match="strip tiling"):
-        restore(Probe(), torch.rand(1, 3, MAX_EVAL_HEIGHT + 1, 8))
+    # above the tile height: 2 unpadded strips of 385 rows + 2 x 64 halo
+    y = torch.rand(1, 3, EVAL_TILE_HEIGHT + 1, 8)
+    out = restore(Probe(), y)
+    assert seen[1:] == [(2, 3, 513, 8)] and torch.equal(out, y)
 
 
 def test_port_imports_no_jax():

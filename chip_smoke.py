@@ -131,7 +131,21 @@
    (FORWARD_ATOL), the forward's ms (CUDA events) and peak memory, ms per
    image, one forward's launches, a profile by kernel, and ``cli.test`` on
    the image as a PNG, equal to ``evaluate_pairs``; slice 21's launches by
-   run, one JSON line.
+   run, one JSON line.  Then slice 22 (``baselines_phase``): ``tiled_apply``
+   of a 896x320 image (2 strips) over a one-rank NCCL group, equal to the
+   call without a group bit for bit; InverseFilter, TV (300 iterations),
+   DIP (100 steps) and BM3D on one seeded 256x320 image, each twice (ms of
+   both calls, peak memory, PSNR/SSIM, whether the bits repeat), held
+   against the port on the CPU (InverseFilter on Gaussian_R1, TV 1e-4 of
+   the largest value; BM3D 1e-4 on all but 0.1% of the pixels, 5e-2 on
+   all); the Convolutional network at its default blueprint with
+   ``proposed`` (batch 8, 48 px, f32), captured equal to eager bit for
+   bit, then ``cli.train`` and ``cli.test`` of its ``weights.pt`` equal to
+   ``evaluate_pairs``; PnP, DiffPIR_DRUNet, DPS and DiffPIR_DiffUNet
+   through ``cli.test`` on seeded random weights at the published widths
+   (handed over by ``SEI_DRUNET_WEIGHTS`` / ``SEI_DIFFUNET_WEIGHTS``),
+   finite and of y's shape; LPIPS on a seeded random AlexNet, card equal
+   to CPU (1e-4); one JSON line.
 7. Launch-overhead probes (K8 ``copy_probe``, K9 ``trunk_skeleton``): each
    held exactly against its plain version and timed at the probes' shapes,
    then ``sei_tpu_torch.probes`` (chains of launches eager and captured,
@@ -2551,6 +2565,385 @@ def tiled_eval_phase(smi: str) -> dict:
     return launches
 
 
+# the baselines phase (slice 22): the strips over a one-rank NCCL group on an
+# image of 2 strips; each training-free baseline on one seeded 256x320
+# deblurring image (Gaussian_R2, noise 5), DIP cut to 100 iterations, the
+# others as the JAX package runs them; the Convolutional network at its
+# default blueprint; the denoiser priors on seeded random weights at the
+# published widths; LPIPS on a seeded random AlexNet checkpoint
+STRIPS_H = 896
+DIP_SMOKE_ITERATIONS = 100
+# a baseline on the card against the port's CPU result on the same y: 1e-4
+# of the CPU output's largest value (cuFFT against pocketfft, cuDNN / cuBLAS
+# against the CPU's sums; TV iterates 300 times).  The inverse filter is
+# gated on Gaussian_R1: Gaussian_R2's smallest OTF bins lie below f32's
+# resolution (2.9e-10 in f32 against 8.3e-12 in f64 at 256x341), so two
+# f32 FFT libraries' inverse filters agree in no digit there (printed, not
+# gated).  BM3D is discontinuous in its input: a hard threshold at 2.7 sigma
+# and the 8 closest of 81 candidates, so the two libraries' f32 roundoff
+# (cuFFT's regularized inverse, cuBLAS's DCTs against the CPU's) flips a
+# few coefficients or candidates, each moving the patches it touches
+# (tools_torch/bm3d_roundoff.py shows a change of y by one rounding doing
+# the same).  This image's reading on the H100 was 1.37e-3 at most, on
+# 7.2e-4 of the pixels beyond BASELINE_FRAC: BM3D is held to BASELINE_FRAC
+# on all but BM3D_SHARE of its pixels and to BM3D_MAX_FRAC, about 3 times
+# that largest reading, on all
+BASELINE_FRAC = 1e-4
+BM3D_SHARE, BM3D_MAX_FRAC = 1e-3, 4e-3
+LPIPS_ATOL = 1e-4
+DENOISER_KINDS = ("PlugAndPlay", "DiffPIR_DRUNet", "DPS", "DiffPIR_DiffUNet")
+
+
+def timed_call(fn):
+    """(fn(), ms by the host clock ending in a sync, peak GiB allocated during
+    the call above what was allocated before it, GiB allocated before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2**30, base / 2**30
+
+
+def strips_over_ranks(smi: str) -> None:
+    """``tiled_apply`` over a world-size-1 NCCL group (the process group a
+    data-parallel run makes) equals the call without a group bit for bit:
+    one seeded 896x320 image, 2 strips of 448 rows, halo 64, the flagship
+    SwinIR."""
+    import torch
+
+    from sei_tpu_torch.evaluate import degraded_pair, tile_plan
+    from sei_tpu_torch.parallel.tiling import tiled_apply
+
+    physics, model = task_physics("deblurring"), task_model("deblurring")
+    image = make_images(1, STRIPS_H, W, seed=5)[0]
+    _, y = degraded_pair(physics, torch.as_tensor(image, device=physics.device), 0)
+    n_tiles, halo = tile_plan(STRIPS_H, TILE_HEIGHT)
+    want, ms, _, _ = timed_call(lambda: tiled_apply(model, y[None], n_tiles=n_tiles, halo=halo))
+    dp_group()
+    try:
+        got, ms_group, _, _ = timed_call(lambda: tiled_apply(
+            model, y[None], n_tiles=n_tiles, halo=halo, group=torch.distributed.group.WORLD))
+        world = torch.distributed.get_world_size()
+    finally:
+        torch.distributed.destroy_process_group()
+    equal = torch.equal(got, want)
+    print(f"strips over ranks: tiled_apply of one {STRIPS_H}x{W} image, {n_tiles} strips, halo "
+          f"{halo}, over an NCCL group of {world} rank(s): {ms_group:.2f} ms; without a group "
+          f"{ms:.2f} ms; equal bit for bit: {equal}; {smi}")
+    if not equal:
+        fail("tiled_apply over a one-rank group differs from the call without one")
+
+
+def functional_baselines(smi: str) -> dict:
+    """InverseFilter, TV (300 iterations), DIP (``DIP_SMOKE_ITERATIONS``) and
+    BM3D on one seeded 256x320 deblurring image, each run twice: ms per
+    image of the first call (cuFFT plans, cuDNN's choices) and of the
+    second, peak memory, PSNR/SSIM, whether the second call repeats the
+    first's bits; InverseFilter (Gaussian_R1), TV and BM3D held against the
+    port's CPU result on the same y."""
+    import torch
+
+    from sei_tpu_torch.evaluate import degraded_pair
+    from sei_tpu_torch.metrics import compute_metrics, quantize_and_clamp
+    from sei_tpu_torch.models import get_model
+    from sei_tpu_torch.physics import get_physics
+
+    image = make_images(1, H, W, seed=6)[0]
+    results = {}
+    for kind, kernel in (("InverseFilter", "Gaussian_R1"), ("InverseFilter", "Gaussian_R2"),
+                         ("TV", "Gaussian_R2"), ("DeepImagePrior", "Gaussian_R2"),
+                         ("BM3D", "Gaussian_R2")):
+        label = f"{kind} {kernel}"
+        physics = get_physics(task="deblurring", kernel=kernel, noise_level=5)
+        x, y = degraded_pair(physics, torch.as_tensor(image, device=physics.device), 0)
+        kw = dict(kind=kind, task="deblurring", noise_level=5, kernel_name=kernel,
+                  dip_iterations=DIP_SMOKE_ITERATIONS)
+        model = get_model(physics=physics, **kw)
+        out, ms_first, peak, base = timed_call(lambda: model(y[None]))
+        again, ms, _, _ = timed_call(lambda: model(y[None]))
+        if out.shape != (1, 3, H, W) or not torch.isfinite(out).all():
+            fail(f"{label}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+        p, s, _ = compute_metrics(quantize_and_clamp(x), quantize_and_clamp(out)[0])
+        rec = results[label] = {"ms": ms, "ms_first": ms_first, "peak_gib": peak, "psnr": p,
+                                "ssim": s, "repeats_bit_for_bit": bool(torch.equal(again, out))}
+        line = (f"{label}: {ms:.2f} ms per image (first call {ms_first:.2f}; the same bits: "
+                f"{rec['repeats_bit_for_bit']}), peak {peak:.3f} GiB above {base:.3f}; PSNR "
+                f"{p!r} SSIM {s!r}")
+        if kind != "DeepImagePrior":
+            cpu_physics = get_physics(task="deblurring", kernel=kernel, noise_level=5,
+                                      device="cpu")
+            cpu = get_model(physics=cpu_physics, device="cpu", **kw)(y[None].cpu())
+            err = (out.cpu() - cpu).abs() / cpu.abs().max()
+            frac, share = float(err.max()), float((err > BASELINE_FRAC).float().mean())
+            rec.update(err_frac_of_cpu_max=frac, share_beyond=share)
+            line += (f"; against the port on the CPU {frac:.3e} of its largest value "
+                     f"{float(cpu.abs().max()):.4g}, {share:.3e} of the pixels beyond "
+                     f"{BASELINE_FRAC:g}")
+            if kind == "BM3D":
+                line += f" (gates: share {BM3D_SHARE:g}, max {BM3D_MAX_FRAC:g})"
+                ok = share <= BM3D_SHARE and frac <= BM3D_MAX_FRAC
+            elif kernel == "Gaussian_R1" or kind != "InverseFilter":
+                line += f" (gate {BASELINE_FRAC:g})"
+                ok = frac <= BASELINE_FRAC
+            else:
+                line += " (not gated)"
+                ok = True
+            if not ok:
+                print(f"  {line}; {smi}")
+                fail(f"{label}: the card's result differs from the CPU's")
+        print(f"  {line}; {smi}")
+    return results
+
+
+def convolutional_phase(smi: str) -> dict:
+    """The Convolutional network at its default blueprint (hidden 32, 5
+    scales, 1 block: 8192 channels at the bottom) with ``proposed``, batch 8
+    of 48 px crops, f32: 2 steps eagerly, then captured from the same seed-0
+    weights and streams, each loss and the final state equal bit for bit;
+    steady ms per step of both, peak memory.  Then ``cli.train`` (one epoch
+    of 2 captured steps on 16 written PNGs) and ``cli.test`` of its
+    ``weights.pt``, equal to ``evaluate_pairs``."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.cli import test as cli_test
+    from sei_tpu_torch.cli import train as cli_train
+    from sei_tpu_torch.data import GroundTruthDataset, build_device_cache, image_seed, write_image
+    from sei_tpu_torch.evaluate import degraded_pair, evaluate_pairs
+    from sei_tpu_torch.losses import get_loss
+    from sei_tpu_torch.models import get_model
+    from sei_tpu_torch.train import Trainer
+
+    physics = task_physics("deblurring")
+    cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
+    loss_fn = get_loss(method="proposed", physics=physics, crop_size=CROP)
+    runs = {}
+    for capture in (False, True):
+        model = get_model(architecture="Convolutional", seed=0)
+        n_params = sum(p.numel() for p in model.module.parameters())
+        trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=1,
+                          crop_size=DATA_CROP, seed=0, capture=capture)
+        losses = []
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train(log_every_epoch=False, on_step=lambda s_, loss: losses.append(loss))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        state = train_state(trainer)
+        steady = timed_dispatches(trainer)
+        runs[capture] = {"losses": [float(v) for v in losses], "state": state,
+                         "ms_per_step": steady, "peak_gib": peak, "graphed": trainer.graphed}
+        del trainer, model
+        torch.cuda.empty_cache()
+    eager, captured = runs[False], runs[True]
+    unequal = sum(not torch.equal(a, b) for a, b in zip(eager["state"], captured["state"]))
+    print(f"Convolutional (default blueprint, {n_params} parameters), proposed, batch {BATCH} of "
+          f"{CROP} px crops, f32: losses eager {eager['losses']} captured {captured['losses']}; "
+          f"state tensors unequal {unequal} of {len(eager['state'])}; steady {eager['ms_per_step']:.2f} "
+          f"ms/step eager, {captured['ms_per_step']:.2f} captured; peak {eager['peak_gib']:.3f} / "
+          f"{captured['peak_gib']:.3f} GiB; {smi}")
+    if (not captured["graphed"] or eager["losses"] != captured["losses"] or unequal
+            or not np.all(np.isfinite(eager["losses"]))):
+        fail("Convolutional: the captured step differs from the eager step")
+    record = {"params": n_params, "losses": eager["losses"], "unequal": unequal,
+              **{f"{k}_{'captured' if c else 'eager'}": runs[c][k]
+                 for c in runs for k in ("ms_per_step", "peak_gib")}}
+    del runs, eager, captured
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "gt")
+        for i, im in enumerate(make_images(CLI_IMAGES, 2 * H, 2 * W, seed=2)):
+            write_image(os.path.join(folder, f"{i:02d}.png"), im)
+        arch = ["--ProposedModel__architecture", "Convolutional"]
+        common = [*TASK_ARGS["deblurring"], "--noise_level", "5", "--dataset",
+                  f"gt_folder:{folder}", *arch]
+        out = os.path.join(tmp, "run")
+        argv = [*common, "--method", "proposed", "--batch_size", str(BATCH), "--epochs", "1",
+                "--out_dir", out]
+        print(f"command line: python -m sei_tpu_torch.cli.train {' '.join(argv)}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = cli_train.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        losses = [float(v) for v in result["losses"]]
+        del result
+        weights = os.path.join(out, "weights.pt")
+        test_argv = [*common, "--weights", weights, "--indices",
+                     ",".join(map(str, CLI_TEST_INDICES))]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = cli_test.main(test_argv)
+        torch.cuda.synchronize()
+        test_ms = (time.perf_counter() - t0) * 1e3 / len(CLI_TEST_INDICES)
+        model = get_model(architecture="Convolutional")
+        model.load_weights(torch.load(weights, weights_only=False))
+        gt = GroundTruthDataset(f"gt_folder:{folder}", split="val", memoize_gt=False)
+        want = evaluate_pairs(model, [degraded_pair(physics, torch.as_tensor(
+            gt[i], device=physics.device), image_seed(0, gt.unique_id(i)))
+            for i in CLI_TEST_INDICES])
+    print(f"  cli.train: {len(losses)} steps, losses {losses}, {train_s:.2f} s with the data, "
+          f"warm-up and capture; cli.test on its weights.pt: PSNR {got.psnr} SSIM {got.ssim}, "
+          f"{test_ms:.2f} ms/image with the reads; evaluate_pairs PSNR {want.psnr} SSIM "
+          f"{want.ssim}; {smi}")
+    if not np.all(np.isfinite(losses)) or (got.psnr, got.ssim) != (want.psnr, want.ssim):
+        fail("Convolutional command lines: non-finite losses, or cli.test differs from "
+             "evaluate_pairs")
+    record.update(cli_losses=losses, cli_test_ms_per_image=test_ms, psnr=got.psnr)
+    return record
+
+
+def seeded_denoisers(folder: str) -> tuple[str, str]:
+    """A DRUNet at the published widths under the published names
+    (``drunet_color.pth``) and a DiffUNet at the JAX ``DiffUNetConfig``
+    defaults (the FFHQ width) as a guided-diffusion checkpoint, both drawn
+    from seed 0: every conv / linear weight N(0, 1 / fan in) and biases 0,
+    a DRUNet block's second conv scaled by 0.1 so the 28 residual blocks do
+    not compound, DiffUNet's GroupNorms 1 / 0 and its zero-initialised
+    output convs drawn at 0.01 of that scale, so nothing is trivial."""
+    import torch
+
+    from sei_tpu_torch.models.diffunet import DiffUNet
+    from sei_tpu_torch.models.drunet import DRUNet
+
+    g = torch.Generator().manual_seed(0)
+
+    def draw(net, small):
+        with torch.no_grad():
+            for name, m in net.named_modules():
+                if isinstance(m, torch.nn.GroupNorm):
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+                elif isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                                    torch.nn.Linear)):
+                    std = (1.0 / m.weight[0].numel()) ** 0.5 * small(name)
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=g) * std)
+                    if m.bias is not None:
+                        m.bias.zero_()
+        return net
+
+    drunet = draw(DRUNet(), lambda n: 0.1 if n.endswith("res.2") else 1.0)
+    unet = draw(DiffUNet(), lambda n: 0.01 if (n == "out.2" or n.endswith("out_layers.3")
+                                               or n.endswith("proj_out")) else 1.0)
+    paths = (os.path.join(folder, "drunet_color.pth"), os.path.join(folder, "diffunet.pt"))
+    torch.save(drunet.state_dict(), paths[0])
+    torch.save(unet.state_dict(), paths[1])
+    return paths
+
+
+def denoiser_baselines(smi: str) -> dict:
+    """PlugAndPlay, DiffPIR_DRUNet, DPS and DiffPIR_DiffUNet through
+    ``cli.test`` on one written 256x320 PNG (deblurring Gaussian_R2, noise
+    5), the weights :func:`seeded_denoisers` writes handed over by
+    ``SEI_DRUNET_WEIGHTS`` / ``SEI_DIFFUNET_WEIGHTS``: ms per image, peak
+    memory, and the restoration finite and of the measurement's shape."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch import models
+    from sei_tpu_torch.cli import test as cli_test
+    from sei_tpu_torch.data import write_image
+
+    results = {}
+    seen = []
+    call = models.FunctionalModel.__call__
+
+    def spy(self, y):
+        out = call(self, y)
+        seen.append((tuple(y.shape), tuple(out.shape), bool(torch.isfinite(out).all())))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "gt")
+        write_image(os.path.join(folder, "0.png"), make_images(1, H, W, seed=7)[0])
+        t0 = time.perf_counter()
+        drunet, unet = seeded_denoisers(tmp)
+        print(f"denoiser priors: seeded DRUNet and DiffUNet checkpoints written in "
+              f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(drunet) / 2**20:.1f} MiB, "
+              f"{os.path.getsize(unet) / 2**20:.1f} MiB)")
+        env = {"SEI_DRUNET_WEIGHTS": drunet, "SEI_DIFFUNET_WEIGHTS": unet}
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        models.FunctionalModel.__call__ = spy
+        try:
+            for kind in DENOISER_KINDS:
+                argv = [*TASK_ARGS["deblurring"], "--noise_level", "5", "--dataset",
+                        f"gt_folder:{folder}", "--GroundTruthDataset__no_resize",
+                        "--model_kind", kind]
+                seen.clear()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    got, ms, peak, base = timed_call(lambda: cli_test.main(argv))
+                results[kind] = {"ms": ms, "peak_gib": peak, "psnr": got.psnr[0],
+                                 "ssim": got.ssim[0]}
+                print(f"  python -m sei_tpu_torch.cli.test {' '.join(argv)}: {ms:.2f} ms per "
+                      f"image with the read and the weights' load, peak {peak:.3f} GiB above "
+                      f"{base:.3f}; PSNR {got.psnr[0]!r} SSIM {got.ssim[0]!r}; restored "
+                      f"{seen}; {smi}")
+                if seen != [((1, 3, H, W), (1, 3, H, W), True)] or not np.isfinite(got.psnr[0]):
+                    fail(f"{kind}: the restoration is not finite or not of y's shape")
+        finally:
+            models.FunctionalModel.__call__ = call
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return results
+
+
+def lpips_check(smi: str) -> float:
+    """LPIPS on a seeded random AlexNet checkpoint: the card's distance of
+    two seeded 256x320 images equals the CPU's to ``LPIPS_ATOL``."""
+    import tempfile
+
+    import torch
+
+    from sei_tpu_torch.metrics.lpips import LPIPS
+
+    g = torch.Generator().manual_seed(0)
+    sd = {}
+    for i, (idx, cout, cin, k) in enumerate(((0, 64, 3, 11), (3, 192, 64, 5), (6, 384, 192, 3),
+                                             (8, 256, 384, 3), (10, 256, 256, 3))):
+        sd[f"features.{idx}.weight"] = torch.randn(cout, cin, k, k, generator=g) * (
+            1.0 / (cin * k * k)) ** 0.5
+        sd[f"features.{idx}.bias"] = 0.1 * torch.randn(cout, generator=g)
+        sd[f"lin{i}.model.1.weight"] = torch.rand(1, cout, 1, 1, generator=g)
+    a, b = (torch.as_tensor(im) for im in make_images(2, H, W, seed=8))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "alexnet_lpips.pt")
+        torch.save(sd, path)
+        gpu, ms, _, _ = timed_call(lambda: LPIPS(path, "cuda")(a.cuda(), b.cuda()))
+        cpu = LPIPS(path, "cpu")(a, b)
+    print(f"LPIPS (seeded random AlexNet): card {gpu!r}, CPU {cpu!r}, |d| {abs(gpu - cpu):.3e} "
+          f"(gate {LPIPS_ATOL:g}); {ms:.2f} ms with the load; {smi}")
+    if not abs(gpu - cpu) <= LPIPS_ATOL:
+        fail("LPIPS on the card differs from the CPU")
+    return gpu
+
+
+def baselines_phase(smi: str) -> None:
+    """Slice 22: the strips over ranks, the training-free baselines, the
+    Convolutional network, the denoiser priors and LPIPS (one JSON line of
+    their numbers)."""
+    t0 = time.perf_counter()
+    strips_over_ranks(smi)
+    record = {"functional": functional_baselines(smi), "convolutional": convolutional_phase(smi),
+              "denoisers": denoiser_baselines(smi), "lpips": lpips_check(smi)}
+    print(f"slice 22 baselines phase in {time.perf_counter() - t0:.1f} s: {json.dumps(record)}; "
+          f"{smi}")
+
+
 def dp_group():
     """This process as the one rank of an NCCL process group (file
     rendezvous in a temporary directory)."""
@@ -2929,6 +3322,7 @@ def main(argv: list[str]) -> int:
         slice21["eval tiled " + label] = counts
     print(f"slice 21 launches by run: {json.dumps(slice21)}; data-parallel steps: "
           f"{json.dumps(dp_runs)}")
+    baselines_phase(smi)
     probe_counts = probe_phase()
     bench = bench_line()
     print(HISTORICAL)

@@ -20,10 +20,16 @@
 #      serving check);
 #   4. the trajectory and the scores beside the JAX run's (compare.txt; SR:
 #      the epoch losses side by side, as the JAX SR run kept no validation).
+# With FULL_RUN_TASK=baselines, no training: after step 1, cli.test of the
+# training-free baselines at deblurring Gaussian_R2 noise 5, InverseFilter,
+# TV and DeepImagePrior (its default 4000 iterations) on val images 0-4 and
+# BM3D on 0-1, as the JAX package scored them (experiments/evidence/
+# eval_{invfilter,tv,dip}_5imgs.log, eval_bm3d_2imgs.log), then compare.txt.
 # Every time is printed beside the card's name and power limit.
 #
 #   bash full_run_torch.sh                  # on one GPU, about 40 minutes
 #   FULL_RUN_TASK=sr bash full_run_torch.sh # SR x2, about 40 minutes
+#   FULL_RUN_TASK=baselines bash full_run_torch.sh  # evidence_torch/baselines/
 #
 # The data and the run (checkpoints, weights.pt) go under $FULL_RUN_DIR
 # (default _full_run/, gitignored); the small text outputs (training.csv,
@@ -50,8 +56,11 @@ elif [ "$TASK" = deblurring ]; then
   RUN=$RUN_ROOT/dl_g2_r2r_evalint
   G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
   TAG=r2r_ep$EPOCHS BASELINE=Identity BASE_TAG=identity
+elif [ "$TASK" = baselines ]; then
+  EV=${FULL_RUN_EVIDENCE:-evidence_torch/baselines}
+  G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
 else
-  echo "FULL_RUN_TASK: deblurring or sr, got $TASK" >&2
+  echo "FULL_RUN_TASK: deblurring, sr or baselines, got $TASK" >&2
   exit 2
 fi
 mkdir -p "$EV" "$RUN_ROOT"
@@ -70,6 +79,32 @@ t0=$(now)
 python tools_torch/make_dead_leaves_div2k.py --out "$DATA" \
   ${FULL_RUN_WORKERS:+--workers "$FULL_RUN_WORKERS"} | tail -1
 stamp "dead-leaves Div2K stand-in (800 + 100 PNGs) generated" "$t0"
+
+if [ "$TASK" = baselines ]; then
+  for spec in "InverseFilter 0,1,2,3,4 invfilter_5imgs" "TV 0,1,2,3,4 tv_5imgs" \
+              "DeepImagePrior 0,1,2,3,4 dip_5imgs" "BM3D 0,1 bm3d_2imgs"; do
+    read -r kind idx tag <<< "$spec"
+    t0=$(now)
+    python -m sei_tpu_torch.cli.test "${G2[@]}" "${DD[@]}" --model_kind "$kind" \
+      --indices "$idx" --print_all_metrics "${EXTRA[@]}" 2>&1 | tee "$EV/eval_$tag.log"
+    stamp "cli.test $kind, val images $idx (reads and model build included)" "$t0"
+    smi >> "$EV/eval_$tag.log"
+  done
+  python - "$EV" <<'EOF' | tee "$EV/compare.txt"
+# The port's baseline scores beside the JAX package's, to the full runs' 0.5 dB / 0.01.
+import re, sys
+ev, jax_ev = sys.argv[1], "experiments/evidence"
+def summary(path):
+    text = open(path).read()
+    return {k: float(re.search(rf"^{k}: ([-0-9.]+)$", text, re.M).group(1)) for k in ("PSNR", "SSIM")}
+for tag in ("invfilter_5imgs", "tv_5imgs", "dip_5imgs", "bm3d_2imgs"):
+    got, want = summary(f"{ev}/eval_{tag}.log"), summary(f"{jax_ev}/eval_{tag}.log")
+    ok = abs(got["PSNR"] - want["PSNR"]) <= 0.5 and abs(got["SSIM"] - want["SSIM"]) <= 0.01
+    print(f"{tag}: port {got['PSNR']:.2f} / {got['SSIM']:.4f}, JAX {want['PSNR']:.2f} / "
+          f"{want['SSIM']:.4f}; target within 0.5 dB and 0.01: {'met' if ok else 'MISSED'}")
+EOF
+  exit 0
+fi
 
 t0=$(now)
 python -m sei_tpu_torch.cli.train "${G2[@]}" --method proposed \

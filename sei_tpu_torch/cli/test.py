@@ -17,11 +17,21 @@ as ``--dataset`` holds measurements only: they are restored, not scored.
 ``--save_images`` writes ``ground_truth/``, ``predictors/`` and
 ``estimates/`` under ``--out_dir``; ``--save_psf`` the PSF scaled to a
 maximum of 1.  The summary lines are ``demo/test.py``'s.  LPIPS needs
-weights the repository does not hold: its line says n/a.  A trainable
-model restores a measurement of more than ``--eval_tile_height`` rows (768)
-by halo strips instead of padding it (``demo/test.py:157-167``,
-:func:`sei_tpu_torch.evaluate.restore`); ``Identity`` and ``Upsample`` run
-whole at any height.
+local AlexNet and head weights (``--lpips_weights``,
+:mod:`sei_tpu_torch.metrics.lpips`); without them its line says n/a.  A
+trainable model restores a measurement of more than ``--eval_tile_height``
+rows (768) by halo strips instead of padding it (``demo/test.py:157-167``,
+:func:`sei_tpu_torch.evaluate.restore`); every other kind (``Identity``,
+``Upsample`` and the baselines) runs whole at the measurement's own shape.
+
+``--model_kind`` takes every kind of ``sei_tpu_torch.models.KINDS``:
+``Proposed`` (``--ProposedModel__architecture Transformer`` or
+``Convolutional`` with the ``--ConvolutionalModel__*`` flags),
+``Identity``, ``Upsample``, ``InverseFilter``, ``TV`` (``--tv_lambd``,
+``--tv_max_iter``), ``DeepImagePrior`` (``--dip_iterations``), ``BM3D``,
+and ``PlugAndPlay``, ``DiffPIR_DRUNet``, ``DPS`` (a DRUNet named by
+``SEI_DRUNET_WEIGHTS``) and ``DiffPIR_DiffUNet`` (a guided-diffusion UNet
+named by ``SEI_DIFFUNET_WEIGHTS``).
 
 ``--noise2inverse`` restores through the Noise2Inverse ensemble (4 row
 combs, backprojected; for deblurring both images are first cut to even
@@ -42,25 +52,37 @@ from ..config import DefaultArgParser, add_test_args
 from ..data import FolderDataset, image_seed, write_image
 from ..evaluate import EvalResult, degraded_pair, eval_apply, r2r_average, score_pair
 from ..metrics import quantize_and_clamp
+from ..metrics.lpips import LPIPS
 from ..models import get_model
 from ..train.checkpoint import get_weights
-from .train import ground_truth, setup, swinir_overrides
+from .train import conv_blueprint, ground_truth, setup, swinir_overrides
+
+
+def build(args):
+    """(device, physics, model, LPIPS) of the parsed flags: the physics None
+    for a folder of measurements, the model's ``--weights`` loaded, the
+    LPIPS None without ``--lpips_weights``."""
+    device, physics = setup(args, with_physics=not os.path.isdir(args.dataset))
+    lpips = LPIPS(args.lpips_weights, device) if args.lpips_weights else None
+    model = get_model(kind=args.model_kind, architecture=args.ProposedModel__architecture,
+                      task=args.task, sr_factor=args.sr_factor, device=device,
+                      homogeneous_swinir=args.homogeneous_swinir,
+                      swinir_overrides=swinir_overrides(args), physics=physics,
+                      noise_level=args.noise_level, conv_blueprint=conv_blueprint(args),
+                      dip_iterations=args.dip_iterations, tv_lambd=args.tv_lambd,
+                      tv_max_iter=args.tv_max_iter, kernel_name=args.kernel)
+    if args.weights is not None:
+        model.load_weights(get_weights(args.weights))
+    return device, physics, model, lpips
 
 
 def main(argv=None) -> EvalResult:
     """Evaluate as the flags say; prints the summary and returns each
-    scored image's PSNR and SSIM."""
+    scored image's PSNR, SSIM and LPIPS."""
     parser = DefaultArgParser(prog="python -m sei_tpu_torch.cli.test")
     add_test_args(parser)
     args = parser.parse_args(argv)
-    device, physics = setup(args, with_physics=not os.path.isdir(args.dataset))
-
-    model = get_model(kind=args.model_kind, architecture=args.ProposedModel__architecture,
-                      task=args.task, sr_factor=args.sr_factor, device=device,
-                      homogeneous_swinir=args.homogeneous_swinir,
-                      swinir_overrides=swinir_overrides(args))
-    if args.weights is not None:
-        model.load_weights(get_weights(args.weights))
+    _, physics, model, lpips = build(args)
 
     names = {}
     if physics is None:
@@ -103,17 +125,18 @@ def main(argv=None) -> EvalResult:
                                itercount=args.r2r_itercount, generator=r2r_gen)
 
     indices = range(n) if args.indices is None else [int(i) for i in args.indices.split(",")]
-    psnrs, ssims = [], []
+    psnrs, ssims, dists = [], [], []
     for i in indices:
         x, y = get_pair(i)
         if x is None:
             x_hat = quantize_and_clamp(apply(y[None]))[0]
         else:
-            p, s, x_hat = score_pair(model, x, y, apply=apply)
+            p, s, d, x_hat = score_pair(model, x, y, apply=apply, lpips=lpips)
             psnrs.append(p)
             ssims.append(s)
+            dists.append(d)
             if args.print_all_metrics:
-                print(f"METRICS_{i}: PSNR: {p:.2f}, SSIM: {s:.4f}, LIPS: {float('nan'):.4f}")
+                print(f"METRICS_{i}: PSNR: {p:.2f}, SSIM: {s:.4f}, LIPS: {d:.4f}")
         if args.save_images:
             if args.out_dir is None:
                 raise ValueError("--save_images needs --out_dir")
@@ -131,8 +154,12 @@ def main(argv=None) -> EvalResult:
         print(f"PSNR std: {np.std(psnrs):.2f}")
         print(f"SSIM: {np.mean(ssims):.4f}")
         print(f"SSIM std: {np.std(ssims):.4f}")
-        print("LPIPS: n/a (no local LPIPS weights; pass --lpips_weights)")
-    return EvalResult(psnrs, ssims)
+        if not np.all(np.isnan(dists)):
+            print(f"LPIPS: {np.nanmean(dists):.4f}")
+            print(f"LPIPS std: {np.nanstd(dists):.4f}")
+        else:
+            print("LPIPS: n/a (no local LPIPS weights; pass --lpips_weights)")
+    return EvalResult(psnrs, ssims, dists)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ A tiny run on the CPU:
         --SwinIR__num_heads 2 --SwinIR__window_size 4 --epochs 1 --out_dir run
 
 The steps of ``demo/train.py:64-333``: physics, model (``--bf16``: bf16
-compute, f32 params), ``--weights``, loss, :class:`GroundTruthDataset`, the
+compute, f32 params; ``--ProposedModel__architecture Convolutional`` the
+Convolutional UNet of the ``--ConvolutionalModel__*`` flags, which stays
+f32 under ``--bf16`` and writes its own names to ``weights.pt``),
+``--weights``, loss, :class:`GroundTruthDataset`, the
 device cache (each image degraded once with its own seed), the defaults of
 ``sei_tpu_torch.config``, then :class:`~sei_tpu_torch.train.Trainer`, one
 CUDA graph per ``--scan_steps`` steps on the GPU.  Outputs under
@@ -77,9 +80,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import (DefaultArgParser, add_train_args, check_ported,
-                      default_checkpoint_interval, default_epochs, default_lr,
-                      default_optimizer)
+from ..config import (DefaultArgParser, add_train_args, default_checkpoint_interval,
+                      default_epochs, default_lr, default_optimizer)
 from ..data import GroundTruthDataset, build_device_cache, build_finetuning_cache
 from ..device import resolve_device
 from ..losses import get_loss, normalize_method
@@ -99,11 +101,19 @@ def swinir_overrides(args) -> dict:
             "drop_path_rate": args.SwinIR__drop_path_rate}
 
 
+def conv_blueprint(args) -> dict:
+    """The ``--ConvolutionalModel__*`` flags as ``get_model``'s blueprint."""
+    return {"residual": args.ConvolutionalModel__residual,
+            "inner_residual": args.ConvolutionalModel__inner_residual,
+            "num_conv_blocks": args.ConvolutionalModel__num_conv_blocks,
+            "inout_convs": args.ConvolutionalModel__inout_convs,
+            "hidden_channels": args.ConvolutionalModel__hidden_channels,
+            "scales": args.ConvolutionalModel__scales}
+
+
 def setup(args, *, with_physics: bool = True):
-    """Check the flags and resolve the device (made current, for a
-    ``cuda:N``); then the physics (None without ``with_physics``), as every
-    command line builds it."""
-    check_ported(args)
+    """Resolve the device (made current, for a ``cuda:N``); then the physics
+    (None without ``with_physics``), as every command line builds it."""
     device = resolve_device(args.device)
     if device.index is not None:
         torch.cuda.set_device(device)
@@ -114,6 +124,22 @@ def setup(args, *, with_physics: bool = True):
                               physics_true_adjoint=args.physics_true_adjoint,
                               antialias=args.physics_antialias, device=device)
     return device, physics
+
+
+def build_model(args, device: torch.device):
+    """The model the training flags ask for on ``device``, its ``--weights``
+    loaded."""
+    if KIND_ALIASES.get(args.model_kind, args.model_kind) != "Proposed":
+        raise ValueError(f"--model_kind {args.model_kind}: nothing to train")
+    model = get_model(kind=args.model_kind, architecture=args.ProposedModel__architecture,
+                      task=args.task, sr_factor=args.sr_factor, device=device, seed=args.seed,
+                      homogeneous_swinir=args.homogeneous_swinir,
+                      swinir_overrides=swinir_overrides(args),
+                      conv_blueprint=conv_blueprint(args),
+                      dtype=torch.bfloat16 if args.bf16 else None)
+    if args.weights is not None:
+        model.load_weights(get_weights(args.weights))
+    return model
 
 
 def ground_truth(args, split: str, duplicates_count=None) -> GroundTruthDataset:
@@ -161,7 +187,6 @@ def main(argv=None) -> Optional[dict]:
     args = parse(argv)
     if args.data_parallel_devices is None:
         return train(args)
-    check_ported(args)
     if not args.out_dir:
         raise ValueError("--data_parallel_devices needs --out_dir (the ranks meet through a "
                          "file there)")
@@ -208,15 +233,7 @@ def train(args, data_parallel: Optional[DataParallel] = None) -> dict:
     if args.RESUME is not None and args.lr is None:
         raise ValueError("RESUME requires an explicit --lr")
 
-    if KIND_ALIASES.get(args.model_kind, args.model_kind) != "Proposed":
-        raise ValueError(f"--model_kind {args.model_kind}: nothing to train")
-    model = get_model(kind=args.model_kind, architecture=args.ProposedModel__architecture,
-                      task=args.task, sr_factor=args.sr_factor, device=device, seed=args.seed,
-                      homogeneous_swinir=args.homogeneous_swinir,
-                      swinir_overrides=swinir_overrides(args),
-                      dtype=torch.bfloat16 if args.bf16 else None)
-    if args.weights is not None:
-        model.load_weights(get_weights(args.weights))
+    model = build_model(args, device)
 
     loss_kwargs = dict(
         method=method, physics=physics, noise_level=args.noise_level,

@@ -5,11 +5,8 @@ package: the reference's ``ClassName__param`` namespaced flags, the README
 aliases (``--method sup|ei-shift|ei-rotate``, ``--model_kind
 swinir|dip|...``) and explicit flags for the reference's environment
 switches.  ``--device`` takes ``cuda`` (the default), ``cuda:N`` or ``cpu``;
-nothing falls back to the CPU.
-
-Flags whose feature belongs to a later ROADMAP item parse as in the JAX
-package, and :func:`check_ported` raises ``NotImplementedError`` naming the
-item when one is set away from its default: none is ignored.
+nothing falls back to the CPU.  Every flag of the JAX package's parsers
+is ported.
 """
 
 from __future__ import annotations
@@ -208,29 +205,3 @@ def default_lr(task: str, fine_tuning: bool) -> float:
 
 def default_optimizer(fine_tuning: bool) -> str:
     return "SGD" if fine_tuning else "Adam"
-
-
-# flags of features that later ROADMAP items port: (attribute, its default,
-# the item); set away from its default, a flag raises
-_LATER = (
-    ("ProposedModel__architecture", "Transformer", "item 6: baselines and the rest of the "
-                                                   "model registry (Convolutional)"),
-    ("dip_iterations", None, "item 6: baselines and the rest of the model registry"),
-    ("tv_lambd", None, "item 6: baselines and the rest of the model registry"),
-    ("tv_max_iter", 300, "item 6: baselines and the rest of the model registry"),
-    ("lpips_weights", None, "item 6: baselines and the rest of the model registry (LPIPS)"),
-)
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for the first flag of ``args`` that
-    asks for a feature a later ROADMAP item ports (``--model_kind`` of a
-    baseline included)."""
-    for name, default, item in _LATER:
-        if hasattr(args, name) and getattr(args, name) != default:
-            raise NotImplementedError(f"--{name} {getattr(args, name)!r}: not ported yet "
-                                      f"(ROADMAP, Queue 1 {item})")
-    kind = getattr(args, "model_kind", "Proposed")
-    if kind not in ("Proposed", "swinir", "Identity", "id", "Upsample", "up"):
-        raise NotImplementedError(f"--model_kind {kind}: not ported yet (ROADMAP, Queue 1 "
-                                  "item 6: baselines and the rest of the model registry)")

@@ -41,6 +41,7 @@ EVAL_TILE_HEIGHT = 768  # the JAX package's --eval_tile_height default
 class EvalResult:
     psnr: list
     ssim: list
+    lpips: list = dataclasses.field(default_factory=list)  # NaN without LPIPS weights
 
     @property
     def psnr_mean(self) -> float:
@@ -109,17 +110,20 @@ def r2r_average(apply: Callable, y: torch.Tensor, *, sigma: float, itercount: in
 
 
 def score_pair(model, x, y, *, pad_bucket: int = 64,
-               eval_tile_height: int = EVAL_TILE_HEIGHT, apply: Optional[Callable] = None):
-    """(PSNR, SSIM, quantized estimate (3, H, W)) of one (ground truth,
-    measurement) pair, each (3, H, W); ``apply`` (a batch restoration, such
-    as :func:`eval_apply`'s) in place of :func:`restore`."""
+               eval_tile_height: int = EVAL_TILE_HEIGHT, apply: Optional[Callable] = None,
+               lpips=None):
+    """(PSNR, SSIM, LPIPS, quantized estimate (3, H, W)) of one (ground
+    truth, measurement) pair, each (3, H, W); ``apply`` (a batch
+    restoration, such as :func:`eval_apply`'s) in place of :func:`restore`;
+    ``lpips`` as :func:`~sei_tpu_torch.metrics.compute_metrics` takes it
+    (None: NaN)."""
     x = torch.as_tensor(x, dtype=torch.float32, device=model.device)
     y = torch.as_tensor(y, dtype=torch.float32, device=model.device)
     if apply is None:
         apply = eval_apply(model, pad_bucket=pad_bucket, eval_tile_height=eval_tile_height)
     x_hat = quantize_and_clamp(apply(y[None]))[0]
-    p, s, _ = compute_metrics(quantize_and_clamp(x), x_hat)
-    return p, s, x_hat
+    p, s, d = compute_metrics(quantize_and_clamp(x), x_hat, lpips=lpips)
+    return p, s, d, x_hat
 
 
 def evaluate_pairs(model, pairs: Iterable, *, pad_bucket: int = 64,
@@ -127,8 +131,8 @@ def evaluate_pairs(model, pairs: Iterable, *, pad_bucket: int = 64,
     """Score (ground truth (3, H, W), measurement (3, H, W)) pairs."""
     psnrs, ssims = [], []
     for x, y in pairs:
-        p, s, _ = score_pair(model, x, y, pad_bucket=pad_bucket,
-                             eval_tile_height=eval_tile_height)
+        p, s = score_pair(model, x, y, pad_bucket=pad_bucket,
+                          eval_tile_height=eval_tile_height)[:2]
         psnrs.append(p)
         ssims.append(s)
     return EvalResult(psnrs, ssims)

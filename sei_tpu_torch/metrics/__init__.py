@@ -7,8 +7,10 @@ valid-window map averaged over the interior; centre-crop registration; 8-bit
 quantize and clamp.  The separable SSIM filter runs as two banded matmuls in
 full f32 (TF32 is off on the GPU), as the reference does at HIGHEST
 precision: the variance cancellation mu_xx - mu_x^2 breaks at TF32 rounding.
-LPIPS needs pretrained weights that are not in the repository and returns
-NaN, as in the JAX package without weights.
+LPIPS (:mod:`.lpips`) needs local AlexNet and head weights, which the
+repository does not hold: :func:`compute_metrics` takes an ``LPIPS`` made
+from such a file (``cli.test --lpips_weights``), and without one the value
+is NaN, as in the JAX package without weights.
 """
 
 from __future__ import annotations
@@ -93,7 +95,9 @@ def quantize_and_clamp(im: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(im * 255.0) / 255.0, 0.0, 1.0)
 
 
-def compute_metrics(x: torch.Tensor, x_hat: torch.Tensor):
-    """(psnr, ssim, lpips) as Python floats on registered images."""
+def compute_metrics(x: torch.Tensor, x_hat: torch.Tensor, lpips=None):
+    """(psnr, ssim, lpips) as Python floats on registered images; ``lpips``
+    an :class:`~sei_tpu_torch.metrics.lpips.LPIPS`, or None for NaN."""
     x, x_hat = register(x, x_hat)
-    return float(psnr_y(x, x_hat)), float(ssim_y(x, x_hat)), float("nan")
+    dist = float("nan") if lpips is None else lpips(x_hat, x)
+    return float(psnr_y(x, x_hat)), float(ssim_y(x, x_hat)), dist

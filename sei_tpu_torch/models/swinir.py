@@ -347,7 +347,7 @@ class SwinIR(nn.Module):
         if dtype is not None and not fused_trunk:
             raise NotImplementedError(
                 "SwinIR module path (fused_trunk=False) in bf16: not ported "
-                "(ROADMAP, Queue 1: the bf16 module path)")
+                "(ROADMAP, Queue 1 item 7: the bf16 module path)")
         self.compute_dtype = dtype
         self.window_size = window_size
         self.register_buffer("mean", torch.tensor(RGB_MEAN).view(1, 3, 1, 1),

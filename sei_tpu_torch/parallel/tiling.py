@@ -7,8 +7,13 @@ valid cores are stitched back together.  The strips run as one batch, one
 forward.  Exact for models whose receptive field is within the halo; for
 SwinIR a halo of 64 rows keeps the strips' boundary effects small.
 
-The JAX function's ``mesh`` argument (the strips sharded over devices) is
-not ported: the eval protocol never passes it (ROADMAP, Queue 1).
+``group`` (a ``torch.distributed`` process group of R > 1 ranks) is the
+JAX function's ``mesh``: rank r runs ``model_fn`` on its share of the strips
+(``ceil(n / R)`` of them, contiguous; a short share is filled up with copies
+of its last strip, so every rank's batch has one shape), one ``all_gather``
+brings every rank's outputs to every rank, and each rank stitches and
+returns the whole image, as the JAX function returns one global array.  No
+group, or a group of one rank, is the one-process path.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 
 def strips(h: int, n_tiles: int, halo: int) -> tuple[int, int, list]:
@@ -35,17 +41,34 @@ def strips(h: int, n_tiles: int, halo: int) -> tuple[int, int, list]:
     return strip, win, out
 
 
+def _gathered(model_fn: Callable, windows: list, group) -> torch.Tensor:
+    """Every strip's output, computed over the ranks of ``group`` (see the
+    module docstring)."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    share = -(-len(windows) // world)
+    mine = [windows[min(rank * share + j, len(windows) - 1)] for j in range(share)]
+    out = model_fn(torch.cat(mine)).contiguous()
+    everyone = [torch.empty_like(out) for _ in range(world)]
+    dist.all_gather(everyone, out, group=group)
+    return torch.cat(everyone)[:len(windows)]
+
+
 def tiled_apply(model_fn: Callable, y: torch.Tensor, *, n_tiles: int, halo: int,
-                out_scale: int = 1) -> torch.Tensor:
+                out_scale: int = 1, group=None) -> torch.Tensor:
     """Apply ``model_fn`` to a (1, C, H, W) measurement by H-strips with halo
     overlap.  ``model_fn`` maps (B', C, h, w) to (B', C', h * out_scale,
-    w * out_scale); it gets the (n_tiles, C, window, W) strips as one batch.
-    Needs H >= ceil(H / n_tiles) + 2 * halo."""
+    w * out_scale); it gets the (n_tiles, C, window, W) strips as one batch,
+    or with a ``group`` of R > 1 ranks this rank's share of them.  Needs H
+    >= ceil(H / n_tiles) + 2 * halo."""
     b, _, h, w = y.shape
     if b != 1:
         raise ValueError(f"tiled_apply operates on a single image, got a batch of {b}")
     strip, win, parts = strips(h, n_tiles, halo)
-    out_tiles = model_fn(torch.cat([y[:, :, s:s + win] for s, _, _ in parts]))
+    windows = [y[:, :, s:s + win] for s, _, _ in parts]
+    if group is not None and dist.get_world_size(group) > 1:
+        out_tiles = _gathered(model_fn, windows, group)
+    else:
+        out_tiles = model_fn(torch.cat(windows))
     sc = out_scale
     # overlapping strips write the same rows where the halo covers the
     # receptive field; the later strip's write stands, as in the JAX stitch

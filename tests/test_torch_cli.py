@@ -3,12 +3,14 @@
 * The port's parsers (``sei_tpu_torch.config``) give the namespace of
   ``sei_tpu.config``'s, ``device`` aside, for the commands of
   ``tests/test_cli_compat.py`` and the reference's namespaced flags.
-* Each flag of a feature a later ROADMAP item ports raises
-  ``NotImplementedError`` naming the item, and ``config.check_ported``
-  passes every flag ported since (the CT-like task, the spatial blur, the
-  training modes, the eval wrappers, the CT source, the tiled eval,
-  data-parallel training); without a GPU, an entry point run without
-  ``--device cpu`` raises.
+* Every flag is ported: the command lines set up (device and physics)
+  and build their model (and ``cli.test`` its LPIPS), which restores a
+  measurement, with each flag of the later ROADMAP items (the CT-like
+  task, the spatial blur, the training modes, the eval wrappers, the CT
+  source, the tiled eval, data-parallel training, the baselines, the
+  Convolutional network, LPIPS); the one later ROADMAP item left, item 7 (the bf16 module path),
+  has no flag, and the module raises ``NotImplementedError`` naming it;
+  without a GPU, an entry point run without ``--device cpu`` raises.
 * End to end: ``cli.train.main`` with ``--device cpu`` trains a tiny SwinIR
   on 8 PNGs of a ``gt_folder:`` and writes ``training.csv``,
   ``checkpoints/ckp_*.pt`` and ``weights.pt``; ``demo/test.py`` (the JAX
@@ -30,6 +32,7 @@ import runpy
 import sys
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +41,8 @@ import torch
 from sei_tpu import config as jax_config
 from sei_tpu.data import FolderDataset as JaxFolderDataset
 from sei_tpu.data.loader import read_image as jax_read_image
+from sei_tpu.models.drunet import DRUNet as JaxDRUNet
+from sei_tpu.models.drunet import save_drunet_native
 from sei_tpu.models.torch_io import flax_swinir_to_torch, torch_swinir_to_flax
 from sei_tpu.physics import get_physics as jax_get_physics
 from sei_tpu.train.checkpoint import CheckpointManager
@@ -48,7 +53,7 @@ from sei_tpu_torch.cli import test as cli_test
 from sei_tpu_torch.cli import train as cli_train
 from sei_tpu_torch.data import GroundTruthDataset, image_seed, write_image
 from sei_tpu_torch.evaluate import degraded_pair, eval_apply, score_pair
-from sei_tpu_torch.models import get_model
+from sei_tpu_torch.models import SwinIR, get_model
 from sei_tpu_torch.physics import get_physics
 from sei_tpu_torch.train.checkpoint import latest_checkpoint
 
@@ -112,17 +117,19 @@ def test_device_flag_is_checked():
         parser.parse_args(["--device", "tpu"])
 
 
-LATER = [
-    (cli_train, ["--model_kind", "dip"], "item 6"),
-    (cli_train, ["--ProposedModel__architecture", "Convolutional"], "item 6"),
-    (cli_test, ["--model_kind", "bm3d"], "item 6"),
-    (cli_test, ["--dip_iterations", "3"], "item 6"),
-    (cli_test, ["--tv_lambd", "0.1"], "item 6"),
-    (cli_test, ["--tv_max_iter", "10"], "item 6"),
-    (cli_test, ["--lpips_weights", "lpips.pt"], "item 6"),
-]
-# the flags of ROADMAP Queue 1 items 3-5, ported: check_ported passes them
+# ROADMAP Queue 1 item 7, the bf16 module path, has no flag: the module raises
+LATER = [(dict(fused_trunk=False, dtype=torch.bfloat16), "item 7")]
+# the flags of ROADMAP Queue 1 items 3-6, ported: the command lines set up with them
 PORTED = [
+    (config.add_train_args, ["--model_kind", "Proposed", "--ProposedModel__architecture",
+                             "Convolutional", "--ConvolutionalModel__scales", "3"]),
+    (config.add_train_args, ["--ProposedModel__architecture", "Convolutional", "--bf16"]),
+    (config.add_test_args, ["--model_kind", "bm3d"]),
+    (config.add_test_args, ["--model_kind", "dip", "--dip_iterations", "3"]),
+    (config.add_test_args, ["--model_kind", "TV", "--tv_lambd", "0.1", "--tv_max_iter", "10"]),
+    (config.add_test_args, ["--model_kind", "InverseFilter"]),
+    (config.add_test_args, ["--model_kind", "pnp"]),
+    (config.add_test_args, ["--lpips_weights", "lpips.pt"]),
     (config.add_train_args, ["--data_parallel_devices", "0,1"]),
     (config.add_train_args, ["--dataset", "ct"]),
     (config.add_test_args, ["--dataset", "ct"]),
@@ -149,18 +156,65 @@ PORTED = [
 ]
 
 
+# narrow widths for every model a case builds (a case's own flags come after)
+NARROW = [*TINY, "--ConvolutionalModel__hidden_channels", "8", "--ConvolutionalModel__scales",
+          "3"]
+ALEXNET = ((0, 64, 3, 11), (3, 192, 64, 5), (6, 384, 192, 3), (8, 256, 384, 3),
+           (10, 256, 256, 3))
+
+
+@pytest.fixture(scope="module")
+def weight_files(tmp_path_factory):
+    """A narrow DRUNet in the JAX package's native ``.npz`` (for
+    ``SEI_DRUNET_WEIGHTS``) and a seeded random AlexNet/LPIPS checkpoint
+    (for ``--lpips_weights``)."""
+    root = tmp_path_factory.mktemp("weights")
+    channels, nb = (8, 16, 32, 64), 1
+    params = JaxDRUNet(channels=channels, nb=nb).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 3, 16, 16)), 0.1)["params"]
+    drunet = str(root / "drunet.npz")
+    save_drunet_native(drunet, params, channels=channels, nb=nb)
+    g = torch.Generator().manual_seed(0)
+    sd = {}
+    for i, (idx, cout, cin, k) in enumerate(ALEXNET):
+        sd[f"features.{idx}.weight"] = torch.randn(cout, cin, k, k, generator=g) / np.sqrt(
+            cin * k * k)
+        sd[f"features.{idx}.bias"] = 0.1 * torch.randn(cout, generator=g)
+        sd[f"lin{i}.model.1.weight"] = torch.rand(1, cout, 1, 1, generator=g)
+    lpips = str(root / "lpips.pt")
+    torch.save(sd, lpips)
+    return types.SimpleNamespace(drunet=drunet, lpips=lpips)
+
+
 @pytest.mark.parametrize("add_args,argv", PORTED)
-def test_ported_flags_pass_check_ported(add_args, argv):
+def test_ported_flags_pass_check_ported(add_args, argv, weight_files, monkeypatch):
+    """Each flag sets the command line up and builds the model it asks for
+    as the command line does (``cli.test``: and the LPIPS); the model
+    restores a 32x32 measurement, finite and of its shape."""
+    monkeypatch.setenv("SEI_DRUNET_WEIGHTS", weight_files.drunet)
     parser = config.DefaultArgParser()
     add_args(parser)
-    config.check_ported(parser.parse_args(["--device", "cpu", *TASK, *argv]))
+    argv = [weight_files.lpips if a == "lpips.pt" else a for a in argv]
+    args = parser.parse_args(["--device", "cpu", *TASK, *NARROW, *argv])
+    if add_args is config.add_test_args:
+        device, physics, model, lpips = cli_test.build(args)
+    else:
+        device, physics = cli_train.setup(args)
+        model, lpips = cli_train.build_model(args, device), None
+    assert device.type == "cpu" and physics.task == args.task
+    x = torch.rand(1, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = model(physics.A(x))
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert (lpips is not None) == (getattr(args, "lpips_weights", None) is not None)
+    if lpips is not None:
+        assert np.isfinite(lpips(out[0].clamp(0, 1), x[0]))
 
 
-@pytest.mark.parametrize("cli,argv,item", LATER)
-def test_flags_of_later_items_raise(cli, argv, item):
-    base = ["--device", "cpu", *TASK] + (["--method", "proposed"] if cli is cli_train else [])
+@pytest.mark.parametrize("kw,item", LATER)
+def test_flags_of_later_items_raise(kw, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP, Queue 1 {item}\b"):
-        cli.main(base + argv)
+        SwinIR(embed_dim=12, depths=(2,), num_heads=(2,), window_size=4, **kw)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):

@@ -23,12 +23,14 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sei_tpu_torch import parallel
 from sei_tpu_torch.cli import train as cli_train
 from sei_tpu_torch.data import build_device_cache, write_image
 from sei_tpu_torch.losses import get_loss
 from sei_tpu_torch.models import get_model
+from sei_tpu_torch.parallel.tiling import tiled_apply
 from sei_tpu_torch.physics import get_physics
 from sei_tpu_torch.train import Trainer
 
@@ -60,13 +62,32 @@ def _train(method, out_dir=None, data_parallel=None, eval_hook=None):
             "opt": [{k: v.clone() for k, v in s.items()} for s in trainer.opt.state.values()]}
 
 
+STRIPS = dict(n_tiles=3, halo=6)
+
+
+def _strip_input():
+    return torch.rand(1, 3, 60, 20, generator=torch.Generator().manual_seed(5))
+
+
+def _strip_model(x):
+    """Two 5x5 convs: a receptive field within the halo."""
+    g = torch.Generator().manual_seed(6)
+    for _ in range(2):
+        x = torch.tanh(F.conv2d(x, torch.randn(3, 3, 5, 5, generator=g) / 15, padding=2))
+    return x
+
+
 def _rank(rank, init_file, tmp):
     """One gloo rank: every method, then a validated run writing to a
-    directory of the rank's own."""
+    directory of the rank's own, then the strips over the two ranks."""
     torch.set_num_threads(2)
     dp = parallel.init(rank, WORLD, init_file, torch.device("cpu"))
     try:
+        batches = []
+        strips = tiled_apply(lambda t: batches.append(t.shape[0]) or _strip_model(t),
+                             _strip_input(), group=torch.distributed.group.WORLD, **STRIPS)
         out = {m: _train(m, data_parallel=dp) for m in METHODS}
+        out["strips"], out["strip_batches"] = strips, batches
         calls = []
         _train("supervised", out_dir=os.path.join(tmp, f"rank{rank}"), data_parallel=dp,
                eval_hook=lambda model: calls.append(1) or (20.0, 0.5))
@@ -102,6 +123,15 @@ def test_two_ranks_compute_the_one_process_step(ranks, method):
             for k in w:
                 _close(g[k], w[k])
     assert results[0][method]["losses"] == results[1][method]["losses"]
+
+
+def test_tiled_apply_over_two_ranks_equals_one_process(ranks):
+    _, results = ranks
+    want = tiled_apply(_strip_model, _strip_input(), **STRIPS)
+    for got in results:
+        assert got["strip_batches"] == [2]
+        np.testing.assert_allclose(got["strips"].numpy(), want.numpy(), rtol=0, atol=1e-6)
+    assert torch.equal(results[0]["strips"], results[1]["strips"])
 
 
 def test_only_rank_0_writes_and_validates(ranks):

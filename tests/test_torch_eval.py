@@ -125,7 +125,11 @@ def test_port_imports_no_jax():
         "        'sei_tpu_torch.cli.train', 'sei_tpu_torch.cli.test',\n"
         "        'sei_tpu_torch.cli.generate_dataset', 'sei_tpu_torch.data.sources',\n"
         "        'sei_tpu_torch.bench', 'sei_tpu_torch.losses.r2r',\n"
-        "        'sei_tpu_torch.train.validate'} <= new, new\n"
+        "        'sei_tpu_torch.train.validate', 'sei_tpu_torch.models.baselines',\n"
+        "        'sei_tpu_torch.models.bm3d', 'sei_tpu_torch.models.convolutional',\n"
+        "        'sei_tpu_torch.models.drunet', 'sei_tpu_torch.models.diffunet',\n"
+        "        'sei_tpu_torch.models.denoiser_solvers', 'sei_tpu_torch.models.pnp',\n"
+        "        'sei_tpu_torch.metrics.lpips', 'sei_tpu_torch.parallel.tiling'} <= new, new\n"
         "print('ok', len(new))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -15,6 +15,8 @@
   ``demo/test.py``, equal to the JAX baselines (1e-5 / 1e-6).
 * Noise2Inverse wraps the tiled restoration: each of its 4 forwards is one
   batch of strips.
+* A process group of one rank (gloo) is the one-process path: the same
+  bits, one forward of every strip, no collective.
 """
 
 import os
@@ -78,6 +80,22 @@ def test_tiled_apply_matches_jax_for_a_local_model(h, n_tiles, halo):
     got = tiled_apply(torch_fn, torch.from_numpy(y), n_tiles=n_tiles, halo=halo).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, torch_fn(torch.from_numpy(y)).numpy(), rtol=0, atol=1e-5)
+
+
+def test_a_one_rank_group_is_the_one_process_path(tmp_path, monkeypatch):
+    _, torch_fn = _local_models(64)
+    y = torch.from_numpy(np.random.default_rng(64).random((1, 3, 64, 32)).astype(np.float32))
+    want = tiled_apply(torch_fn, y, n_tiles=4, halo=8)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}",
+                                         rank=0, world_size=1)
+    try:
+        monkeypatch.setattr(torch.distributed, "all_gather", None)  # a call would raise
+        seen = []
+        got = tiled_apply(lambda t: seen.append(t.shape[0]) or torch_fn(t), y, n_tiles=4,
+                          halo=8, group=torch.distributed.group.WORLD)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert seen == [4] and torch.equal(got, want)
 
 
 def test_tiled_apply_sr_scale_matches_jax():

@@ -37,7 +37,11 @@
    SHA-256 digests of the attention backward's outputs, the f32 forward's
    and the LN backward's (f32 and bf16, both forms) on seeded inputs
    (``--bits DIR`` prints them alone for the port in DIR, so two trees can
-   be compared in one run).
+   be compared in one run).  Then the bf16 module path's own attention
+   calls (``SwinIR(fused_trunk=False)``: k, v strided views of the qkv
+   Linear's output, q scaled from it; the forward with no p store, the
+   backward recomputing p) at the eval shape (forward) and the 2B training
+   graph (both), against their plain versions and SDPA, timed and queued.
 3. Eval path: ``get_model`` (flagship SwinIR, weights from seed 0) ->
    ``get_physics`` (deblurring, Gaussian_R2, noise 5) -> ``evaluate`` on 4
    seeded 256x320 images; checks the kernels' launch counts, the metrics,
@@ -131,7 +135,23 @@
    (FORWARD_ATOL), the forward's ms (CUDA events) and peak memory, ms per
    image, one forward's launches, a profile by kernel, and ``cli.test`` on
    the image as a PNG, equal to ``evaluate_pairs``; slice 21's launches by
-   run, one JSON line.  Then slice 22 (``baselines_phase``): ``tiled_apply``
+   run, one JSON line.  Then slice 23 (``module_path_phase``): SwinIR's
+   module path (``fused_trunk=False``, ROADMAP Queue 1 item 7) through
+   ``evaluate`` on the 4 seeded 256x320 images in f32 and bf16 (36
+   attention launches per forward and no trunk kernel, one forward against
+   ``forward(plain=True)``: f32 1e-3 abs, bf16 3e-2 of max; ms per image
+   and forward ms beside the fused path's), two bf16 ``proposed`` steps on
+   it eagerly (gradients against the plain path's autograd to 3e-2 of each
+   max) and captured at ``scan_steps`` 2, equal bit for bit, with 36
+   attention forwards and backwards per graph; the global-norm clip
+   (``clip_norm``) on the fused bf16 step, captured equal to eager, its
+   norm above the bound before the clip and equal to it after (1e-5
+   relative); then the native PNG loader (``loader_phase``): 8
+   seeded 1356x2040 PNGs with all five row filters through
+   ``GroundTruthDataset.load_all`` natively and by the numpy codec, decode
+   bit for bit and the resize to 256 within 1e-6, seconds and images per
+   second of each, the threads and the host's CPUs.  Then slice 22
+   (``baselines_phase``): ``tiled_apply``
    of a 896x320 image (2 strips) over a one-rank NCCL group, equal to the
    call without a group bit for bit; InverseFilter, TV (300 iterations),
    DIP (100 steps) and BM3D on one seeded 256x320 image, each twice (ms of
@@ -164,7 +184,8 @@
    register tiles fed through registers, the f32 ``gemm_wgrad`` in 8x6
    register tiles, A by ``cp.async`` and dy gathered through registers, the
    f32 ``window_attn_bwd`` and ``window_attn_fwd`` in 4x4 register tiles
-   fed by ``cp.async``) and
+   fed by ``cp.async``; the bf16 module path's attention entries,
+   ``[bf16 module path]``, as the bf16 attention kernels) and
    carries ``queued_ms``: the device time of the same calls queued behind
    a sleeping kernel, free of the wrapper's host cost; every entry with a
    library call carries
@@ -288,6 +309,20 @@ PROBE_BLOCKS = (1, 4, 8, 24, 132, 1056)
 # height (demo/test.py:157-167): 2 strips of 678 rows, halo 64, windows of
 # 806 rows (808 after SwinIR's window pad), T = 2 x 808 x 2040 tokens
 TILED_H, TILED_W, TILE_HEIGHT = 1356, 2040, 768
+# SwinIR's module path (fused_trunk=False) per block and graph: the
+# attention forward and backward only (LN and Linear layers in PyTorch)
+PER_BLOCK_MODULE = {"ln_rows": 0, "gemm_bias_epilogue": 0, "window_attn_fwd": 1, "gemm_dgrad": 0,
+                    "gemm_wgrad": 0, "window_attn_bwd": 1, "ln_rows_bwd": 0}
+# the global-norm clip's bound in its training cell: below the flagship
+# step's gradient norm at seed 0, so every step clips
+CLIP_NORM = 1e-2
+# the clipped gradients' global norm (f64 sums) against CLIP_NORM, relative:
+# two f32 roundings of each gradient (g / norm * max_norm) and the f32 norm
+CLIP_RTOL = 1e-5
+# the native PNG loader: Div2K-shaped PNGs (the tiled eval's shape), the
+# dataset's load_all threads, and the resize's bound against the numpy path
+# (f32 sums of the same products in another order)
+LOADER_IMAGES, LOADER_THREADS, LOADER_RESIZE_ATOL = 8, 16, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -1414,13 +1449,15 @@ def task_physics(task: str, factor: int = SR_FACTOR, **kw):
     return get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5, **kw)
 
 
-def task_model(task: str, dtype=None, factor: int = SR_FACTOR):
+def task_model(task: str, dtype=None, factor: int = SR_FACTOR, fused_trunk: bool = True):
     """The flagship SwinIR for ``task`` (SR: the pixelshuffle head by
-    ``factor``), weights from seed 0."""
+    ``factor``), weights from seed 0; ``fused_trunk=False``: the module
+    path."""
     from sei_tpu_torch.models import get_model
 
     return get_model(kind="Proposed", architecture="Transformer", task=task,
-                     sr_factor=factor if task == "sr" else None, seed=0, dtype=dtype)
+                     sr_factor=factor if task == "sr" else None, seed=0, dtype=dtype,
+                     fused_trunk=fused_trunk)
 
 
 @dataclasses.dataclass
@@ -1430,8 +1467,10 @@ class Recipe:
     graphs one step runs (2: a 2B and a B forward, as ``proposed``; 1: one B
     forward, as ``supervised``), the normal kind's rates (one loss each),
     fine-tuning's folder of measurement PNGs (its cache one 256 px crop of
-    each) and trainable mask, and whether one step's gradients are held
-    against the plain path."""
+    each) and trainable mask, whether one step's gradients are held against
+    the plain path (and to what bound), SwinIR's path (``fused_trunk``), the
+    kernels' launches per block and graph where they are not the trunk's,
+    and the epochs of 2 steps."""
 
     label: str
     task: str = "deblurring"
@@ -1443,6 +1482,10 @@ class Recipe:
     folder: Optional[str] = None
     conv_last_only: bool = False
     grad_check: bool = False
+    grad_tol: float = GRAD_RTOL  # the gradient check's bound, of each tensor's max
+    fused_trunk: Optional[bool] = None  # False: SwinIR's module path
+    per_block: Optional[dict] = None  # launches per block and graph; None: the trunk's
+    epochs: int = TRAIN_EPOCHS
 
 
 def default_recipe(dtype, sure_alternative, task: str) -> Recipe:
@@ -1462,7 +1505,8 @@ def training_setup(recipe: Recipe):
     from sei_tpu_torch.losses import get_loss
     from sei_tpu_torch.train.optim import trainable_mask
 
-    model = task_model(recipe.task, recipe.dtype)
+    model = task_model(recipe.task, recipe.dtype,
+                       fused_trunk=recipe.fused_trunk is not False)
     physics = task_physics(recipe.task)
     if recipe.folder is None:
         cache = build_device_cache(make_images(TRAIN_IMAGES, H, W, seed=1), physics, seed=0)
@@ -1506,18 +1550,20 @@ def train_path(dtype=None, sure_alternative=None, task: str = "deblurring",
 
     recipe = recipe or default_recipe(dtype, sure_alternative, task)
     dtype, label = recipe.dtype, recipe.label
-    per_block = PER_BLOCK_TRAIN_BF16 if dtype is not None else PER_BLOCK_TRAIN
+    per_block = recipe.per_block or (PER_BLOCK_TRAIN_BF16 if dtype is not None
+                                     else PER_BLOCK_TRAIN)
     loss_args = ", ".join(f"{k}={v!r}" for k, v in recipe.loss.items() if v is not None)
     cache_fn = "build_device_cache" if recipe.folder is None else "build_finetuning_cache"
     print(f"training path ({label}): {cache_fn} -> get_loss({loss_args}) -> Trainer "
           f"({TRAIN_IMAGES} images {H}x{W}, flagship SwinIR, compute dtype "
-          f"{'bf16' if dtype is not None else 'f32'}, batch {BATCH}, {CROP} px crops, "
-          f"{TRAIN_EPOCHS} epochs{''.join(f', {k}={v!r}' for k, v in recipe.trainer.items())}"
+          f"{'bf16' if dtype is not None else 'f32'}, "
+          f"{'module path' if recipe.fused_trunk is False else 'fused trunk'}, batch {BATCH}, "
+          f"{CROP} px crops, {recipe.epochs} epochs{''.join(f', {k}={v!r}' for k, v in recipe.trainer.items())}"
           f"{f', normal kind at rates {recipe.normal_rates}' if recipe.normal_rates else ''}"
           f"{', conv_last only' if recipe.conv_last_only else ''})")
     t0 = time.perf_counter()
     model, physics, cache, loss_fn, data_crop, kw = training_setup(recipe)
-    trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
+    trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=recipe.epochs,
                       crop_size=data_crop, seed=0, capture=False, **kw)
     torch.cuda.synchronize()
     print(f"  set-up {time.perf_counter() - t0:.2f} s; {trainer.steps_per_epoch} steps/epoch")
@@ -1583,6 +1629,7 @@ def train_path(dtype=None, sure_alternative=None, task: str = "deblurring",
           f"allocated before the run); "
           f"{moved} of {len(before)} parameter tensors moved; params and Adam state f32; "
           f"epoch losses {stats['epoch_losses']}")
+    clip_check(trainer, label)
     eager = {"losses": losses, "state": train_state(trainer), "base_gib": base_gib,
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
              "variants": list(trainer.variants)}
@@ -1607,8 +1654,8 @@ def train_path(dtype=None, sure_alternative=None, task: str = "deblurring",
                     for n, gp in grads[True][1].items())
         print(f"  one step, kernel path vs plain path: loss {grads[False][0]!r} vs {grads[True][0]!r}; "
               f"worst max|diff|/max|plain grad| over {len(grads[True][1])} tensors {worst:.3e} "
-              f"(tolerance {GRAD_RTOL:g})")
-        if not worst <= GRAD_RTOL:
+              f"(tolerance {recipe.grad_tol:g})")
+        if not worst <= recipe.grad_tol:
             fail("kernel-path gradients disagree with the plain path")
         del grads
     model.module.zero_grad(set_to_none=True)
@@ -1636,11 +1683,12 @@ def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
 
     recipe = recipe or default_recipe(dtype, sure_alternative, task)
     label = recipe.label
-    per_block = PER_BLOCK_TRAIN_BF16 if recipe.dtype is not None else PER_BLOCK_TRAIN
+    per_block = recipe.per_block or (PER_BLOCK_TRAIN_BF16 if recipe.dtype is not None
+                                     else PER_BLOCK_TRAIN)
     print(f"captured training ({label}, scan_steps {scan_steps}): the same run as one CUDA "
           f"graph per dispatch")
     model, physics, cache, loss_fn, data_crop, kw = training_setup(recipe)
-    trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=TRAIN_EPOCHS,
+    trainer = Trainer(model, loss_fn, physics, cache, batch_size=BATCH, epochs=recipe.epochs,
                       crop_size=data_crop, seed=0, scan_steps=scan_steps, **kw)
     if not trainer.graphed or trainer.scan_steps != scan_steps:
         fail(f"{label}: Trainer did not take the captured path at scan_steps {scan_steps}")
@@ -1680,6 +1728,7 @@ def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
           f"run's: {unequal} of {len(got)} (max |diff| {max(diffs):.3e})")
     if losses != eager["losses"] or unequal or len(got) != len(eager["state"]):
         fail(f"{label} scan_steps {scan_steps}: the captured run differs from the eager run")
+    clip_check(trainer, label)
     steady = timed_dispatches(trainer)
     wall, device = profile_step(trainer.step, f"one replayed {label} dispatch "
                                               f"({scan_steps} steps)")
@@ -3084,6 +3133,328 @@ def cli_phase(smi: str) -> None:
         cli_dp_run(folder, os.path.join(tmp, "f32"), os.path.join(tmp, "dp"))
 
 
+def clip_check(trainer, label: str) -> None:
+    """A trainer with ``clip_norm``: its last step's gradient norm before the
+    clip must lie above the bound, and the global norm of the gradients the
+    optimizer received (each ``.grad`` after the step) must equal the bound
+    to CLIP_RTOL, so the clip acted."""
+    if trainer.clip_norm is None:
+        return
+    import torch
+
+    norm = float(trainer.grad_norm)
+    grads = [p.grad for p in trainer.model.module.parameters() if p.grad is not None]
+    after = float(torch.linalg.vector_norm(torch.stack([g.double().norm() for g in grads])))
+    rel = abs(after - trainer.clip_norm) / trainer.clip_norm
+    print(f"  {label}: global gradient norm of the last step {norm!r} before the clip, "
+          f"{after!r} after it, against clip_norm {trainer.clip_norm:g} (relative "
+          f"difference {rel:.3e}, gate {CLIP_RTOL:g})")
+    if not norm >= trainer.clip_norm:
+        fail(f"{label}: the gradient norm {norm} is below clip_norm, so the clip did nothing")
+    if not rel <= CLIP_RTOL:
+        fail(f"{label}: the clipped gradients' norm {after} is not clip_norm "
+             f"{trainer.clip_norm}")
+
+
+def check_module_attention(timed: bool) -> dict:
+    """The module path's own attention calls in bf16 (``SwinIR(dtype=
+    bfloat16, fused_trunk=False)``: q scaled by the Linear's output, k and v
+    strided views of it; the forward with no p store, the backward
+    recomputing p), against their plain versions and SDPA (forward; its
+    autograd backward), at the eval shape (one 256x320 image, T = 81920:
+    forward only, listed) and the 2B training graph (T = 36864: the
+    per-block sums), both masks; bounds at the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from sei_tpu_torch.models.swinir import shift_attn_mask
+    from sei_tpu_torch.ops import attention as at
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    rows = {}
+
+    def nb(*tensors):
+        return float(sum(t.numel() * t.element_size() for t in tensors))
+
+    def record(kernel, variant, errs, fn_k, fn_p, fn_lib, flops, nbytes, per_block):
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        r = {"variant": variant, "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by,
+             "flops": flops, "bytes": nbytes, "per_block": per_block}
+        if timed:
+            r["ms"], r["queued_ms"], r["plain_ms"] = time_ms(fn_k), queued_ms(fn_k), time_ms(fn_p)
+            r.update(library_times(fn_lib))
+            print(f"    {kernel}[bf16 module path {variant}]: kernel {r['ms']:.4f} ms (queued "
+                  f"{r['queued_ms']:.4f}), plain {r['plain_ms']:.4f} ms, {fmt_library(r)}, bound "
+                  f"{b_ms:.4f} ms ({b_by}), {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+        rows.setdefault(kernel, []).append(r)
+
+    scale = float(torch.tensor(HD ** -0.5).to(bf))  # rounded to bf16 first, as the module does
+    for label, b, h, w, backward in (("eval", B, H, W, False),
+                                     ("train", TRAIN_GRAPHS[0], CROP, CROP, True)):
+        t = b * h * w
+        b_ = t // N
+        print(f"module-path attention checks ({label}): {b} image(s) {h}x{w}, T={t}, {b_} windows, "
+              f"bf16 (tolerance on bf16 outputs |d| <= {BF16_RTOL:g}*(|plain| + max|plain|))")
+        qkv = (torch.randn((b_, N, 3 * C), generator=g, device="cuda")).to(bf)
+        parts = qkv.reshape(b_, N, 3, NH, HD).permute(2, 0, 3, 1, 4)
+        q, k, v = parts[0] * scale, parts[1], parts[2]
+        do = (torch.randn((b_, NH, N, HD), generator=g, device="cuda") * 0.1).to(bf)
+        bias = torch.randn((NH, N, N), generator=g, device="cuda") * 0.1
+        mask = torch.from_numpy(shift_attn_mask(h, w, WS, WS // 2)).cuda()
+        for variant, m in (("no_mask", None), ("shift_mask", mask)):
+            tag = f"{variant} T={t}"
+            full = (bias[None] if m is None else
+                    (bias[None] + m[:, None]).repeat(b_ // m.shape[0], 1, 1, 1)).expand(
+                        b_, NH, N, N).to(bf)
+            got = at.window_attn_fwd(q, k, v, bias, m)
+            errs = [compare_bf16(f"window_attn_fwd[bf16 module path {tag}]", got,
+                                 at._torch_attention(q, k, v, bias, m), (1e-4, 1e-4))]
+            record("window_attn_fwd", tag, errs,
+                   lambda m=m: at.window_attn_fwd(q, k, v, bias, m),
+                   lambda m=m: at._torch_attention(q, k, v, bias, m),
+                   lambda full=full: F.scaled_dot_product_attention(q, k, v, attn_mask=full,
+                                                                    scale=1.0),
+                   4.0 * b_ * NH * N * N * HD,
+                   nb(q, k, v, got, bias) + (nb(m) if m is not None else 0.0),
+                   1 if backward else 0)
+            if not backward:
+                continue
+            outs = at.window_attn_bwd(q, k, v, bias, m, do)
+            errs = [compare_bf16(f"window_attn_bwd[bf16 module path {tag}][{i}]", a, b2,
+                                 (1e-4, 1e-4))
+                    for i, (a, b2) in enumerate(zip(outs, at._torch_attention_bwd(
+                        q, k, v, bias, m, do)))]
+            ql, kl, vl = (u.detach().clone().requires_grad_() for u in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=full, scale=1.0)
+            record("window_attn_bwd", tag, errs,
+                   lambda m=m: at.window_attn_bwd(q, k, v, bias, m, do),
+                   lambda m=m: at._torch_attention_bwd(q, k, v, bias, m, do),
+                   lambda out=out, ql=ql, kl=kl, vl=vl: torch.autograd.grad(
+                       out, (ql, kl, vl), do, retain_graph=True),
+                   10.0 * b_ * NH * N * N * HD,
+                   nb(q, k, v, do, *outs[:3]) + 4.0 * NH * N * N * 2
+                   + (nb(m) if m is not None else 0.0), 1)
+            del outs, ql, kl, vl, out
+        del qkv, parts, q, k, v, do, got
+    return rows
+
+
+def module_eval(smi: str) -> dict:
+    """The module path (``fused_trunk=False``) on the eval path: flagship
+    SwinIR (weights from seed 0) through ``evaluate`` on the 4 seeded
+    256x320 images, f32 and bf16; the attention forward's launches (36 per
+    forward, nothing of the trunk); one forward against ``forward(plain=
+    True)`` (f32 FORWARD_ATOL, bf16 FORWARD_FRAC_BF16 of max |plain|); ms
+    per image and forward ms beside the fused path's on the same weights.
+    Returns the launches by run."""
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.evaluate import evaluate
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    images = make_images(N_IMAGES, H, W, seed=0)
+    physics = task_physics("deblurring")
+    total = {}
+    want = {k: 0 for k in PORT_KERNELS} | {"window_attn_fwd": BLOCKS * N_IMAGES}
+    for dtype in (None, torch.bfloat16):
+        label = "bf16" if dtype is not None else "f32"
+        print(f"module path eval ({label}): get_model(fused_trunk=False) -> evaluate "
+              f"({N_IMAGES} images {H}x{W}, flagship SwinIR, deblurring Gaussian_R2, noise 5)")
+        times = {}
+        for path, fused in (("module", False), ("fused", True)):
+            model = task_model("deblurring", dtype, fused_trunk=fused)
+            evaluate(model, physics, images[:1])  # warm-up: cuDNN, cuBLAS, masks
+            torch.cuda.synchronize()
+            st.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = evaluate(model, physics, images)
+            torch.cuda.synchronize()
+            times[path] = (time.perf_counter() - t0) * 1e3 / N_IMAGES
+            counts = st.launch_counts()
+            y = physics.randomly_degrade(torch.as_tensor(images[0], device=physics.device)[None],
+                                         0)
+            with torch.no_grad():
+                times[path + " forward"] = time_ms(lambda: model(y), iters=3, warmup=1)
+            if fused:
+                continue
+            total[f"eval module path {label}"] = counts
+            print(f"  launch counts {counts}")
+            if counts != want:
+                fail(f"module path {label}: launches {counts} over {N_IMAGES} images, "
+                     f"expected {want}")
+            if not all(np.isfinite(result.psnr)) or not all(0 < p < 100 for p in result.psnr):
+                fail(f"module path {label}: PSNR out of range {result.psnr}")
+            print(f"  PSNR {result.psnr} SSIM {result.ssim}; mean {result.psnr_mean!r} / "
+                  f"{result.ssim_mean!r}")
+            with torch.no_grad():
+                out_k, out_p = model(y), model.module(y, plain=True)
+                times["plain forward"] = time_ms(lambda: model.module(y, plain=True), iters=3,
+                                                 warmup=1)
+            if dtype is None:
+                compare(f"module path {label} forward (kernels vs plain)", out_k, out_p,
+                        FORWARD_ATOL, 0.0)
+            else:
+                err = float((out_k - out_p).abs().max())
+                tol = FORWARD_FRAC_BF16 * float(out_p.abs().max())
+                print(f"  module path {label} forward (kernels vs plain): max |diff| {err:.3e} "
+                      f"(tolerance {tol:.3e} = {FORWARD_FRAC_BF16:g} of max |plain|)")
+                if not err <= tol:
+                    fail(f"module path {label}: the forward disagrees with the plain forward")
+            profile_forward(model, y)
+            del model, out_k, out_p
+        print(f"  module path {label}: {times['module']:.2f} ms/image, forward "
+              f"{times['module forward']:.2f} ms (plain {times['plain forward']:.2f}); fused "
+              f"path {times['fused']:.2f} ms/image, forward {times['fused forward']:.2f} ms; "
+              f"{smi}")
+    return total
+
+
+def module_path_phase(smi: str, proposed_ms: dict) -> dict:
+    """ROADMAP Queue 1 item 7 on the card: :func:`module_eval`; then two
+    ``proposed`` steps on the module path in bf16 (batch 8, 48 px crops)
+    eagerly, the first step's gradients against autograd through the plain
+    path (TRUNK_GRAD_FRAC of each max), then captured at ``scan_steps`` 2,
+    equal to the eager run bit for bit, with the attention kernels' launches
+    per step (36 forward and 36 backward per graph, none of the trunk's);
+    then the global-norm clip (``clip_norm``) on the fused bf16 step, eager
+    then captured at 2, equal bit for bit, its norm above the bound before
+    the clip and equal to it after.
+    Returns the launches by run."""
+    import torch
+
+    total = module_eval(smi)
+    module = Recipe("bf16 module path", dtype=torch.bfloat16, fused_trunk=False, epochs=1,
+                    per_block=PER_BLOCK_MODULE, grad_check=True, grad_tol=TRUNK_GRAD_FRAC)
+    clip = Recipe("bf16 clip", dtype=torch.bfloat16, epochs=1,
+                  trainer={"clip_norm": CLIP_NORM})
+    for recipe in (module, clip):
+        counts, trainer, eager = train_path(recipe=recipe)
+        del trainer
+        captured, steady = captured_train(recipe.dtype, 2, eager, recipe=recipe)
+        add_counts(total.setdefault("train " + recipe.label, {}), counts)
+        add_counts(total["train " + recipe.label], captured)
+        print(f"  {recipe.label} captured at scan_steps 2: {steady:.2f} ms/step = "
+              f"{BATCH * 1e3 / steady:.3f} img/s; the fused bf16 step (SURE) in this run "
+              f"{proposed_ms['bf16', 2]:.2f} ms/step; {smi}")
+    print(f"module path and clip launches by run: {json.dumps(total)}")
+    return total
+
+
+def write_filtered_png(path: str, arr) -> None:
+    """An 8-bit RGB PNG of ``arr`` (H, W, 3) uint8 whose rows take the five
+    row filters in turn, as Pillow's adaptive filtering mixes them."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = arr.shape
+    x = arr.astype(np.int16)
+    a, b, cc = (np.zeros_like(x) for _ in range(3))  # left, up, up-left
+    a[:, 1:], b[1:], cc[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = np.arange(h) % 5
+    out = rows[:, 1:].reshape(h, w, c)
+    for kind in range(5):  # rows kind, kind + 5, ...: that filter
+        r = slice(kind, None, 5)
+        xa, xb, xc = a[r], b[r], cc[r]
+        if kind == 4:
+            p = xa + xb - xc
+            pa, pb, pc = np.abs(p - xa), np.abs(p - xb), np.abs(p - xc)
+            pred = np.where((pa <= pb) & (pa <= pc), xa, np.where(pb <= pc, xb, xc))
+        else:
+            pred = (0, xa, xb, (xa + xb) >> 1)[kind]
+        out[r] = (x[r] - pred) & 0xFF
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def loader_phase(smi: str) -> None:
+    """The native PNG loader on the card's host: 8 seeded 1356x2040 PNGs
+    (Div2K's shape, rows filtered by all five filters) through
+    ``GroundTruthDataset.load_all`` (the native loader on its threads) and
+    by the numpy codec (``read_image`` one file after another, then
+    ``resize_shorter_side_np``), without a resize (equal bit for bit) and at
+    the dataset's shorter side 256 (within 1e-6; the numpy path's resize of
+    its decoded images timed apart and added to its decode); seconds and
+    images per second of each, the threads and the host's CPUs."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from sei_tpu_torch.data import GroundTruthDataset, native, read_image
+    from sei_tpu_torch.ops.resize import resize_shorter_side_np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(4)
+        arrays = []
+        # dead leaves at a quarter of the size, each pixel repeated 4x4, plus
+        # noise: something for every filter to predict
+        for im in make_images(LOADER_IMAGES, TILED_H // 4, TILED_W // 4, seed=4):
+            im = im.repeat(4, axis=1).repeat(4, axis=2).transpose(1, 2, 0)
+            noise = rng.integers(-8, 9, im.shape)
+            arrays.append(np.clip(im * 255.0 + noise + 0.5, 0, 255).astype(np.uint8))
+        with ThreadPoolExecutor(LOADER_IMAGES) as pool:  # zlib releases the GIL
+            list(pool.map(lambda i: write_filtered_png(os.path.join(tmp, f"{i:04d}.png"),
+                                                       arrays[i]), range(LOADER_IMAGES)))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.library()
+        t_build = time.perf_counter() - t0
+        threads = min(LOADER_THREADS, LOADER_IMAGES)
+        print(f"native PNG loader: {LOADER_IMAGES} PNGs {TILED_H}x{TILED_W} (five row filters) "
+              f"written in {t_write:.2f} s; library built or loaded in {t_build:.2f} s; "
+              f"load_all(n_threads={LOADER_THREADS}): {threads} threads on a host of "
+              f"{os.cpu_count()} CPUs")
+        result = {"threads": threads, "cpus": os.cpu_count()}
+        runs = {}
+        for size in (None, 256):
+            ds = GroundTruthDataset(f"gt_folder:{tmp}", size=size)
+            t0 = time.perf_counter()
+            runs["native", size] = ds.load_all(n_threads=LOADER_THREADS)
+            runs["native", size, "s"] = time.perf_counter() - t0
+        # the numpy path: read_image of each file, then resize_shorter_side_np
+        # at size 256, timed apart on the same decoded images
+        t0 = time.perf_counter()
+        runs["numpy", None] = [read_image(ds.source.path(i)) for i in range(len(ds))]
+        runs["numpy", None, "s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs["numpy", 256] = [resize_shorter_side_np(x, 256) for x in runs["numpy", None]]
+        runs["numpy", 256, "s"] = runs["numpy", None, "s"] + time.perf_counter() - t0
+        for size in (None, 256):
+            pairs = list(zip(runs["native", size], runs["numpy", size]))
+            if len(pairs) != LOADER_IMAGES or any(a.shape != b.shape or a.dtype != b.dtype
+                                                  for a, b in pairs):
+                fail(f"native loader, size {size}: shapes or dtypes differ from the numpy path")
+            err = max(float(np.abs(a - b).max()) for a, b in pairs)
+            same = all(np.array_equal(a, b) for a, b in pairs)
+            ok = same if size is None else err <= LOADER_RESIZE_ATOL
+            key = "decode" if size is None else f"decode + resize to {size}"
+            t_nat, t_np = runs["native", size, "s"], runs["numpy", size, "s"]
+            result[key] = {"native_s": t_nat, "numpy_s": t_np,
+                           "native_img_per_s": LOADER_IMAGES / t_nat,
+                           "numpy_img_per_s": LOADER_IMAGES / t_np,
+                           "bit_for_bit": same, "max_abs_diff": err,
+                           "shape": list(runs["native", size][0].shape)}
+            print(f"  {key}: native {t_nat:.3f} s ({LOADER_IMAGES / t_nat:.2f} img/s), numpy "
+                  f"{t_np:.3f} s ({LOADER_IMAGES / t_np:.2f} img/s), {t_np / t_nat:.1f}x; bit for "
+                  f"bit {same}, max |d| {err:.3e} (gate: "
+                  f"{'equal' if size is None else f'<= {LOADER_RESIZE_ATOL:g}'}) -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"native loader, size {size}: disagrees with the numpy path")
+        print(f"native loader: {json.dumps(result)}; {smi}")
+
+
 def bench_line() -> str:
     """``python -m sei_tpu_torch.bench``'s line (a subprocess on this card)."""
     out = subprocess.run([sys.executable, "-m", "sei_tpu_torch.bench"], check=True,
@@ -3113,6 +3484,9 @@ SOURCES_PROBES = {
     "trunk_skeleton": ("sei_tpu_torch/ops/csrc/launch_probe.cu",
                        "experiments/perf_probe_r3s.py:136", "bf16 v_d"),
 }
+# the module path's attention calls replace the JAX attention kernel's
+# forward and backward (K1, K2), the path's only TPU kernels
+SOURCES_MODULE = {name: SOURCES[name] for name in ("window_attn_fwd", "window_attn_bwd")}
 # the bf16 instantiations replace the trunk kernel's mode "full" forward (K5)
 # and saved-tensor backward (K7), attention included
 SOURCES_BF16 = {name: (src, "sei_tpu/ops/swin_trunk.py:979" if name in (
@@ -3145,6 +3519,8 @@ DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "window_attn_fwd": "cuda-core fma, 4x4 register tiles of S/P, shuffle row "
                               "reductions, P tile in shared memory, one head per block, "
                               "two cp.async stages"}
+DESIGNS["window_attn_fwd[bf16 module path]"] = DESIGNS["window_attn_fwd[bf16]"]
+DESIGNS["window_attn_bwd[bf16 module path]"] = DESIGNS["window_attn_bwd[bf16]"]
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
 # earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
@@ -3221,21 +3597,25 @@ def probe_entries(rows: dict, counts: dict) -> list:
 
 def kernel_line(rows: dict, rows_bf16: dict, rows_probe: dict, eval_counts: dict,
                 train_counts: dict, bf16_counts: dict, probe_counts: dict,
-                captured: dict) -> dict:
+                captured: dict, rows_module: dict, module_counts: dict) -> dict:
     """The f32 kernels (eval shapes for the forward kernels, the 2B training
     graph for the backward kernels; launches over the eval and eager f32
     training paths) and their bf16 instantiations (the 2B graph; launches
     over the eager bf16 training path), bounds at the FP32 and the bf16
     peak; ``launches_captured``: their launches over the captured runs (one
-    eager warm-up dispatch and the capture each).  Then K8 and K9, launches
-    over the probe path."""
+    eager warm-up dispatch and the capture each).  Then the bf16 module
+    path's attention forward (no p store) and backward (p recomputed) at
+    its 2B graph, launches over its bf16 eval and its eager and captured
+    training runs; then K8 and K9, launches over the probe path."""
     f32 = kernel_entries(rows, SOURCES, {k: eval_counts[k] + train_counts[k] for k in SOURCES},
                          "", PEAK_FP32_FLOPS,
                          {"launches_eval": eval_counts, "launches_train": train_counts,
                           "launches_captured": captured["f32"]})
     bf16 = kernel_entries(rows_bf16, SOURCES_BF16, bf16_counts, "[bf16]", PEAK_BF16_FLOPS,
                           {"launches_captured": captured["bf16"]})
-    return {"kernels": f32 + bf16 + probe_entries(rows_probe, probe_counts)}
+    module = kernel_entries(rows_module, SOURCES_MODULE, module_counts, "[bf16 module path]",
+                            PEAK_BF16_FLOPS, {})
+    return {"kernels": f32 + bf16 + module + probe_entries(rows_probe, probe_counts)}
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -3288,6 +3668,7 @@ def main(argv: list[str]) -> int:
     for name, variants in check_train_kernels(timed=not quick).items():
         rows.setdefault(name, []).extend(variants)
     rows_bf16 = check_bf16_kernels(timed=not quick)
+    rows_module = check_module_attention(timed=not quick)
     attention_bits()
     ln_bwd_bits()
     rows_probe = check_probe_kernels(timed=not quick)
@@ -3322,13 +3703,19 @@ def main(argv: list[str]) -> int:
         slice21["eval tiled " + label] = counts
     print(f"slice 21 launches by run: {json.dumps(slice21)}; data-parallel steps: "
           f"{json.dumps(dp_runs)}")
+    module_runs = module_path_phase(smi, steady)
+    module_counts = {}
+    for run in ("eval module path bf16", "train bf16 module path"):
+        add_counts(module_counts, module_runs[run])
+    loader_phase(smi)
     baselines_phase(smi)
     probe_counts = probe_phase()
     bench = bench_line()
     print(HISTORICAL)
     print(bench)
     print(json.dumps(kernel_line(rows, rows_bf16, rows_probe, eval_counts, train_counts,
-                                 bf16_counts, probe_counts, captured)))
+                                 bf16_counts, probe_counts, captured, rows_module,
+                                 module_counts)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
 :class:`GroundTruthDataset` is the reference's ground-truth pipeline: a name
 registry (Div2K, Urban100, FMD; ``single_image``; ``gt_folder:DIR``), the
 shorter-side-256 antialiased bicubic resize, and memoization.  Images are
-read by :mod:`.loader` on the host.
+read on the host: PNG files by the native loader (:mod:`.native`, C++;
+:meth:`GroundTruthDataset.load_all` on a pool of threads), anything else by
+:mod:`.loader` (numpy; ``.jpg`` through Pillow).
 
 The reference's measurements are deterministic per image and frozen across
 epochs, so each (x, y) pair is synthesized once, on the device, and the
@@ -15,13 +17,13 @@ no host round trip for pixels.  Fresh measurements (y degraded anew at
 every step) and CSS (the pair (y, degrade(y)) in place of (x, y)) degrade
 the gathered whole images on the device before the crop, with the step's
 ``noise`` stream.  :func:`build_finetuning_cache` is the fine-tuning set of
-a folder of measurements.  The native PNG loader (ROADMAP, Queue 1 item
-1's remainder) is not ported yet.
+a folder of measurements.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -30,6 +32,7 @@ import torch
 from ..device import resolve_device
 from ..ops.resize import resize, resize_shorter_side_np
 from ..transforms.crop import crop_offsets, crop_pair_batch, pad_min_size
+from . import native
 from .loader import read_image, write_image  # noqa: F401
 from .sources import (  # noqa: F401
     FMD,
@@ -80,16 +83,46 @@ class GroundTruthDataset:
     def __getitem__(self, index: int) -> np.ndarray:
         if self.memoize and index in self._cache:
             return self._cache[index]
-        x = self.source.load(index)
-        if self.size is not None:
-            x = resize_shorter_side_np(x, self.size, antialias=True)
+        x = self._read(index)
         if self.memoize:
             self._cache[index] = x
         return x
 
-    def load_all(self) -> list[np.ndarray]:
-        """Every image, in order (read and resized on the host)."""
-        return [self[i] for i in range(len(self))]
+    def _png_path(self, index: int) -> Optional[str]:
+        """The item's file when it is a PNG (read by the native loader)."""
+        path_of = getattr(self.source, "path", None)
+        path = path_of(index) if path_of is not None else None
+        return path if path is not None and path.lower().endswith(".png") else None
+
+    def _read(self, index: int) -> np.ndarray:
+        """One item read and resized: a PNG file through the native loader
+        (:mod:`.native`), anything else (``.jpg``, the CT file) by its
+        source and ``resize_shorter_side_np``."""
+        path = self._png_path(index)
+        if path is not None:
+            x = native.decode(path)
+            return x if self.size is None else native.resize_shorter_side(x, self.size)
+        x = self.source.load(index)
+        if self.size is not None:
+            x = resize_shorter_side_np(x, self.size, antialias=True)
+        return x
+
+    def load_all(self, n_threads: int = 16) -> list[np.ndarray]:
+        """Every image, in order (``sei_tpu/data/__init__.py:97-121``): the
+        PNG files read on ``n_threads`` host threads, the rest item by item.
+        The native loader does not fall back: a file it cannot read
+        raises."""
+        n = len(self)
+        pngs = [i for i in range(n) if not (self.memoize and i in self._cache)
+                and self._png_path(i) is not None]
+        loaded = {}
+        if pngs:
+            native.library()  # built once, before the threads start
+            with ThreadPoolExecutor(max(1, min(n_threads, len(pngs)))) as pool:
+                loaded = dict(zip(pngs, pool.map(self._read, pngs)))
+            if self.memoize:
+                self._cache.update(loaded)
+        return [loaded[i] if i in loaded else self[i] for i in range(n)]
 
 
 @dataclasses.dataclass

@@ -10,7 +10,9 @@ library's ``zlib``, with no imaging library: 8-bit grey, grey + alpha, RGB
 and RGBA, not interlaced, any of the five row filters on reading; filter 0
 (none) on writing.  It decodes to the same bytes as Pillow.  Other formats
 (``.jpg``, ``.jpeg``) import Pillow where they are read or written, and
-raise if it is absent.
+raise if it is absent.  This numpy codec is the plain version of the
+native loader (:mod:`.native`), which ``GroundTruthDataset`` uses for PNG
+files.
 """
 
 from __future__ import annotations
@@ -70,8 +72,11 @@ def _unfilter(rows: np.ndarray, h: int, w: int, spp: int) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit PNG to (H, W, samples) uint8."""
+def read_png_rows(path: str) -> tuple[np.ndarray, int, int, int]:
+    """An 8-bit PNG's inflated image data, before the row filters are
+    undone: (rows (H, 1 + W * samples) uint8, each led by its filter type,
+    H, W, samples).  Chunk CRCs, the header and the data size are checked;
+    anything else raises."""
     with open(path, "rb") as fh:
         data = fh.read()
     if not data.startswith(_SIGNATURE):
@@ -90,10 +95,18 @@ def read_png(path: str) -> np.ndarray:
                          f"interlace {interlace}); 8-bit grey, grey+alpha, RGB or RGBA, not "
                          "interlaced, are supported")
     spp = _SAMPLES[colour]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG data ({e})") from e
     if raw.size != h * (1 + w * spp):
         raise ValueError(f"{path}: PNG data of {raw.size} bytes for {w}x{h}x{spp}")
-    return _unfilter(raw.reshape(h, 1 + w * spp), h, w, spp)
+    return raw.reshape(h, 1 + w * spp), h, w, spp
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit PNG to (H, W, samples) uint8."""
+    return _unfilter(*read_png_rows(path))
 
 
 def write_png(path: str, arr: np.ndarray) -> None:

@@ -166,7 +166,8 @@ def get_model(*, kind: str = "Proposed", architecture: str = "Transformer",
               device: DeviceLike = None, seed: int = 0,
               homogeneous_swinir: bool = False,
               swinir_overrides: Optional[dict] = None,
-              dtype: Optional[torch.dtype] = None, physics=None,
+              dtype: Optional[torch.dtype] = None, fused_trunk: Optional[bool] = None,
+              physics=None,
               noise_level: float = 5.0, conv_blueprint: Optional[dict] = None,
               dip_iterations: Optional[int] = None, tv_lambd: Optional[float] = None,
               tv_max_iter: int = 300, kernel_name: Optional[str] = None):
@@ -175,6 +176,9 @@ def get_model(*, kind: str = "Proposed", architecture: str = "Transformer",
     ``dtype`` is SwinIR's compute dtype: None (f32) or ``torch.bfloat16``,
     as ``demo/train.py --bf16`` sets it (:111-112); params stay f32; the
     Convolutional network stays f32 (``demo/train.py:107``).
+    ``fused_trunk``: SwinIR's blocks through the fused trunk kernels (True)
+    or as modules (False); None reads ``SEI_FUSED_TRUNK`` (unset: fused), so
+    the command lines reach the module path with ``SEI_FUSED_TRUNK=0``.
     ``kind="Identity"`` gives an :class:`IdentityModel`, ``"Upsample"`` an
     :class:`UpsampleModel` by ``sr_factor``, a baseline a
     :class:`FunctionalModel` of ``physics`` (whose device it runs on):
@@ -196,7 +200,8 @@ def get_model(*, kind: str = "Proposed", architecture: str = "Transformer",
         if architecture == "Transformer":
             module = SwinIR(**swinir_config(task=task, sr_factor=sr_factor,
                                             homogeneous=homogeneous_swinir,
-                                            overrides=swinir_overrides), dtype=dtype)
+                                            overrides=swinir_overrides), dtype=dtype,
+                            fused_trunk=fused_trunk)
         elif architecture == "Convolutional":  # blueprint keys: ConvolutionalModel's
             rate = sr_factor if task == "sr" and sr_factor else 1
             module = ConvolutionalModel(upsampling_rate=rate, **(conv_blueprint or {}))

@@ -16,7 +16,7 @@ relative position index are recomputed, not stored.
 ``dtype`` is the compute dtype, as the flax module's field: None (f32), or
 ``torch.bfloat16``, the JAX package's training recipe (``demo/train.py
 --bf16``).  The parameters stay f32 either way; in bf16 the convolutions,
-the LayerNorms (f32 statistics, bf16 output) and the trunk run in bf16, and
+the LayerNorms (f32 statistics, bf16 output) and the blocks run in bf16, and
 the output is f32 again (``x + conv_last(...)``, the input residual in f32).
 
 ``upsampler="pixelshuffle"`` with ``upscale`` 2, 3 or 4 is the SR head
@@ -27,12 +27,25 @@ features, ``conv_before_upsample`` (embed_dim -> 64, LeakyReLU 0.01), one
 input residual; the output is ``upscale`` times the input's size.  Its convs
 run in the compute dtype as the others do.
 
-``fused_trunk`` (default on) runs the blocks of each RSTB through
+``fused_trunk`` runs the blocks of each RSTB through
 ``sei_tpu_torch.ops.swin_trunk.swin_trunk``, the chain of CUDA kernels; the
 TPU package turned its fused trunk off above 64x64 tokens for its VMEM
-budget, which does not apply here, so the port has no size gate.  With
-``fused_trunk=False`` the blocks run as modules (LayerNorm/Linear plus the
-``window_attention`` kernel).  ``forward(x, plain=True)`` runs the plain
+budget, which does not apply here, so the port has no size gate.  None (the
+default) reads ``SEI_FUSED_TRUNK`` as the JAX package does (``"0"``,
+``"false"`` and ``""`` turn it off; unset: on).  With ``fused_trunk=False``
+the blocks run as modules, the JAX package's module path
+(``sei_tpu/models/swinir.py:96-217``): LayerNorm and Linear layers in
+PyTorch (cuBLAS on the card), the exact-erf GELU (``F.gelu``, as
+``jax.nn.gelu(approximate=False)``; not the fused trunk's bf16 polynomial,
+so the two bf16 paths are two functions) and the ``window_attention``
+kernels.  In bf16 the blocks compute as the flax modules with
+``dtype=bfloat16``: each Linear on bf16 operands with a bf16 output (its
+bias added in the product's epilogue, where flax rounds the product first),
+the LayerNorms' statistics in f32, the GELU rounded once (flax rounds each
+of its operations), the attention's scores, mask and softmax in f32 with p
+rounded before P.V (``_xla_attention``, ``sei_tpu/ops/attention.py:29-39``),
+and the q scale and the drop-path divisor rounded to bf16 first, as a
+weak-typed JAX scalar is.  ``forward(x, plain=True)`` runs the plain
 PyTorch version of every kernel on any device (the reference the kernel path
 is held against on the card); it is differentiable, by torch autograd
 through the plain ops, as the kernel path is through the kernels' backward.
@@ -40,11 +53,12 @@ through the plain ops, as the kernel path is through the kernels' backward.
 In training mode (``module.train()``) stochastic depth draws its keep masks
 from the ``generator`` handed to ``forward`` (the trainer owns one dropout
 stream); a training forward with a drop-path rate above 0 and no generator
-raises.  The module path (``fused_trunk=False``) in bf16 is not ported.
+raises.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Optional, Sequence
 
@@ -134,6 +148,29 @@ def reflect_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     return x.index_select(-1, _reflect_index(w, pad_w, x.device))
 
 
+def fused_trunk_default() -> bool:
+    """``SEI_FUSED_TRUNK`` as the JAX package reads it (``_fused_trunk_on``,
+    ``sei_tpu/models/swinir.py:455-464``): unset means on, ``"0"``,
+    ``"false"`` and ``""`` mean off, anything else on."""
+    env = os.environ.get("SEI_FUSED_TRUNK")
+    return env is None or env not in ("0", "false", "")
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: a Python scalar in a JAX expression
+    with an array of ``dtype`` (weak typing) takes that type first."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, cdt: Optional[torch.dtype]) -> torch.Tensor:
+    """``lin`` as flax's ``nn.Dense(dtype=cdt)``: the input and the f32
+    weight and bias cast to ``cdt``, the output in it; f32 (``cdt`` None):
+    the Linear itself."""
+    if cdt is None:
+        return lin(x)
+    return F.linear(x.to(cdt), lin.weight.to(cdt), lin.bias.to(cdt))
+
+
 def _norm_in(norm: nn.LayerNorm, x: torch.Tensor, cdt: Optional[torch.dtype]) -> torch.Tensor:
     """LayerNorm ``norm`` with its output in the compute dtype ``cdt``: the
     statistics in f32 as flax's ``nn.LayerNorm(dtype=...)`` keeps them."""
@@ -149,20 +186,24 @@ def _trunc02(t: torch.Tensor, g: torch.Generator) -> None:
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        cdt = self.compute_dtype
+        return _dense(self.fc2, F.gelu(_dense(self.fc1, x, cdt)), cdt)
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, window_size: int, num_heads: int):
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.window_size = window_size
         self.num_heads = num_heads
+        self.compute_dtype = dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -181,11 +222,12 @@ class WindowAttention(nn.Module):
         b_, n, c = x.shape
         nh = self.num_heads
         hd = c // nh
-        qkv = self.qkv(x).reshape(b_, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * hd ** -0.5, qkv[1], qkv[2]
+        cdt = self.compute_dtype
+        qkv = _dense(self.qkv, x, cdt).reshape(b_, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0] * _in_dtype(hd ** -0.5, qkv.dtype), qkv[1], qkv[2]
         attend = _torch_attention if plain else window_attention
         out = attend(q, k, v, self.relative_bias(), mask)
-        return self.proj(out.transpose(1, 2).reshape(b_, n, c))
+        return _dense(self.proj, out.transpose(1, 2).reshape(b_, n, c), cdt)
 
 
 def _need_generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -216,18 +258,20 @@ class DropPath(nn.Module):
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         mask = _uniform(shape, _need_generator(generator), x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return torch.where(mask, x / _in_dtype(keep, x.dtype), torch.zeros_like(x))
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio, drop_path):
+    def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio, drop_path,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
+        self.compute_dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.attn = WindowAttention(dim, window_size, num_heads, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, mask: Optional[torch.Tensor], plain: bool = False,
@@ -236,7 +280,8 @@ class SwinBlock(nn.Module):
         b, h, w, c = x.shape
         ws = self.window_size
         shift = self.shift_size if min(h, w) > ws else 0
-        y = self.norm1(x)
+        cdt = self.compute_dtype
+        y = _norm_in(self.norm1, x, cdt)
         if shift:
             y = torch.roll(y, (-shift, -shift), dims=(1, 2))
         win = self.attn(window_partition(y, ws), mask if shift else None, plain)
@@ -244,7 +289,7 @@ class SwinBlock(nn.Module):
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         x = x + self.drop_path(y, generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+        return x + self.drop_path(self.mlp(_norm_in(self.norm2, x, cdt)), generator)
 
 
 class _ResidualGroup(nn.Module):
@@ -271,7 +316,7 @@ class RSTB(nn.Module):
         self.residual_group = _ResidualGroup(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      drop_paths[i])
+                      drop_paths[i], dtype)
             for i in range(depth))
         self.conv = Conv3x3(dim, dim, dtype)
 
@@ -335,7 +380,7 @@ class SwinIR(nn.Module):
                  num_heads: Sequence[int] = (6,) * 6, window_size: int = 8,
                  mlp_ratio: float = 2.0, drop_path_rate: float = 0.1,
                  upsampler: Optional[str] = None, upscale: int = 1,
-                 fused_trunk: bool = True, dtype: Optional[torch.dtype] = None):
+                 fused_trunk: Optional[bool] = None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if upsampler not in (None, "pixelshuffle"):
             raise ValueError(f"SwinIR: unknown upsampler {upsampler!r}")
@@ -344,10 +389,9 @@ class SwinIR(nn.Module):
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"SwinIR: compute dtype {dtype} (float32 or bfloat16)")
         dtype = None if dtype == torch.float32 else dtype
-        if dtype is not None and not fused_trunk:
-            raise NotImplementedError(
-                "SwinIR module path (fused_trunk=False) in bf16: not ported "
-                "(ROADMAP, Queue 1 item 7: the bf16 module path)")
+        if fused_trunk is None:
+            fused_trunk = fused_trunk_default()
+        self.fused_trunk = fused_trunk
         self.compute_dtype = dtype
         self.window_size = window_size
         self.register_buffer("mean", torch.tensor(RGB_MEAN).view(1, 3, 1, 1),

@@ -20,7 +20,9 @@ any Pallas kernel.  SGD (fine-tuning's default) is :class:`SGD`, optax's
 CUDA graph holds it too.  :func:`trainable_mask` is fine-tuning's
 ``--fine_tuning_params``: only ``conv_last`` is handed to the optimizer, and
 every other parameter stays as it was, bit for bit (optax's ``masked`` with
-``set_to_zero``).
+``set_to_zero``).  :func:`clip_by_global_norm_` is ``optax.clip_by_global_norm``,
+which the JAX trainer chains before its optimizer when ``SEI_CLIP`` is set
+(``sei_tpu/train/trainer.py:212-221``), on the device with no host sync.
 """
 
 from __future__ import annotations
@@ -117,6 +119,20 @@ class SGD(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is not None:
                     p.add_(p.grad * neg_lr)
+
+
+def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm(max_norm)`` on ``grads`` in place: with
+    the global norm (the root of the sum of every gradient's squares) below
+    ``max_norm`` they stay as they are, else each becomes ``(g / norm) *
+    max_norm``, two roundings as optax's.  All on the gradients' device
+    (``where`` picks the divisor and factor, 1 leaves a gradient as it is),
+    so a CUDA graph holds it; returns the norm, a 0-d tensor there."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    clip = ~(norm < max_norm)  # optax keeps the gradients only when norm < max_norm
+    torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
+    torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
+    return norm
 
 
 def trainable_mask(module: torch.nn.Module, names: tuple = ("conv_last",)) -> dict:

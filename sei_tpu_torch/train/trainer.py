@@ -40,7 +40,14 @@ the device (``data.sample_train_batch``, the ``noise`` stream);
 ``trainable_mask`` (parameter name -> bool, ``optim.trainable_mask``) hands
 only the True parameters to the optimizer, so the others stay bit for bit;
 ``weights_distance_lambda`` adds ``losses.weights_distance_loss`` against a
-frozen copy of the starting weights; ``normal_rate_losses`` (the normal
+frozen copy of the starting weights; ``clip_norm`` (when not given,
+``SEI_CLIP`` as the JAX trainer reads it, :212-221; unset or empty: off)
+clips the step's gradients to that global norm before the optimizer
+(``optim.clip_by_global_norm_``, optax's formula), over every parameter's
+gradient, the frozen ones of ``trainable_mask`` included, as the JAX chain
+puts the clip outside the masked optimizer, and after the data-parallel
+all-reduce; ``grad_norm`` holds the last step's norm before the clip, on
+the device; ``normal_rate_losses`` (the normal
 scaling kind, one loss per rate) gives each loss its own step and CUDA
 graph, and before each dispatch the host picks one with
 ``np.random.default_rng(0).integers(n)``, reset at each :meth:`train`, as
@@ -78,7 +85,7 @@ from ..losses import weights_distance_loss
 from ..ops.swin_trunk import launch_counts
 from ..parallel import DataParallel, sharded_rows
 from ..rng import Streams, make_streams
-from .optim import get_lr_schedule_tensor, get_optimizer
+from .optim import clip_by_global_norm_, get_lr_schedule_tensor, get_optimizer
 
 
 @dataclasses.dataclass
@@ -113,6 +120,7 @@ class Trainer:
     weights_distance_lambda: Optional[float] = None
     normal_rate_losses: Optional[list] = None  # one loss per normal-kind rate
     data_parallel: Optional[DataParallel] = None  # this process's rank; None: one process
+    clip_norm: Optional[float] = None  # global-norm gradient clip; None: SEI_CLIP
 
     def __post_init__(self):
         dev = self.model.device
@@ -129,6 +137,9 @@ class Trainer:
                                                   self.epochs, self.steps_per_epoch)
         self.step_t = torch.zeros((), dtype=torch.int64, device=dev)  # what the LR reads
         self.lr_t = self.lr_schedule(self.step_t)
+        if self.clip_norm is None and os.environ.get("SEI_CLIP"):
+            self.clip_norm = float(os.environ["SEI_CLIP"])
+        self.grad_norm: Optional[torch.Tensor] = None
         named = list(self.model.module.named_parameters())
         mask = self.trainable_mask
         self.opt = get_optimizer([p for n, p in named if mask is None or mask[n]],
@@ -220,6 +231,9 @@ class Trainer:
             loss.backward()
         if dp is not None:
             loss = self._all_reduce(loss)
+        if self.clip_norm is not None:
+            grads = [p.grad for p in self.model.module.parameters() if p.grad is not None]
+            self.grad_norm = clip_by_global_norm_(grads, self.clip_norm)
         self.opt.step()
         self.step_t += 1
         self._losses[i].copy_(loss.detach())

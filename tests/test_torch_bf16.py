@@ -263,12 +263,6 @@ def test_bf16_swinir_matches_flax(monkeypatch):
                                    err_msg=n)
 
 
-def test_bf16_module_path_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tswinir.SwinIR(dtype=BF16, fused_trunk=False, **swinir_config(task="deblurring",
-                                                                        overrides=CFG))
-
-
 # -- (e): the trainer -------------------------------------------------------
 
 

@@ -8,8 +8,8 @@
   measurement, with each flag of the later ROADMAP items (the CT-like
   task, the spatial blur, the training modes, the eval wrappers, the CT
   source, the tiled eval, data-parallel training, the baselines, the
-  Convolutional network, LPIPS); the one later ROADMAP item left, item 7 (the bf16 module path),
-  has no flag, and the module raises ``NotImplementedError`` naming it;
+  Convolutional network, LPIPS); item 7 (the bf16 module path) has no
+  flag: ``SEI_FUSED_TRUNK=0`` reaches it (``tests/test_torch_module_path.py``);
   without a GPU, an entry point run without ``--device cpu`` raises.
 * End to end: ``cli.train.main`` with ``--device cpu`` trains a tiny SwinIR
   on 8 PNGs of a ``gt_folder:`` and writes ``training.csv``,
@@ -53,7 +53,7 @@ from sei_tpu_torch.cli import test as cli_test
 from sei_tpu_torch.cli import train as cli_train
 from sei_tpu_torch.data import GroundTruthDataset, image_seed, write_image
 from sei_tpu_torch.evaluate import degraded_pair, eval_apply, score_pair
-from sei_tpu_torch.models import SwinIR, get_model
+from sei_tpu_torch.models import get_model
 from sei_tpu_torch.physics import get_physics
 from sei_tpu_torch.train.checkpoint import latest_checkpoint
 
@@ -117,8 +117,6 @@ def test_device_flag_is_checked():
         parser.parse_args(["--device", "tpu"])
 
 
-# ROADMAP Queue 1 item 7, the bf16 module path, has no flag: the module raises
-LATER = [(dict(fused_trunk=False, dtype=torch.bfloat16), "item 7")]
 # the flags of ROADMAP Queue 1 items 3-6, ported: the command lines set up with them
 PORTED = [
     (config.add_train_args, ["--model_kind", "Proposed", "--ProposedModel__architecture",
@@ -209,12 +207,6 @@ def test_ported_flags_pass_check_ported(add_args, argv, weight_files, monkeypatc
     assert (lpips is not None) == (getattr(args, "lpips_weights", None) is not None)
     if lpips is not None:
         assert np.isfinite(lpips(out[0].clamp(0, 1), x[0]))
-
-
-@pytest.mark.parametrize("kw,item", LATER)
-def test_flags_of_later_items_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP, Queue 1 {item}\b"):
-        SwinIR(embed_dim=12, depths=(2,), num_heads=(2,), window_size=4, **kw)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):

@@ -199,8 +199,9 @@ def test_unknown_and_ct_datasets_raise(trees):
 
 @pytest.mark.parametrize("unique_seeds", [True, False])
 def test_device_cache_of_a_dataset_matches_jax(trees, unique_seeds, monkeypatch):
-    """The JAX cache through its Pillow path (its native loader, which the
-    port does not have, divides by 255 in another order: 1 ulp)."""
+    """The JAX cache through its Pillow path (its native loader divides by
+    255 in another order: 1 ulp); the port's cache reads the PNGs through
+    its native loader, which divides as its numpy path does."""
     monkeypatch.setattr(jax_native, "available", lambda: False)
     name = f"gt_folder:{trees}/folder"
     jphys = jax_get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=0)

@@ -53,9 +53,10 @@ bound for its bf16 kernel against autograd of its reference).
 The launch-overhead probes (K8 ``copy_probe`` at every block count, K9
 ``trunk_skeleton`` in each variant) equal their plain versions exactly (an
 f32 add and one rounding).  A tiny SwinIR ``Trainer`` captured as a CUDA
-graph (``scan_steps`` 1 and 2, f32 and bf16) equals the eager trainer bit for
-bit over two steps (losses, parameters, Adam state): the same kernels run in
-the same order on the same draws; two inner steps of one replay draw
+graph (``scan_steps`` 1 and 2, f32 and bf16; the bf16 module path; the
+global-norm clip) equals the eager trainer bit for bit over two steps
+(losses, parameters, Adam state): the same kernels run in the same order on
+the same draws; two inner steps of one replay draw
 different SURE probes; a step with a host sync makes the capture raise.
 """
 
@@ -1358,16 +1359,17 @@ PER_BLOCK_STEP = {F32: {"ln_rows": 4, "gemm_bias_epilogue": 6, "window_attn_fwd"
                          "gemm_dgrad": 4, "gemm_wgrad": 4, "window_attn_bwd": 1, "ln_rows_bwd": 2}}
 
 
-def _tiny_trainer(dtype, *, scan_steps=1, capture=True, loss_fn=None):
+def _tiny_trainer(dtype, *, scan_steps=1, capture=True, loss_fn=None, **kw):
     phys = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5, device="cuda")
     rng = np.random.default_rng(1)
     cache = build_device_cache([rng.random((3, 40, 44)).astype(np.float32) for _ in range(4)],
                                phys, seed=0)
     model = get_model(device="cuda", swinir_overrides=TINY,
-                      dtype=None if dtype == F32 else dtype)
+                      dtype=None if dtype == F32 else dtype,
+                      fused_trunk=kw.pop("fused_trunk", None))
     loss_fn = loss_fn or get_loss(method="proposed", physics=phys, crop_size=TINY_CROP)
     return Trainer(model, loss_fn, phys, cache, batch_size=2, epochs=1, crop_size=24,
-                   scan_steps=scan_steps, capture=capture)
+                   scan_steps=scan_steps, capture=capture, **kw)
 
 
 def _trained(tr):
@@ -1388,6 +1390,29 @@ def test_captured_trainer_equals_eager(gpu, dtype, scan_steps):
                                    for k, v in PER_BLOCK_STEP[dtype].items()}
     assert losses == want_losses
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+MODULE_PATH_STEP = {k: 0 for k in PER_BLOCK_STEP[F32]} | {"window_attn_fwd": 1,
+                                                            "window_attn_bwd": 1}
+
+
+@pytest.mark.parametrize("dtype,kw,per_block", [
+    (BF16, {"fused_trunk": False}, MODULE_PATH_STEP),
+    (F32, {"clip_norm": 1e-3}, PER_BLOCK_STEP[F32]),
+    (BF16, {"clip_norm": 1e-3}, PER_BLOCK_STEP[BF16])], ids=["bf16_module_path", "f32_clip",
+                                                             "bf16_clip"])
+def test_captured_variants_equal_eager(gpu, dtype, kw, per_block):
+    """The module path (the attention kernels only) and the global-norm clip
+    inside the captured step: equal to the eager trainer bit for bit."""
+    want_losses, want = _trained(_tiny_trainer(dtype, capture=False, **kw))
+    tr = _tiny_trainer(dtype, scan_steps=2, **kw)
+    losses, got = _trained(tr)
+    assert tr.graphed and tr.replays == 1
+    assert tr.capture_launches == {k: v * TINY_BLOCKS * 2 * 2 for k, v in per_block.items()}
+    assert losses == want_losses
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    if "clip_norm" in kw:
+        assert float(tr.grad_norm) > kw["clip_norm"]
 
 
 def test_replays_draw_new_probes(gpu):

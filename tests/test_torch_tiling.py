@@ -37,7 +37,7 @@ from sei_tpu.models.baselines import upsample_model as jax_upsample_model
 from sei_tpu.parallel.tiling import tiled_apply as jax_tiled_apply
 from sei_tpu.physics import get_physics as jax_get_physics
 from sei_tpu_torch.cli import test as cli_test
-from sei_tpu_torch.data import image_seed, write_image
+from sei_tpu_torch.data import GroundTruthDataset, image_seed, write_image
 from sei_tpu_torch.evaluate import (degraded_pair, eval_apply, evaluate_pairs, restore,
                                     tile_plan)
 from sei_tpu_torch.models import get_model
@@ -183,8 +183,11 @@ def test_cli_test_tiles_as_demo_test(models, tmp_path, capsys, monkeypatch):
     assert abs(got["PSNR"] - want["PSNR"]) <= 0.01 and abs(got["SSIM"] - want["SSIM"]) <= 1e-4
     # the command line scores what evaluate_pairs scores at that tile height
     phys = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=0, device="cpu")
-    x_png = torch.as_tensor(cli_test.FolderDataset(str(tmp_path / "gt")).load(0))
-    pair = degraded_pair(phys, x_png, image_seed(0, 0))
+    # the image as the command line reads it (the native loader: the numpy
+    # reader's values, in a contiguous array, which the eval's sums follow)
+    x_png = GroundTruthDataset(f"gt_folder:{tmp_path / 'gt'}", size=None)[0]
+    np.testing.assert_array_equal(x_png, cli_test.FolderDataset(str(tmp_path / "gt")).load(0))
+    pair = degraded_pair(phys, torch.as_tensor(x_png), image_seed(0, 0))
     assert evaluate_pairs(model, [pair], eval_tile_height=TILE).psnr == result.psnr
 
 

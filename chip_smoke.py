@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the whole run (needs one CUDA GPU)
     python3 chip_smoke.py --quick    # build + kernel checks only, no timing
-    python3 chip_smoke.py --bits DIR # attention and LN-backward digests of the port in DIR
+    python3 chip_smoke.py --bits DIR # attention, LN-backward and GELU-epilogue digests of the port in DIR
 
 1. Prints the card (nvidia-smi name and power limit), the torch version, and
    builds the CUDA kernels from ``sei_tpu_torch/ops/csrc`` into
@@ -42,6 +42,13 @@
    Linear's output, q scaled from it; the forward with no p store, the
    backward recomputing p) at the eval shape (forward) and the 2B training
    graph (both), against their plain versions and SDPA, timed and queued.
+   Then the GELU epilogues in the form that is not their dtype's default
+   (``SEI_FAST_GELU``): the f32 kernel with the polynomial (``gelu`` at T =
+   81920, ``gelu_pair`` with an f32 gp at T = 36864) and the bf16 kernel
+   with the exact erf (``gelu``, ``gelu_pair`` with a bf16 and with an f32
+   gp, T = 36864), against their plain versions in that form, timed beside
+   the default form on the same inputs; ``--bits`` adds their digests (and
+   the default form's).
 3. Eval path: ``get_model`` (flagship SwinIR, weights from seed 0) ->
    ``get_physics`` (deblurring, Gaussian_R2, noise 5) -> ``evaluate`` on 4
    seeded 256x320 images; checks the kernels' launch counts, the metrics,
@@ -165,9 +172,22 @@
    through ``cli.test`` on seeded random weights at the published widths
    (handed over by ``SEI_DRUNET_WEIGHTS`` / ``SEI_DIFFUNET_WEIGHTS``),
    finite and of y's shape; LPIPS on a seeded random AlexNet, card equal
-   to CPU (1e-4); one JSON line.
+   to CPU (1e-4); one JSON line.  Then ``SEI_FAST_GELU`` (``fast_gelu_phase``,
+   after the module path, before the loader): the f32 eval with
+   ``SEI_FAST_GELU=1`` (the polynomial GELU; launches, one forward against
+   ``plain=True`` at 1e-3, its max difference from the default forward,
+   PSNR/SSIM and ms per image beside the default's); two ``proposed``
+   steps in f32 with ``SEI_FAST_GELU=1`` and in bf16 with
+   ``SEI_FAST_GELU=0``, eagerly (the gradients against the plain path: f32
+   1e-3, bf16 3e-2 of each max) and captured (f32 ``scan_steps`` 1, bf16
+   2), equal bit for bit, the design's launches, every GELU launch in the
+   knob's form, ms per step beside the default's; the module path's
+   forward with the knob equal to the one without, bit for bit (f32 and
+   bf16).
 7. Launch-overhead probes (K8 ``copy_probe``, K9 ``trunk_skeleton``): each
-   held exactly against its plain version and timed at the probes' shapes,
+   held exactly against its plain version and timed at the probes' shapes
+   (K8 also at an odd element offset with a ragged count, for its scalar
+   head and tail),
    then ``sei_tpu_torch.probes`` (chains of launches eager and captured,
    the skeleton variants, the real trunk as the control).  Then ``python -m
    sei_tpu_torch.bench`` in a subprocess: its JSON line (img/s of the
@@ -198,6 +218,7 @@ Imports nothing of JAX and nothing of ``sei_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -694,10 +715,17 @@ def check_train_kernels(timed: bool) -> dict:
                            at._torch_attention_bwd(qv, kv, vv, bias, m, dov, scale,
                                                    with_att=True),
                            [(2e-5, 1e-4)] * 3 + [(1e-4, 1e-4), (2e-5, 1e-5)])
+
+            def sdpa_fwd_bwd(full=full):  # att and dq, dk, dv: SDPA's forward and backward
+                ql2, kl2, vl2 = (u.detach().requires_grad_() for u in (qv, kv, vv))
+                out2 = F.scaled_dot_product_attention(ql2, kl2, vl2, attn_mask=full, scale=scale)
+                return out2, torch.autograd.grad(out2, (ql2, kl2, vl2), dov)
+
             record("window_attn_bwd", f"{variant} att_out trunk_views T={t}", errs, fused,
                    lambda m=m: at._torch_attention_bwd(qv, kv, vv, bias, m, dov, scale,
                                                        with_att=True),
-                   None, 12.0 * b_ * NH * N * N * HD, nbytes + 4.0 * b_ * NH * N * HD, False)
+                   sdpa_fwd_bwd, 12.0 * b_ * NH * N * N * HD, nbytes + 4.0 * b_ * NH * N * HD,
+                   False)
 
             # the f32 forward as the trunk calls it: q, k, v strided from the
             # qkv buffer, the output into the (B_, N, nh, hd) proj buffer;
@@ -1147,6 +1175,40 @@ def ln_bwd_bits() -> None:
                 st.ln_rows_bwd(xx, gg, zz, window=wmap, dres=rr, out_dtype=out_dtype)))
 
 
+def gelu_bits() -> None:
+    """SHA-256 of the GELU epilogues' outputs (out, and gp for "gelu_pair")
+    on seeded inputs at the 2B graph's fc1 shape (T = 36864, K 180, N 360),
+    f32 and bf16 (gp in bf16 and in f32), in each dtype's default form (the
+    call without ``fast_gelu``: comparable with a port that has no knob) and
+    in the other form (``SEI_FAST_GELU``; "not in this port" without it)."""
+    import inspect
+
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    t = TRAIN_GRAPHS[0] * CROP * CROP
+    a = torch.randn((t, C), generator=g, device="cuda")
+    w = torch.randn((C, CH), generator=g, device="cuda") * 0.05
+    b = torch.randn(CH, generator=g, device="cuda") * 0.05
+    knob = "fast_gelu" in inspect.signature(st.gemm_bias_epilogue).parameters
+    for dtype in (torch.float32, torch.bfloat16):
+        gps = (None, torch.float32) if dtype == torch.float32 else (None, torch.bfloat16,
+                                                                    torch.float32)
+        for gp_dtype in gps:
+            epi = "gelu" if gp_dtype is None else "gelu_pair"
+            tag = f"{dtype} {epi}" + ("" if gp_dtype is None else f" gp {gp_dtype}")
+            for form, kw in (("default form", {}), ("other form", {"fast_gelu": dtype == torch.float32})):
+                if kw and not knob:
+                    print(f"bits: gemm_bias_epilogue[{tag} {form}] not in this port")
+                    continue
+                gp = None if gp_dtype is None else torch.empty(t, CH, device="cuda", dtype=gp_dtype)
+                out = st.gemm_bias_epilogue(a.to(dtype), w.to(dtype), b, epi, gp=gp, **kw)
+                print(f"bits: gemm_bias_epilogue[{tag} {form}] "
+                      + digest([out] + ([gp] if gp is not None else [])))
+
+
 def check_probe_kernels(timed: bool) -> dict:
     """K8 (``copy_probe``) at each block count and K9 (``trunk_skeleton``)
     in each variant against their plain versions at the probes' shape,
@@ -1200,6 +1262,11 @@ def check_probe_kernels(timed: bool) -> dict:
                       [lp.copy_probe(x, blocks=blocks, add=add)], [lp._torch_copy_probe(x, add)])
             record("copy_probe", f"{dt} {blocks} blocks", lambda: lp.copy_probe(x, blocks=blocks),
                    lambda: lp._torch_copy_probe(x), lambda: torch.add(x, 1.0), 2.0 * size)
+        # the scalar head and tail: x at an odd element offset, a ragged count
+        xo = x.view(-1)[3:x.numel() - 2]
+        for blocks in (1, 1056):
+            exact(f"copy_probe[{dt} {blocks} blocks, x at element offset 3, {xo.numel()} "
+                  f"elements]", [lp.copy_probe(xo, blocks=blocks)], [lp._torch_copy_probe(xo)])
         for tag, flags, outs in (("v_e", None, 0), ("v_a", {}, 0), ("v_b", {"outputs": True}, 2),
                                  ("v_d", {"outputs": True, "body": True}, 2),
                                  ("v_g", {"outputs": True, "body": True, "dpm_reads": True}, 2)):
@@ -1585,7 +1652,8 @@ def train_path(dtype=None, sure_alternative=None, task: str = "deblurring",
     st.reset_launch_counts()
     stats = trainer.train(on_step=on_step, log_every_epoch=False)
     counts = st.launch_counts()
-    print(f"  launch counts {counts}")
+    gelu_counts = st.gelu_launch_counts()
+    print(f"  launch counts {counts}; GELU epilogues by form {gelu_counts}")
     steps = stats["steps"]
     for name, per in per_block.items():
         want = per * BLOCKS * recipe.graphs * steps
@@ -1632,7 +1700,7 @@ def train_path(dtype=None, sure_alternative=None, task: str = "deblurring",
     clip_check(trainer, label)
     eager = {"losses": losses, "state": train_state(trainer), "base_gib": base_gib,
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-             "variants": list(trainer.variants)}
+             "variants": list(trainer.variants), "gelu_launches": gelu_counts}
     eager["steady_ms"] = timed_dispatches(trainer)
     print(f"  eager steady step {eager['steady_ms']:.2f} ms ({TIMED_DISPATCHES} dispatches "
           f"back to back, one sync)")
@@ -1701,6 +1769,7 @@ def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = st.launch_counts()
+    gelu_counts = st.gelu_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     want = {k: v * BLOCKS * recipe.graphs * scan_steps for k, v in per_block.items()}
@@ -1742,7 +1811,8 @@ def captured_train(dtype, scan_steps: int, eager: dict, sure_alternative=None,
                        "replay_busy": device / wall, "eager_ms": eager["steady_ms"],
                        "eager_device_ms": eager["device_ms"], "peak_gib": eager["peak_gib"],
                        "allocated_before_gib": eager["base_gib"],
-                       "captured_peak_gib": peak, "scan_steps": scan_steps})
+                       "captured_peak_gib": peak, "scan_steps": scan_steps,
+                       "gelu_launches": gelu_counts})
     return counts, steady
 
 
@@ -3240,6 +3310,73 @@ def check_module_attention(timed: bool) -> dict:
     return rows
 
 
+def check_gelu_forms(timed: bool) -> dict:
+    """The GELU epilogues in the form that is not their dtype's default
+    (``SEI_FAST_GELU``): the f32 CUDA-core kernel with the polynomial
+    (``gelu`` at the eval shape, T = 81920, K3's fc1 call; ``gelu_pair``
+    with an f32 gp at T = 36864, K4's recompute) and the bf16 ``mma.sync``
+    kernel with the exact erf (``gelu``, ``gelu_pair`` with a bf16 gp, K5's
+    save, and with an f32 gp, at T = 36864), each against its plain version
+    in the same form at the gates of the default form's checks; timed beside
+    the default form on the same inputs (``default_form_queued_ms``), with
+    the bound and ``torch.addmm``.  Returns rows by kernel-line entry."""
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    bf, f32 = torch.bfloat16, torch.float32
+    t_step = TRAIN_GRAPHS[0] * CROP * CROP
+    fast_entry, exact_entry = SOURCES_FORMS
+    rows = {}
+    print("GELU form checks (SEI_FAST_GELU: f32 with the polynomial, bf16 with the exact erf)")
+    for entry, dtype, variant, t, epi, gp_dtype, per_block in (
+            (fast_entry, f32, "fc1_gelu", T, "gelu", None, 1),
+            (fast_entry, f32, "fc1_gelu_pair", t_step, "gelu_pair", f32, 0),
+            (exact_entry, bf, "fc1_gelu_pair", t_step, "gelu_pair", bf, 1),
+            (exact_entry, bf, "fc1_gelu", t_step, "gelu", None, 0),
+            (exact_entry, bf, "fc1_gelu_pair_f32", t_step, "gelu_pair", f32, 0)):
+        fast = dtype == f32
+        tag = f"{'f32' if fast else 'bf16'} {'fast' if fast else 'exact'} {variant} T={t}"
+        a = torch.randn((t, C), generator=g, device="cuda").to(dtype)
+        w = (torch.randn((C, CH), generator=g, device="cuda") * 0.05).to(dtype)
+        b = torch.randn(CH, generator=g, device="cuda") * 0.05
+        gp, gp_p, gp_d = ((torch.empty(t, CH, device="cuda", dtype=gp_dtype) for _ in range(3))
+                          if gp_dtype is not None else (None, None, None))
+        got = st.gemm_bias_epilogue(a, w, b, epi, gp=gp, fast_gelu=fast)
+        want = st._torch_gemm_bias_epilogue(a, w, b, epi, gp=gp_p, fast_gelu=fast)
+        pairs = [(got, want)] + ([(gp, gp_p)] if gp is not None else [])
+        errs = [compare_bf16(f"gemm_bias_epilogue[{tag}][{i}]", x, y, (1e-4, 1e-4))
+                for i, (x, y) in enumerate(pairs)]
+        default = st.gemm_bias_epilogue(a, w, b, epi, gp=gp_d, fast_gelu=not fast)
+        torch.cuda.synchronize()
+        moved = float((got.float() - default.float()).abs().max())
+        print(f"    {tag}: max |d| from the default form's output {moved:.3e}")
+        nbytes = float(sum(x.numel() * x.element_size() for x in (a, w, b, got))
+                       + (gp.numel() * gp.element_size() if gp is not None else 0))
+        flops = 2.0 * t * C * CH
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS if fast else PEAK_BF16_FLOPS)
+        r = {"variant": f"{variant} T={t}", "max_abs_err": max(errs), "bound_ms": b_ms,
+             "bound_by": b_by, "flops": flops, "bytes": nbytes, "per_block": per_block}
+        if timed:
+            b_lib = b if fast else b.to(bf)
+            r["ms"] = time_ms(lambda: st.gemm_bias_epilogue(a, w, b, epi, gp=gp, fast_gelu=fast))
+            r["queued_ms"] = queued_ms(
+                lambda: st.gemm_bias_epilogue(a, w, b, epi, gp=gp, fast_gelu=fast))
+            r["default_form_queued_ms"] = queued_ms(
+                lambda: st.gemm_bias_epilogue(a, w, b, epi, gp=gp_d, fast_gelu=not fast))
+            r["plain_ms"] = time_ms(
+                lambda: st._torch_gemm_bias_epilogue(a, w, b, epi, gp=gp_p, fast_gelu=fast))
+            r.update(library_times(lambda: torch.addmm(b_lib, a, w)))
+            print(f"    gemm_bias_epilogue[{tag}]: kernel {r['ms']:.4f} ms (queued "
+                  f"{r['queued_ms']:.4f}; the default form {r['default_form_queued_ms']:.4f} "
+                  f"queued), plain {r['plain_ms']:.4f} ms, {fmt_library(r)}, bound {b_ms:.4f} ms "
+                  f"({b_by}), {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+        rows.setdefault(entry, []).append(r)
+        del a, w, got, want, default, gp, gp_p, gp_d
+    return rows
+
+
 def module_eval(smi: str) -> dict:
     """The module path (``fused_trunk=False``) on the eval path: flagship
     SwinIR (weights from seed 0) through ``evaluate`` on the 4 seeded
@@ -3340,6 +3477,141 @@ def module_path_phase(smi: str, proposed_ms: dict) -> dict:
               f"{proposed_ms['bf16', 2]:.2f} ms/step; {smi}")
     print(f"module path and clip launches by run: {json.dumps(total)}")
     return total
+
+
+def set_env(name: str, value: Optional[str]) -> None:
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: Optional[str]):
+    """``os.environ[name] = value`` inside the block (None: unset), restored
+    after it."""
+    before = os.environ.get(name)
+    set_env(name, value)
+    try:
+        yield
+    finally:
+        set_env(name, before)
+
+
+def fast_gelu_eval(smi: str) -> dict:
+    """The flagship f32 eval (4 seeded 256x320 images) with
+    ``SEI_FAST_GELU=1`` (the polynomial GELU in the f32 trunk), beside the
+    default (exact) model on the same weights: the launches (the trunk's,
+    every GELU launch in the polynomial form), one forward against
+    ``forward(plain=True)`` (FORWARD_ATOL), its max difference from the
+    default forward, PSNR/SSIM and ms per image of both.  Returns the GELU
+    launches by form over the knob's eval."""
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.evaluate import evaluate
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    images = make_images(N_IMAGES, H, W, seed=0)
+    physics = task_physics("deblurring")
+    y = physics.randomly_degrade(torch.as_tensor(images[0], device="cuda")[None], 0)
+    want = {k: v * BLOCKS * N_IMAGES for k, v in PER_BLOCK.items()}
+    runs, outs, gelu = {}, {}, {}
+    for label, env in (("default", None), ("SEI_FAST_GELU=1", "1")):
+        with env_var("SEI_FAST_GELU", env):
+            model = task_model("deblurring")
+        if model.module.fast_gelu is not (env == "1"):
+            fail(f"f32 eval {label}: SwinIR took fast_gelu={model.module.fast_gelu}")
+        evaluate(model, physics, images[:1])
+        torch.cuda.synchronize()
+        st.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = evaluate(model, physics, images)
+        torch.cuda.synchronize()
+        runs[label] = (result, (time.perf_counter() - t0) * 1e3 / N_IMAGES)
+        counts, gelu[label] = st.launch_counts(), st.gelu_launch_counts()
+        form = "fast" if env == "1" else "exact"
+        if {k: counts[k] for k in want} != want or gelu[label][form] != BLOCKS * N_IMAGES:
+            fail(f"f32 eval {label}: launches {counts}, GELU launches by form {gelu[label]}, "
+                 f"expected {want} and {BLOCKS * N_IMAGES} {form}")
+        if not all(np.isfinite(result.psnr)) or not all(0 < p < 100 for p in result.psnr):
+            fail(f"f32 eval {label}: PSNR out of range {result.psnr}")
+        with torch.no_grad():
+            outs[label] = model(y)
+            if env == "1":
+                compare("f32 forward with SEI_FAST_GELU=1 (kernels vs plain)", outs[label],
+                        model.module(y, plain=True), FORWARD_ATOL, 0.0)
+                fwd_ms = time_ms(lambda: model(y), iters=3, warmup=1)
+        del model
+    moved = float((outs["default"] - outs["SEI_FAST_GELU=1"]).abs().max())
+    print(f"  f32 eval: SEI_FAST_GELU=1 against the default (exact) forward: max |d| {moved:.3e}; "
+          f"forward {fwd_ms:.2f} ms; launches {want}, GELU by form {gelu}")
+    for label, (result, ms) in runs.items():
+        print(f"  f32 eval {label}: PSNR {result.psnr} SSIM {result.ssim}; mean "
+              f"{result.psnr_mean!r} / {result.ssim_mean!r}; {ms:.2f} ms/image; {smi}")
+    return gelu["SEI_FAST_GELU=1"]
+
+
+def fast_gelu_phase(smi: str, proposed_ms: dict) -> dict:
+    """``SEI_FAST_GELU`` (ROADMAP Queue 1's last item) on the card: the f32
+    eval with the polynomial (:func:`fast_gelu_eval`); two ``proposed``
+    steps in f32 with ``SEI_FAST_GELU=1`` and two in bf16 with
+    ``SEI_FAST_GELU=0`` (batch 8, 48 px crops), each eagerly with the first
+    step's gradients against the plain path (f32 GRAD_RTOL, bf16
+    TRUNK_GRAD_FRAC of each max) and the design's launches, then captured
+    (f32 at ``scan_steps`` 1, bf16 at 2) and equal to the eager run bit for
+    bit, every GELU launch in the knob's form; ms per step beside the
+    default's; then the module path (``fused_trunk=False``), whose exact
+    GELU the knob does not touch: its forward with the knob equals the one
+    without, bit for bit, in f32 and bf16.  Returns the knob's GELU launches
+    by kernel-line entry (the eval's and the training runs', warm-up and
+    capture included)."""
+    import torch
+
+    fast_entry, exact_entry = SOURCES_FORMS
+    launches = {fast_entry: fast_gelu_eval(smi)["fast"], exact_entry: 0}
+    for dtype, env, scan_steps, entry in ((None, "1", 1, fast_entry),
+                                          (torch.bfloat16, "0", 2, exact_entry)):
+        label = ("bf16" if dtype is not None else "f32") + f" SEI_FAST_GELU={env}"
+        recipe = Recipe(label, dtype=dtype, epochs=1, grad_check=True,
+                        grad_tol=TRUNK_GRAD_FRAC if dtype is not None else GRAD_RTOL)
+        form = "fast" if env == "1" else "exact"
+        record = {}
+        with env_var("SEI_FAST_GELU", env):
+            _, trainer, eager = train_path(recipe=recipe)
+            if trainer.model.module.fast_gelu is not (env == "1"):
+                fail(f"{label}: SwinIR took fast_gelu={trainer.model.module.fast_gelu}")
+            del trainer
+            _, steady = captured_train(dtype, scan_steps, eager, recipe=recipe, record=record)
+        for run, counts in (("eager", eager["gelu_launches"]), ("captured", record["gelu_launches"])):
+            if counts[form] == 0 or sum(counts.values()) != counts[form]:
+                fail(f"{label} {run}: GELU launches by form {counts}, all expected {form}")
+            launches[entry] += counts[form]
+        default = proposed_ms["bf16" if dtype is not None else "f32", scan_steps]
+        print(f"  {label} captured at scan_steps {scan_steps}: {steady:.2f} ms/step = "
+              f"{BATCH * 1e3 / steady:.3f} img/s; the default form in this run {default:.2f} "
+              f"ms/step; {smi}")
+
+    images = make_images(1, H, W, seed=0)
+    physics = task_physics("deblurring")
+    y = physics.randomly_degrade(torch.as_tensor(images[0], device="cuda")[None], 0)
+    for dtype, env in ((None, "1"), (torch.bfloat16, "0")):
+        outs = []
+        for value in (None, env):
+            with env_var("SEI_FAST_GELU", value):
+                model = task_model("deblurring", dtype, fused_trunk=False)
+            with torch.no_grad():
+                outs.append(model(y))
+            del model
+        torch.cuda.synchronize()
+        same = torch.equal(*outs)
+        label = "bf16" if dtype is not None else "f32"
+        print(f"  module path {label}: forward with SEI_FAST_GELU={env} equal to the forward "
+              f"without it, bit for bit: {same} -> {'ok' if same else 'FAIL'}")
+        if not same:
+            fail(f"SEI_FAST_GELU moved the {label} module path")
+    print(f"SEI_FAST_GELU launches by kernel-line entry: {json.dumps(launches)}")
+    return launches
 
 
 def write_filtered_png(path: str, arr) -> None:
@@ -3484,6 +3756,13 @@ SOURCES_PROBES = {
     "trunk_skeleton": ("sei_tpu_torch/ops/csrc/launch_probe.cu",
                        "experiments/perf_probe_r3s.py:136", "bf16 v_d"),
 }
+# the GELU epilogues in the other form (SEI_FAST_GELU) replace the trunk
+# kernel's fc1 in that form: the f32 eval forward's (K3) and the bf16
+# step's save (K5)
+SOURCES_FORMS = {name: ("sei_tpu_torch/ops/csrc/gemm_bias_epilogue.cu",
+                        "sei_tpu/ops/swin_trunk.py:931")
+                 for name in ("gemm_bias_epilogue[fast gelu]",
+                              "gemm_bias_epilogue[bf16 exact gelu]")}
 # the module path's attention calls replace the JAX attention kernel's
 # forward and backward (K1, K2), the path's only TPU kernels
 SOURCES_MODULE = {name: SOURCES[name] for name in ("window_attn_fwd", "window_attn_bwd")}
@@ -3519,6 +3798,13 @@ DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "window_attn_fwd": "cuda-core fma, 4x4 register tiles of S/P, shuffle row "
                               "reductions, P tile in shared memory, one head per block, "
                               "two cp.async stages"}
+DESIGNS["gemm_bias_epilogue[fast gelu]"] = (DESIGNS["gemm_bias_epilogue"]
+                                            + ", the polynomial GELU pair in the epilogue")
+DESIGNS["gemm_bias_epilogue[bf16 exact gelu]"] = (DESIGNS["gemm_bias_epilogue[bf16]"]
+                                                  + ", the exact (erf) GELU pair in the epilogue")
+DESIGNS["copy_probe"] = ("cuda-core, 16-byte accesses in a grid-stride loop over the blocks "
+                         "given, the head before x's first 16-byte boundary and the tail "
+                         "one element at a time")
 DESIGNS["window_attn_fwd[bf16 module path]"] = DESIGNS["window_attn_fwd[bf16]"]
 DESIGNS["window_attn_bwd[bf16 module path]"] = DESIGNS["window_attn_bwd[bf16]"]
 DESIGN_CUDA_CORES = "cuda-core fma"
@@ -3543,7 +3829,9 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "0.2219 queued (T=36864, p store, mean of the masks); "
               "ln_rows_bwd[bf16] cuda-core fma, one warp per row, scalar loads, dgamma/dbeta "
               "partials summed by two torch reductions 0.2046 ms, 0.1109 queued (T=36864: ln2 "
-              "0.0577, ln1_window 0.0532; T=18432: 0.0359, 0.0353)")
+              "0.0577, ln1_window 0.0532; T=18432: 0.0359, 0.0353); "
+              "copy_probe one 2- or 4-byte element per access 0.0052 ms queued (bf16, 1056 "
+              "blocks)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -3579,6 +3867,25 @@ def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak:
     return out
 
 
+def form_entries(rows: dict, counts: dict) -> list:
+    """One entry per GELU form that is not its dtype's default: the numbers
+    of the variant one SwinBlock runs (the f32 eval forward's fc1, the bf16
+    step's fc1 with its gelu' save), every variant listed."""
+    out = []
+    for name, (source, replaces) in SOURCES_FORMS.items():
+        r = next(v for v in rows[name] if v["per_block"])
+        main = r["variant"]
+        keys = ("ms", "queued_ms", "default_form_queued_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_queued_ms")
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "design": DESIGNS[name], "launches": counts[name], "variant": main,
+                    "max_abs_err": max(v["max_abs_err"] for v in rows[name]),
+                    **{k: r.get(k) for k in keys},
+                    "variants": [{k: v.get(k) for k in ("variant", "max_abs_err", *keys)}
+                                 for v in rows[name]]})
+    return out
+
+
 def probe_entries(rows: dict, counts: dict) -> list:
     out = []
     for name, (source, replaces, main) in SOURCES_PROBES.items():
@@ -3597,7 +3904,8 @@ def probe_entries(rows: dict, counts: dict) -> list:
 
 def kernel_line(rows: dict, rows_bf16: dict, rows_probe: dict, eval_counts: dict,
                 train_counts: dict, bf16_counts: dict, probe_counts: dict,
-                captured: dict, rows_module: dict, module_counts: dict) -> dict:
+                captured: dict, rows_module: dict, module_counts: dict, rows_forms: dict,
+                form_counts: dict) -> dict:
     """The f32 kernels (eval shapes for the forward kernels, the 2B training
     graph for the backward kernels; launches over the eval and eager f32
     training paths) and their bf16 instantiations (the 2B graph; launches
@@ -3606,6 +3914,8 @@ def kernel_line(rows: dict, rows_bf16: dict, rows_probe: dict, eval_counts: dict
     eager warm-up dispatch and the capture each).  Then the bf16 module
     path's attention forward (no p store) and backward (p recomputed) at
     its 2B graph, launches over its bf16 eval and its eager and captured
+    training runs; then the GELU epilogues in the form that is not their
+    dtype's default (``SEI_FAST_GELU``), launches over the knob's eval and
     training runs; then K8 and K9, launches over the probe path."""
     f32 = kernel_entries(rows, SOURCES, {k: eval_counts[k] + train_counts[k] for k in SOURCES},
                          "", PEAK_FP32_FLOPS,
@@ -3615,7 +3925,8 @@ def kernel_line(rows: dict, rows_bf16: dict, rows_probe: dict, eval_counts: dict
                           {"launches_captured": captured["bf16"]})
     module = kernel_entries(rows_module, SOURCES_MODULE, module_counts, "[bf16 module path]",
                             PEAK_BF16_FLOPS, {})
-    return {"kernels": f32 + bf16 + module + probe_entries(rows_probe, probe_counts)}
+    return {"kernels": f32 + bf16 + module + form_entries(rows_forms, form_counts)
+            + probe_entries(rows_probe, probe_counts)}
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -3637,6 +3948,7 @@ def main(argv: list[str]) -> int:
         print(f"gpu: {nvidia_smi()}; port from {attention.__file__}")
         attention_bits()
         ln_bwd_bits()
+        gelu_bits()
         return 0
     from sei_tpu_torch.device import resolve_device
     from sei_tpu_torch.ops import _build
@@ -3652,6 +3964,8 @@ def main(argv: list[str]) -> int:
     for line in report:
         print(f"  {line}")
     for label, kernel in (("f32 forward GEMM", "gemm_bias_epilogue_kernel"),
+                          ("bf16 forward GEMM", "gemm_bias_epilogue_mma_kernel"),
+                          ("copy probe", "copy_probe_kernel"),
                           ("f32 data grad", "gemm_dgrad_f32_kernel"),
                           ("f32 weight grad", "gemm_wgrad_f32_kernel"),
                           ("f32 attention backward", "window_attn_bwd_f32_kernel"),
@@ -3669,8 +3983,10 @@ def main(argv: list[str]) -> int:
         rows.setdefault(name, []).extend(variants)
     rows_bf16 = check_bf16_kernels(timed=not quick)
     rows_module = check_module_attention(timed=not quick)
+    rows_forms = check_gelu_forms(timed=not quick)
     attention_bits()
     ln_bwd_bits()
+    gelu_bits()
     rows_probe = check_probe_kernels(timed=not quick)
     if quick:
         print("quick: kernel checks passed")
@@ -3707,6 +4023,7 @@ def main(argv: list[str]) -> int:
     module_counts = {}
     for run in ("eval module path bf16", "train bf16 module path"):
         add_counts(module_counts, module_runs[run])
+    form_counts = fast_gelu_phase(smi, steady)
     loader_phase(smi)
     baselines_phase(smi)
     probe_counts = probe_phase()
@@ -3715,7 +4032,7 @@ def main(argv: list[str]) -> int:
     print(bench)
     print(json.dumps(kernel_line(rows, rows_bf16, rows_probe, eval_counts, train_counts,
                                  bf16_counts, probe_counts, captured, rows_module,
-                                 module_counts)))
+                                 module_counts, rows_forms, form_counts)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

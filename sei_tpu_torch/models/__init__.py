@@ -167,7 +167,7 @@ def get_model(*, kind: str = "Proposed", architecture: str = "Transformer",
               homogeneous_swinir: bool = False,
               swinir_overrides: Optional[dict] = None,
               dtype: Optional[torch.dtype] = None, fused_trunk: Optional[bool] = None,
-              physics=None,
+              fast_gelu: Optional[bool] = None, physics=None,
               noise_level: float = 5.0, conv_blueprint: Optional[dict] = None,
               dip_iterations: Optional[int] = None, tv_lambd: Optional[float] = None,
               tv_max_iter: int = 300, kernel_name: Optional[str] = None):
@@ -179,6 +179,9 @@ def get_model(*, kind: str = "Proposed", architecture: str = "Transformer",
     ``fused_trunk``: SwinIR's blocks through the fused trunk kernels (True)
     or as modules (False); None reads ``SEI_FUSED_TRUNK`` (unset: fused), so
     the command lines reach the module path with ``SEI_FUSED_TRUNK=0``.
+    ``fast_gelu``: the fused trunk's GELU form (True the polynomial, False
+    exact); None reads ``SEI_FAST_GELU`` (unset: the polynomial in bf16
+    only), so the command lines reach it with that variable.
     ``kind="Identity"`` gives an :class:`IdentityModel`, ``"Upsample"`` an
     :class:`UpsampleModel` by ``sr_factor``, a baseline a
     :class:`FunctionalModel` of ``physics`` (whose device it runs on):
@@ -201,7 +204,7 @@ def get_model(*, kind: str = "Proposed", architecture: str = "Transformer",
             module = SwinIR(**swinir_config(task=task, sr_factor=sr_factor,
                                             homogeneous=homogeneous_swinir,
                                             overrides=swinir_overrides), dtype=dtype,
-                            fused_trunk=fused_trunk)
+                            fused_trunk=fused_trunk, fast_gelu=fast_gelu)
         elif architecture == "Convolutional":  # blueprint keys: ConvolutionalModel's
             rate = sr_factor if task == "sr" and sr_factor else 1
             module = ConvolutionalModel(upsampling_rate=rate, **(conv_blueprint or {}))

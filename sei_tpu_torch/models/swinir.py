@@ -37,7 +37,8 @@ the blocks run as modules, the JAX package's module path
 (``sei_tpu/models/swinir.py:96-217``): LayerNorm and Linear layers in
 PyTorch (cuBLAS on the card), the exact-erf GELU (``F.gelu``, as
 ``jax.nn.gelu(approximate=False)``; not the fused trunk's bf16 polynomial,
-so the two bf16 paths are two functions) and the ``window_attention``
+so the two bf16 paths are two functions, and not switched by
+``SEI_FAST_GELU``, as the JAX module path is not) and the ``window_attention``
 kernels.  In bf16 the blocks compute as the flax modules with
 ``dtype=bfloat16``: each Linear on bf16 operands with a bf16 output (its
 bias added in the product's epilogue, where flax rounds the product first),
@@ -45,7 +46,11 @@ the LayerNorms' statistics in f32, the GELU rounded once (flax rounds each
 of its operations), the attention's scores, mask and softmax in f32 with p
 rounded before P.V (``_xla_attention``, ``sei_tpu/ops/attention.py:29-39``),
 and the q scale and the drop-path divisor rounded to bf16 first, as a
-weak-typed JAX scalar is.  ``forward(x, plain=True)`` runs the plain
+weak-typed JAX scalar is.  ``fast_gelu`` picks the fused trunk's GELU
+form: None (the default) reads ``SEI_FAST_GELU`` at construction as the JAX
+trunk reads it at trace time (``use_fast_gelu``: ``"0"``, ``"false"`` and
+``""`` the exact form, anything else the polynomial; unset the polynomial
+in bf16 and exact in f32).  ``forward(x, plain=True)`` runs the plain
 PyTorch version of every kernel on any device (the reference the kernel path
 is held against on the card); it is differentiable, by torch autograd
 through the plain ops, as the kernel path is through the kernels' backward.
@@ -69,7 +74,7 @@ from torch import nn
 
 from ..ops.attention import _torch_attention, window_attention
 from ..ops.conv import Conv3x3
-from ..ops.swin_trunk import swin_trunk, trunk_reference
+from ..ops.swin_trunk import swin_trunk, trunk_reference, use_fast_gelu
 from ..parallel import draw_rows
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -303,11 +308,12 @@ class RSTB(nn.Module):
 
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio,
                  drop_paths: Sequence[float], fused_trunk: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, fast_gelu: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         self.fused_trunk = fused_trunk
+        self.fast_gelu = fast_gelu
         self.drop_paths = tuple(drop_paths)
         # the keep probabilities on the module's device, so a training
         # forward copies nothing from the host (a CUDA graph holds it)
@@ -357,7 +363,8 @@ class RSTB(nn.Module):
             trunk = trunk_reference if plain else swin_trunk
             x = trunk(x.contiguous(), params, rpb, mask,
                       self._drop_path_masks(x.shape[0], x.device, generator),
-                      num_heads=self.num_heads, window_size=self.window_size)
+                      num_heads=self.num_heads, window_size=self.window_size,
+                      fast_gelu=self.fast_gelu)
         else:
             for blk in self.residual_group.blocks:
                 x = blk(x, mask, plain, generator)
@@ -380,7 +387,8 @@ class SwinIR(nn.Module):
                  num_heads: Sequence[int] = (6,) * 6, window_size: int = 8,
                  mlp_ratio: float = 2.0, drop_path_rate: float = 0.1,
                  upsampler: Optional[str] = None, upscale: int = 1,
-                 fused_trunk: Optional[bool] = None, dtype: Optional[torch.dtype] = None):
+                 fused_trunk: Optional[bool] = None, dtype: Optional[torch.dtype] = None,
+                 fast_gelu: Optional[bool] = None):
         super().__init__()
         if upsampler not in (None, "pixelshuffle"):
             raise ValueError(f"SwinIR: unknown upsampler {upsampler!r}")
@@ -392,6 +400,7 @@ class SwinIR(nn.Module):
         if fused_trunk is None:
             fused_trunk = fused_trunk_default()
         self.fused_trunk = fused_trunk
+        self.fast_gelu = use_fast_gelu(dtype, fast_gelu)
         self.compute_dtype = dtype
         self.window_size = window_size
         self.register_buffer("mean", torch.tensor(RGB_MEAN).view(1, 3, 1, 1),
@@ -402,7 +411,7 @@ class SwinIR(nn.Module):
         layers, d0 = [], 0
         for depth, nh in zip(depths, num_heads):
             layers.append(RSTB(embed_dim, depth, nh, window_size, mlp_ratio,
-                               dpr[d0:d0 + depth], fused_trunk, dtype))
+                               dpr[d0:d0 + depth], fused_trunk, dtype, self.fast_gelu))
             d0 += depth
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)

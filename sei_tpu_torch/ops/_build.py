@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "sei_ln_rows": [_I, _I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
-    "sei_gemm_bias_epilogue": [_I, _I, *[_P] * 5, _I, _P, _P, *[_I] * 10, _P],
+    "sei_gemm_bias_epilogue": [_I, _I, *[_P] * 5, _I, _P, _P, *[_I] * 11, _P],
     "sei_window_attn_fwd": [_I, _I, *[_P] * 7, _L, *[_I] * 5, *[_L] * 12, _F, _P],
     "sei_window_attn_fwd_f32_blocks_per_sm": [_I],
     "sei_window_attn_fwd_bf16_blocks_per_sm": [_I],

@@ -72,11 +72,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// (gelu(x), gelu'(x)).  f32 storage: the exact GELU x Phi(x) with erff.
-// bf16 storage: the JAX trunk's polynomial pair (_gelu_pair_fast,
-// sei_tpu/ops/swin_trunk.py:188-230, used when the compute dtype is bf16):
-// Chebyshev-fitted odd polynomials on [-4, 4] for Phi and x*pdf, saturated
-// outside, evaluated by Horner in f32 with the same coefficients.
+// (gelu(x), gelu'(x)) in two forms, picked by SEI_FAST_GELU independently
+// of the storage type (sei_tpu/ops/swin_trunk.py _use_fast_gelu :233-238;
+// unset: the polynomial in bf16, the exact form in f32).  GELU_EXACT: x
+// Phi(x) with erff.  GELU_FAST: the JAX trunk's polynomial pair
+// (_gelu_pair_fast, :188-230): Chebyshev-fitted odd polynomials on [-4, 4]
+// for Phi and x*pdf, saturated outside, evaluated by Horner in f32 with the
+// same coefficients.
+enum { GELU_EXACT = 0, GELU_FAST = 1 };
+
 __device__ __forceinline__ void gelu_pair_exact(float x, float& g, float& gp) {
   const float phi = 0.5f * (1.f + erff(x * 0.70710678118654752f));
   g = x * phi;
@@ -112,13 +116,13 @@ __device__ __forceinline__ void gelu_pair_fast(float x, float& g, float& gp) {
   gp = phi + (inr ? xc * b : 0.f);
 }
 
-template <typename T>
+template <int GF>
 __device__ __forceinline__ void gelu_pair(float x, float& g, float& gp) {
-  gelu_pair_exact(x, g, gp);
-}
-template <>
-__device__ __forceinline__ void gelu_pair<bf16>(float x, float& g, float& gp) {
-  gelu_pair_fast(x, g, gp);
+  static_assert(GF == GELU_EXACT || GF == GELU_FAST, "GELU form");
+  if constexpr (GF == GELU_FAST)
+    gelu_pair_fast(x, g, gp);
+  else
+    gelu_pair_exact(x, g, gp);
 }
 
 // VEC consecutive elements of T, loaded or stored as one access of VEC *

@@ -6,13 +6,16 @@
 // Pallas body (sei_tpu/ops/swin_trunk.py _fwd_kernel: qkv :448, proj :474,
 // fc1 :539, fc2 :544-547) together with what follows each of them there:
 //   EPI_NONE       qkv:  out = A.W + b, rounded to T (:448)
-//   EPI_GELU       fc1 of the no-grad forward: out = gelu(A.W + b); exact
-//                  GELU (erff) for f32, the polynomial _gelu_fast for bf16
-//                  (:540-546, _use_fast_gelu :233)
+//   EPI_GELU       fc1 of the no-grad forward: out = gelu(A.W + b)
+//                  (:540-546)
 //   EPI_GELU_PAIR  fc1 of the training forward (mode "full", :541-545) and
 //                  of the recompute backward (:655-661): out = gelu(h) and
 //                  gp = gelu'(h) from one evaluation (common.cuh gelu_pair);
 //                  gp is T (the saved tensor) or f32 (the recompute's)
+// The GELU's form is a template parameter GF of both kernels, apart from the
+// storage type, as SEI_FAST_GELU picks it (_use_fast_gelu :233): GELU_EXACT
+// (erff) or GELU_FAST (the polynomial _gelu_fast); the caller passes it, by
+// default the exact form for f32 and the polynomial for bf16.
 //   EPI_RESIDUAL   proj, fc2: out[p] = res[p] + dpm[img] * y with
 //                  y = round_T(A.W + b), the sum in f32 and rounded to T
 //                  again: the JAX trunk's double rounding (:474 then :597,
@@ -123,8 +126,8 @@ static_assert((F32_BM == 64 || F32_BM == 128) && F32_BN % 32 == 0 && F32_BN >= 6
               F32_BK % 4 == 0, "f32 tile");
 
 // VEC = elements per global access: 4 (K, N multiples of 4 and every pointer
-// 16-byte aligned) or 1
-template <int EPI, int VEC>
+// 16-byte aligned) or 1; GF = the GELU's form (EPI_GELU, EPI_GELU_PAIR)
+template <int EPI, int GF, int VEC>
 __global__ void __launch_bounds__(F32_THREADS, (F32_BN <= 96 ? 512 : 256) / F32_THREADS)
 gemm_bias_epilogue_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
                           const float* __restrict__ bias, float* __restrict__ out,
@@ -280,7 +283,7 @@ gemm_bias_epilogue_kernel(const float* __restrict__ A, const float* __restrict__
       float v = acc[i][j] + bj[j];
       if (EPI == EPI_GELU || EPI == EPI_GELU_PAIR) {
         float g;
-        gelu_pair_exact(v, g, d[j]);
+        gelu_pair<GF>(v, g, d[j]);
         v = g;
       }
       y[j] = v;
@@ -338,8 +341,9 @@ static_assert(O_BYTES + BM * O_PITCH * (int)sizeof(float) <= MMA_SMEM,
               "the staged output and gp tiles fit in the ring");
 
 // VEC = elements per global access (8, 4, or 1 where K, N or a pointer do
-// not allow packs); TGP = gp's element type (EPI_GELU_PAIR only)
-template <int EPI, typename TGP, int VEC>
+// not allow packs); TGP = gp's element type (EPI_GELU_PAIR only); GF = the
+// GELU's form
+template <int EPI, int GF, typename TGP, int VEC>
 __global__ void __launch_bounds__(MMA_THREADS, 4)
 gemm_bias_epilogue_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wt,
                               const float* __restrict__ bias, bf16* out, TGP* gp,
@@ -480,7 +484,7 @@ gemm_bias_epilogue_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict
           float v = acc[t][j][2 * h + e] + bj[j][e];
           if (EPI == EPI_GELU || EPI == EPI_GELU_PAIR) {
             float g, dv;
-            gelu_pair_fast(v, g, dv);
+            gelu_pair<GF>(v, g, dv);
             d.v[e] = from_f<TGP>(dv);
             v = g;
           }
@@ -527,41 +531,41 @@ struct Args {
 
 bool aligned(const void* p, size_t bytes) { return (size_t)p % bytes == 0; }
 
-template <int EPI, int VEC>
+template <int EPI, int GF, int VEC>
 void launch_f32_vec(cudaStream_t s, const Args& a) {
   const dim3 grid((a.N + F32_BN - 1) / F32_BN, (a.M + F32_BM - 1) / F32_BM);
-  SEI_LAUNCH(grid, F32_THREADS, s, gemm_bias_epilogue_kernel<EPI, VEC>)(
+  SEI_LAUNCH(grid, F32_THREADS, s, gemm_bias_epilogue_kernel<EPI, GF, VEC>)(
       static_cast<const float*>(a.A), static_cast<const float*>(a.Wt), a.bias,
       static_cast<float*>(a.out), static_cast<float*>(a.gp), static_cast<const float*>(a.res),
       a.dpm, a.M, a.K, a.N, a.rows_per_img, a.map);
 }
 
 // float4 accesses where K, N and every pointer allow them, else one element
-template <int EPI>
+template <int EPI, int GF>
 void launch_f32(cudaStream_t s, const Args& a) {
   if (a.K % 4 == 0 && a.N % 4 == 0 && aligned(a.A, 16) && aligned(a.Wt, 16) &&
       aligned(a.out, 16) && aligned(a.res, 16) && aligned(a.gp, 16))
-    launch_f32_vec<EPI, 4>(s, a);
+    launch_f32_vec<EPI, GF, 4>(s, a);
   else
-    launch_f32_vec<EPI, 1>(s, a);
+    launch_f32_vec<EPI, GF, 1>(s, a);
 }
 
-template <int EPI, typename TGP, int VEC>
+template <int EPI, int GF, typename TGP, int VEC>
 void launch_mma_vec(dim3 grid, cudaStream_t s, const Args& a) {
-  SEI_LAUNCH(grid, MMA_THREADS, s, gemm_bias_epilogue_mma_kernel<EPI, TGP, VEC>)(
+  SEI_LAUNCH(grid, MMA_THREADS, s, gemm_bias_epilogue_mma_kernel<EPI, GF, TGP, VEC>)(
       static_cast<const bf16*>(a.A), static_cast<const bf16*>(a.Wt), a.bias,
       static_cast<bf16*>(a.out), static_cast<TGP*>(a.gp), static_cast<const bf16*>(a.res),
       a.dpm, a.M, a.K, a.N, a.rows_per_img, a.map);
 }
 
-template <int EPI, typename TGP>
+template <int EPI, int GF, typename TGP>
 void launch_mma(int vec, dim3 grid, cudaStream_t s, const Args& a) {
   if (vec == 8)
-    launch_mma_vec<EPI, TGP, 8>(grid, s, a);
+    launch_mma_vec<EPI, GF, TGP, 8>(grid, s, a);
   else if (vec == 4)
-    launch_mma_vec<EPI, TGP, 4>(grid, s, a);
+    launch_mma_vec<EPI, GF, TGP, 4>(grid, s, a);
   else
-    launch_mma_vec<EPI, TGP, 1>(grid, s, a);
+    launch_mma_vec<EPI, GF, TGP, 1>(grid, s, a);
 }
 
 // the widest pack (elements) that K, N and every pointer allow: 16 bytes of
@@ -581,13 +585,17 @@ int pack_width(const Args& a, size_t gp_size) {
 
 }  // namespace
 
+// gelu_form: GELU_EXACT or GELU_FAST, the form of the "gelu" and "gelu_pair"
+// epilogues (the others have no GELU and take either)
 extern "C" int sei_gemm_bias_epilogue(int device, int is_bf16, const void* A,
                                       const void* Wt, const float* bias, void* out,
                                       void* gp, int gp_bf16, const void* res,
                                       const float* dpm, int M, int K, int N,
-                                      int epilogue, int rows_per_img, int windowed,
-                                      int H, int W, int ws, int shift, void* stream) {
+                                      int epilogue, int gelu_form, int rows_per_img,
+                                      int windowed, int H, int W, int ws, int shift,
+                                      void* stream) {
   if (M < 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (gelu_form != GELU_EXACT && gelu_form != GELU_FAST) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);  // bf16's; f32's rows are F32_BM >= BM
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
@@ -600,26 +608,46 @@ extern "C" int sei_gemm_bias_epilogue(int device, int is_bf16, const void* A,
   const Args a{A, Wt, bias, out, gp, res, dpm, M, K, N, rows_per_img,
                WinMap{windowed, H, W, ws, shift}};
   cudaStream_t s = (cudaStream_t)stream;
+  const bool fast = gelu_form == GELU_FAST;
   if (!is_bf16) {
     switch (epilogue) {
-      case EPI_NONE: launch_f32<EPI_NONE>(s, a); break;
-      case EPI_GELU: launch_f32<EPI_GELU>(s, a); break;
-      case EPI_RESIDUAL: launch_f32<EPI_RESIDUAL>(s, a); break;
-      case EPI_GELU_PAIR: launch_f32<EPI_GELU_PAIR>(s, a); break;
+      case EPI_NONE: launch_f32<EPI_NONE, GELU_EXACT>(s, a); break;
+      case EPI_GELU:
+        if (fast)
+          launch_f32<EPI_GELU, GELU_FAST>(s, a);
+        else
+          launch_f32<EPI_GELU, GELU_EXACT>(s, a);
+        break;
+      case EPI_RESIDUAL: launch_f32<EPI_RESIDUAL, GELU_EXACT>(s, a); break;
+      case EPI_GELU_PAIR:
+        if (fast)
+          launch_f32<EPI_GELU_PAIR, GELU_FAST>(s, a);
+        else
+          launch_f32<EPI_GELU_PAIR, GELU_EXACT>(s, a);
+        break;
       default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
   }
   const int vec = pack_width(a, gp_bf16 ? sizeof(bf16) : sizeof(float));
   switch (epilogue) {
-    case EPI_NONE: launch_mma<EPI_NONE, bf16>(vec, grid, s, a); break;
-    case EPI_GELU: launch_mma<EPI_GELU, bf16>(vec, grid, s, a); break;
-    case EPI_RESIDUAL: launch_mma<EPI_RESIDUAL, bf16>(vec, grid, s, a); break;
-    case EPI_GELU_PAIR:
-      if (gp_bf16)
-        launch_mma<EPI_GELU_PAIR, bf16>(vec, grid, s, a);
+    case EPI_NONE: launch_mma<EPI_NONE, GELU_FAST, bf16>(vec, grid, s, a); break;
+    case EPI_GELU:
+      if (fast)
+        launch_mma<EPI_GELU, GELU_FAST, bf16>(vec, grid, s, a);
       else
-        launch_mma<EPI_GELU_PAIR, float>(vec, grid, s, a);
+        launch_mma<EPI_GELU, GELU_EXACT, bf16>(vec, grid, s, a);
+      break;
+    case EPI_RESIDUAL: launch_mma<EPI_RESIDUAL, GELU_FAST, bf16>(vec, grid, s, a); break;
+    case EPI_GELU_PAIR:
+      if (gp_bf16 && fast)
+        launch_mma<EPI_GELU_PAIR, GELU_FAST, bf16>(vec, grid, s, a);
+      else if (gp_bf16)
+        launch_mma<EPI_GELU_PAIR, GELU_EXACT, bf16>(vec, grid, s, a);
+      else if (fast)
+        launch_mma<EPI_GELU_PAIR, GELU_FAST, float>(vec, grid, s, a);
+      else
+        launch_mma<EPI_GELU_PAIR, GELU_EXACT, float>(vec, grid, s, a);
       break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -10,7 +10,9 @@ against what a block of work costs.
 Kernel ``copy_probe`` replaces the copy kernels of
 ``experiments/perf_probe_r3p.py:48`` (``one_copy``), ``perf_probe_r3q.py:50``
 (``one_copy``) and ``perf_probe_r3m.py:98`` (``mk_copy``, ``y = x``): bound by
-bytes, a grid-stride loop over ``blocks`` thread blocks.
+bytes, a grid-stride loop of 16-byte accesses over ``blocks`` thread blocks,
+the elements before the first 16-byte boundary and after the last whole
+16 bytes one at a time.
 
 Kernel ``trunk_skeleton`` replaces the trunk skeletons of
 ``experiments/perf_probe_r3r.py:98`` (``mk_a``) and ``perf_probe_r3s.py:104``
@@ -46,9 +48,21 @@ def _torch_copy_probe(x: torch.Tensor, add: bool = True) -> torch.Tensor:
     return (x.float() + (1.0 if add else 0.0)).to(x.dtype)
 
 
+def _output_like(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised contiguous tensor of x's shape and dtype whose first
+    element lies as far from a 16-byte boundary as x's (a view into a
+    buffer one 16-byte pack longer), so the kernel's 16-byte accesses align
+    on both."""
+    per = 16 // x.element_size()
+    off = (x.data_ptr() % 16) // x.element_size()
+    buf = torch.empty(x.numel() + per, device=x.device, dtype=x.dtype)
+    return buf[off:off + x.numel()].view(x.shape)
+
+
 def copy_probe(x: torch.Tensor, *, blocks: int, add: bool = True) -> torch.Tensor:
     """``y = x + 1`` (``add``) or ``y = x``, in x's dtype (f32 or bf16, the
-    sum in f32 and rounded once), on ``blocks`` thread blocks."""
+    sum in f32 and rounded once), on ``blocks`` thread blocks.  On the card
+    y starts as far from a 16-byte boundary as x does."""
     if blocks < 1:
         raise ValueError(f"copy_probe: blocks must be >= 1, got {blocks}")
     if x.device.type == "cpu":
@@ -56,7 +70,7 @@ def copy_probe(x: torch.Tensor, *, blocks: int, add: bool = True) -> torch.Tenso
     require_cuda("copy_probe", x=(x, KERNEL_DTYPES))
     if not x.is_contiguous():
         raise ValueError("copy_probe: x must be contiguous")
-    y = torch.empty_like(x)
+    y = _output_like(x)
     code = _build.library().lib.sei_copy_probe(
         x.device.index, _is_bf16(x), x.data_ptr(), y.data_ptr(), x.numel(), blocks, int(add),
         _build.stream_of(x))

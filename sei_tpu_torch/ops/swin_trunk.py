@@ -52,15 +52,17 @@ statistics, scores scaled by hd**-0.5 then rpb (+ the -100/0 shift mask)
 added in f32 before an f32 softmax, per-image drop-path keep factors
 ``dpm (D, 2, B)`` on the (attention, MLP) residual branches, f32
 accumulation in every product, f32 parameter gradients.  The compute
-dtype is x's: in f32 the GELU is exact; in bf16 (the JAX package's
-production training recipe, ``SwinIR(dtype=bfloat16)``) the activations,
-the saves and the GEMM weights (cast once per trunk call) are bf16, the GELU
-is the polynomial pair ``_gelu_fast`` / ``_gelu_pair_fast`` (``_use_fast_gelu``
-:233), and every value is rounded to bf16 exactly where the JAX trunk casts
+dtype is x's: in bf16 (the JAX package's production training recipe,
+``SwinIR(dtype=bfloat16)``) the activations, the saves and the GEMM weights
+(cast once per trunk call) are bf16, and every value is rounded to bf16
+exactly where the JAX trunk casts
 (the LN outputs, qkv, p, att, the proj and fc2 outputs before the f32
 residual add, the residual sums; in the backward dm, dh, the proj gradient,
 ds, dq/dk/dv and da; the block gradient dx), so the kernels' plain versions
-below repeat the JAX trunk's arithmetic.
+below repeat the JAX trunk's arithmetic.  The GELU is exact (erf) or the
+polynomial pair ``_gelu_fast`` / ``_gelu_pair_fast``, as
+:func:`use_fast_gelu` picks it (``_use_fast_gelu`` :233: ``SEI_FAST_GELU``,
+unset the polynomial in bf16 and the exact form in f32).
 
 What the TPU kernel needed and this design does not: head packing into
 128-lane tiles (``pack_attn_params``, ``_head_tiling``), group/VMEM sizing
@@ -78,10 +80,12 @@ which the kernel chain and its backward are held against.
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import KERNEL_DTYPES, require_cuda
 from . import _build
@@ -97,6 +101,7 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 _EPS = 1e-5
 _EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "gelu_pair": 3}
+_GELU_FORMS = {False: "exact", True: "fast"}  # use_fast_gelu's value -> its name
 _TILE = 64  # rows of the bf16 GEMM tiles (csrc/gemm_*.cu; the weight grad's columns too; bf16
 #              dgrad is 96 wide and the f32 forward GEMM 128 x 96, for which the grid check below
 #              is conservative; the f32 weight grad's kernel sizes its own grid)
@@ -110,10 +115,10 @@ def _is_bf16(t) -> int:
 
 
 # -- GELU ----------------------------------------------------------------------
-# The port's copy of the JAX trunk's bf16 GELU (sei_tpu/ops/swin_trunk.py
+# The port's copy of the JAX trunk's polynomial GELU (sei_tpu/ops/swin_trunk.py
 # :188-230): Chebyshev-fitted odd polynomials on [-4, 4], Phi(x) = 0.5 +
-# x*Q1(x^2) and x*pdf(x) = x*Q2(x^2), saturated outside; used only when the
-# compute dtype is bf16 (as _use_fast_gelu).  f32 keeps the exact GELU.
+# x*Q1(x^2) and x*pdf(x) = x*Q2(x^2), saturated outside; the trunk's form
+# when use_fast_gelu says so, else the exact GELU.
 
 _GELU_XC = 4.0
 _C_PHI = (0.3989390292359633, -0.06647417597398475, 0.009949619744973907,
@@ -157,6 +162,21 @@ def _gelu_pair(x32):
     """(gelu(x), gelu'(x)) of the exact GELU x * Phi(x)."""
     phi = 0.5 * (1.0 + torch.erf(x32 * _SQRT_HALF))
     return x32 * phi, phi + x32 * torch.exp(-0.5 * x32 * x32) * _INV_SQRT_2PI
+
+
+def use_fast_gelu(dtype, fast_gelu: Optional[bool] = None) -> bool:
+    """Whether the trunk's GELU is the polynomial pair (True) or the exact
+    erf form (False), as the JAX package's ``_use_fast_gelu``
+    (``sei_tpu/ops/swin_trunk.py:233-238``) decides it: an explicit
+    ``fast_gelu`` wins; else ``SEI_FAST_GELU`` when set (``"0"``,
+    ``"false"`` and ``""`` off, anything else on); else on for a bf16
+    compute ``dtype`` only."""
+    if fast_gelu is not None:
+        return bool(fast_gelu)
+    env = os.environ.get("SEI_FAST_GELU")
+    if env is not None:
+        return env not in ("0", "false", "")
+    return dtype == BF16
 
 
 class WindowMap(NamedTuple):
@@ -237,13 +257,15 @@ ln_rows.launches = 0
 
 
 def _torch_gemm_bias_epilogue(a, w, b, epilogue="none", res=None, dpm=None,
-                              window: Optional[WindowMap] = None, gp=None):
+                              window: Optional[WindowMap] = None, gp=None,
+                              fast_gelu: Optional[bool] = None):
     cdt = w.dtype
     y = torch.addmm(b, a.float(), w.float())
+    fast = use_fast_gelu(cdt, fast_gelu)
     if epilogue == "gelu":
-        return (_gelu_fast(y) if cdt == BF16 else F.gelu(y)).to(cdt)
+        return (_gelu_fast(y) if fast else F.gelu(y)).to(cdt)
     if epilogue == "gelu_pair":
-        g, d = (_gelu_pair_fast if cdt == BF16 else _gelu_pair)(y)
+        g, d = (_gelu_pair_fast if fast else _gelu_pair)(y)
         gp.copy_(d)
         return g.to(cdt)
     if epilogue == "none":
@@ -259,13 +281,15 @@ def _torch_gemm_bias_epilogue(a, w, b, epilogue="none", res=None, dpm=None,
 
 
 def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
-                       window: Optional[WindowMap] = None, gp=None):
+                       window: Optional[WindowMap] = None, gp=None,
+                       fast_gelu: Optional[bool] = None):
     """``epilogue(a @ w + b)`` with f32 accumulation, in w's dtype (the
     compute dtype: f32, or bf16 with a, res and the output bf16 too).
 
     a: (M, K); w: (K, N) (the JAX kernel layout, in x out); b: (N,) f32.
-    epilogue "none" / "gelu" -> (M, N); the GELU is exact in f32 and the
-    polynomial ``_gelu_fast`` in bf16.  "gelu_pair": as "gelu", and the
+    epilogue "none" / "gelu" -> (M, N); the GELU is the polynomial
+    ``_gelu_fast`` when ``use_fast_gelu(w.dtype, fast_gelu)`` (by default
+    in bf16 only), else exact (erf).  "gelu_pair": as "gelu", and the
     given ``gp`` (M, N) buffer (the compute dtype: the training forward's
     save; or f32: the recompute's) receives gelu'(a @ w + b).  "residual"
     -> ``res + dpm[img] * round(a @ w + b)`` in ``res``'s shape, summed in
@@ -303,8 +327,9 @@ def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
         raise ValueError("gemm_bias_epilogue: a window map needs the residual epilogue")
     if (gp is not None) != (epilogue == "gelu_pair") or (gp is not None and gp.shape != (m, n)):
         raise ValueError("gemm_bias_epilogue: the gelu_pair epilogue takes an (M, N) gp buffer")
+    fast = use_fast_gelu(w.dtype, fast_gelu)
     if a.device.type == "cpu":
-        return _torch_gemm_bias_epilogue(a, w, b, epilogue, res, dpm, window, gp)
+        return _torch_gemm_bias_epilogue(a, w, b, epilogue, res, dpm, window, gp, fast)
 
     a, w, b = a.contiguous(), w.contiguous(), b.contiguous()
     if residual:
@@ -321,14 +346,18 @@ def gemm_bias_epilogue(a, w, b, epilogue: str = "none", res=None, dpm=None,
     code = _build.library().lib.sei_gemm_bias_epilogue(
         a.device.index, _is_bf16(w), a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
         _build.ptr(gp), _is_bf16(gp), _build.ptr(res), _build.ptr(dpm), m, k, n,
-        _EPILOGUES[epilogue], m // dpm.shape[0] if residual else 0, int(window is not None),
-        wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(a))
+        _EPILOGUES[epilogue], int(fast), m // dpm.shape[0] if residual else 0,
+        int(window is not None), wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(a))
     _build.check(code, "gemm_bias_epilogue")
     gemm_bias_epilogue.launches += 1
+    if epilogue in ("gelu", "gelu_pair"):
+        gemm_bias_epilogue.gelu_launches[_GELU_FORMS[fast]] += 1
     return out
 
 
 gemm_bias_epilogue.launches = 0
+# the "gelu" and "gelu_pair" epilogues' launches by GELU form, beside .launches
+gemm_bias_epilogue.gelu_launches = dict.fromkeys(_GELU_FORMS.values(), 0)
 
 
 # -- backward kernels ----------------------------------------------------------
@@ -635,13 +664,21 @@ KERNELS = (ln_rows, gemm_bias_epilogue, window_attn_fwd, gemm_dgrad, gemm_wgrad,
 
 
 def reset_launch_counts() -> None:
-    """Set the launch counters of every trunk kernel to 0."""
+    """Set the launch counters of every trunk kernel to 0 (and
+    ``gemm_bias_epilogue``'s GELU launches by form)."""
     for fn in KERNELS:
         fn.launches = 0
+    gemm_bias_epilogue.gelu_launches = dict.fromkeys(_GELU_FORMS.values(), 0)
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def gelu_launch_counts() -> dict:
+    """``gemm_bias_epilogue``'s "gelu" and "gelu_pair" launches by GELU form
+    ("exact", "fast") since the last :func:`reset_launch_counts`."""
+    return dict(gemm_bias_epilogue.gelu_launches)
 
 
 # -- the trunk -----------------------------------------------------------------
@@ -729,10 +766,11 @@ def _attention(a, p, rpb_i, mask_i, dm: _Dims, p_out=None):
     return qkv, att.view(-1, dm.c)
 
 
-def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, saves=None, full=False):
-    """The forward chain over the compute-dtype ``params``; appends each
-    block's :class:`_Saved` to ``saves`` when given (mode ``xs``, or
-    ``full`` with ``full``)."""
+def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, fast: bool, saves=None,
+                   full=False):
+    """The forward chain over the compute-dtype ``params``, the GELU's form
+    ``fast`` (:func:`use_fast_gelu`); appends each block's :class:`_Saved`
+    to ``saves`` when given (mode ``xs``, or ``full`` with ``full``)."""
     c = dm.c
     for i in range(params["ln1_s"].shape[0]):
         p = {k: params[k][i] for k in PARAM_LEAVES}
@@ -748,9 +786,10 @@ def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, saves=None, full
         gp = None
         if full:
             gp = torch.empty((dm.t, p["fc1_w"].shape[1]), device=x.device, dtype=x.dtype)
-            hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu_pair", gp=gp)
+            hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu_pair", gp=gp,
+                                     fast_gelu=fast)
         else:
-            hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu")
+            hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu", fast_gelu=fast)
         out = gemm_bias_epilogue(hid, p["fc2_w"], p["fc2_b"], "residual",
                                  res=x2, dpm=dpm[i, 1])
         if saves is not None:
@@ -762,9 +801,11 @@ def _chain_forward(x, params, rpb, mask, dpm, dm: _Dims, shift, saves=None, full
     return x
 
 
-def _block_backward(dout, s: _Saved, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm: _Dims):
+def _block_backward(dout, s: _Saved, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm: _Dims,
+                    fast: bool):
     """One block's backward (the mirror of ``_block_bwd_image``) from its
-    saves: (dx in the compute dtype, {leaf: f32 grad}, f32 drpb)."""
+    saves, its recompute in the forward's GELU form ``fast``: (dx in the
+    compute dtype, {leaf: f32 grad}, f32 drpb)."""
     x, x2 = s.x, s.x2
     c, t = dm.c, dm.t
     # recompute with the forward kernels
@@ -775,9 +816,9 @@ def _block_backward(dout, s: _Saved, p, rpb_i, mask_i, dpm_i, wm: WindowMap, dm:
     else:  # mode full, and f32 mode xs, whose attention backward writes att
         qkv = gemm_bias_epilogue(a, p["qkv_w"], p["qkv_b"])
     z = ln_rows(x2.view(-1, c), p["ln2_s"], p["ln2_b"])
-    if s.p is None:  # mode xs: fc1 again, gelu' in f32
+    if s.p is None:  # mode xs: fc1 again, gelu' in f32, in the forward's GELU form
         gp = torch.empty((t, p["fc1_w"].shape[1]), device=x.device, dtype=F32)
-        hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu_pair", gp=gp)
+        hid = gemm_bias_epilogue(z, p["fc1_w"], p["fc1_b"], "gelu_pair", gp=gp, fast_gelu=fast)
     else:  # mode full: only the GEMM operands a, qkv and z
         hid, gp = s.gelu, s.gelu_grad
     g = {}
@@ -813,20 +854,23 @@ class _TrunkFn(torch.autograd.Function):
     """The trunk with its backward on the kernels (the counterpart of
     ``_trunk_pallas``'s custom VJP): the forward keeps each block's saves
     (mode ``full`` when ``full``, else ``xs``), the backward walks the
-    blocks in reverse and recomputes the rest.  Returns dx (x's dtype),
-    drpb and the 12 stacked f32 parameter grads; dpm and the mask take
-    none."""
+    blocks in reverse and recomputes the rest, in the GELU form the forward
+    took (kept on ``ctx``, never read again from the environment).  Returns
+    dx (x's dtype), drpb and the 12 stacked f32 parameter grads; dpm and the
+    mask take none."""
 
     @staticmethod
-    def forward(ctx, x, rpb, dpm, mask, num_heads, window_size, full, *leaves):
+    def forward(ctx, x, rpb, dpm, mask, num_heads, window_size, full, fast_gelu, *leaves):
         params = dict(zip(PARAM_LEAVES, leaves))
         b, h, w, c, d, shift = _check_trunk(x, params, rpb, dpm, num_heads, window_size)
         dm = _Dims(b, h, w, c, num_heads, window_size)
         cparams = _compute_params(params, x.dtype)
+        fast = use_fast_gelu(x.dtype, fast_gelu)
         saves = []
-        y = _chain_forward(x.contiguous(), cparams, rpb, mask, dpm, dm, shift, saves, full)
+        y = _chain_forward(x.contiguous(), cparams, rpb, mask, dpm, dm, shift, fast, saves, full)
         ctx.save_for_backward(rpb, dpm)
         ctx.saves, ctx.params, ctx.mask, ctx.dm, ctx.shift = saves, cparams, mask, dm, shift
+        ctx.fast_gelu = fast
         return y
 
     @staticmethod
@@ -842,17 +886,18 @@ class _TrunkFn(torch.autograd.Function):
             wm = dm.window(shift if shifted else 0)
             p = {k: params[k][i] for k in PARAM_LEAVES}
             g, gi, drpb[i] = _block_backward(g, ctx.saves[i], p, rpb[i],
-                                             ctx.mask if shifted else None, dpm[i], wm, dm)
+                                             ctx.mask if shifted else None, dpm[i], wm, dm,
+                                             ctx.fast_gelu)
             ctx.saves[i] = None  # free the block's saves as soon as they are used
             for k in PARAM_LEAVES:
                 grads[k][i] = gi[k]
         ctx.saves = ctx.params = None
-        return (g, torch.stack(drpb), None, None, None, None, None,
+        return (g, torch.stack(drpb), None, None, None, None, None, None,
                 *(torch.stack(grads[k]) for k in PARAM_LEAVES))
 
 
 def swin_trunk(x, params: dict, rpb, mask, dpm, *, num_heads: int, window_size: int,
-               saves: Optional[bool] = None):
+               saves: Optional[bool] = None, fast_gelu: Optional[bool] = None):
     """D SwinBlocks on x (B, H, W, C) through the kernel chain, in x's dtype
     (float32, or bfloat16 with f32 params, rpb, mask and dpm).
 
@@ -866,15 +911,20 @@ def swin_trunk(x, params: dict, rpb, mask, dpm, *, num_heads: int, window_size: 
     ``full``), False keeps x and x2 only for the recompute backward (mode
     ``xs``); None means on for bf16 and off for f32, the JAX package's
     default (``saves_on``, overridden there by ``SEI_TRUNK_SAVES``).
+    ``fast_gelu`` picks the GELU's form (:func:`use_fast_gelu`: None reads
+    ``SEI_FAST_GELU``, unset the polynomial in bf16 and exact in f32); the
+    backward recomputes in the form its forward took.
     """
     mask = _as_mask(mask, x)
     full = x.dtype == BF16 if saves is None else bool(saves)
     leaves = [params[k] for k in PARAM_LEAVES]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, rpb, *leaves)):
-        return _TrunkFn.apply(x, rpb, dpm, mask, num_heads, window_size, full, *leaves)
+        return _TrunkFn.apply(x, rpb, dpm, mask, num_heads, window_size, full, fast_gelu,
+                              *leaves)
     b, h, w, c, d, shift = _check_trunk(x, params, rpb, dpm, num_heads, window_size)
     return _chain_forward(x.contiguous(), _compute_params(params, x.dtype), rpb, mask, dpm,
-                          _Dims(b, h, w, c, num_heads, window_size), shift)
+                          _Dims(b, h, w, c, num_heads, window_size), shift,
+                          use_fast_gelu(x.dtype, fast_gelu))
 
 
 def _window_tokens(y, ws):
@@ -896,16 +946,18 @@ def _ln(x, s, b):
 
 
 def trunk_reference(x, params: dict, rpb, mask, dpm, *, num_heads: int,
-                    window_size: int):
+                    window_size: int, fast_gelu: Optional[bool] = None):
     """Plain PyTorch trunk: the same function as :func:`swin_trunk`, written
     the straightforward way (roll, window partition, per-head attention,
     window reverse), independent of the kernels' row maps.  In bf16 it
     rounds where the JAX ``trunk_reference`` rounds (the products in f32 from
-    bf16-rounded operands, never a torch bf16 matmul) and uses the
-    polynomial GELU; in f32 every rounding is a no-op."""
+    bf16-rounded operands, never a torch bf16 matmul); in f32 every rounding
+    is a no-op.  Its GELU is the polynomial or the exact form as
+    ``use_fast_gelu(x.dtype, fast_gelu)`` says."""
     b, h, w, c, d, shift = _check_trunk(x, params, rpb, dpm, num_heads, window_size)
     mask = _as_mask(mask, x)
     cdt = x.dtype
+    fast = use_fast_gelu(cdt, fast_gelu)
     ws, nh = window_size, num_heads
     n, hd = ws * ws, c // nh
 
@@ -930,14 +982,17 @@ def trunk_reference(x, params: dict, rpb, mask, dpm, *, num_heads: int,
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         x2 = r(x + dpm[i, 0][:, None, None, None] * y)
         hid = r(_ln(x2, p["ln2_s"], p["ln2_b"])) @ r(p["fc1_w"]) + p["fc1_b"]
-        m = r(_gelu_fast(hid) if cdt == BF16 else F.gelu(hid))
+        # autograd through the polynomial keeps ~20 tensors of hid's size per
+        # block (tens of GB over a training step's graphs): it is recomputed
+        # in the backward instead, the same operations and the same bits
+        m = r(checkpoint(_gelu_fast, hid, use_reentrant=False) if fast else F.gelu(hid))
         m = r(m @ r(p["fc2_w"]) + p["fc2_b"])
         x = r(x2 + dpm[i, 1][:, None, None, None] * m)
     return x.to(cdt)
 
 
 __all__ = [
-    "KERNELS", "PARAM_LEAVES", "WindowMap", "gemm_bias_epilogue",
+    "KERNELS", "PARAM_LEAVES", "WindowMap", "gelu_launch_counts", "gemm_bias_epilogue",
     "gemm_dgrad", "gemm_wgrad", "launch_counts", "ln_rows", "ln_rows_bwd",
-    "reset_launch_counts", "swin_trunk", "trunk_reference", "window_rows",
+    "reset_launch_counts", "swin_trunk", "trunk_reference", "use_fast_gelu", "window_rows",
 ]

@@ -24,11 +24,15 @@
 * ``--eval_interval``, ``--eval_count`` and ``--ProposedLoss__sure_alternative
   r2r`` train and validate (``validation.csv``, ``ckp_best.pt``); without a
   val split, training goes on with the JAX package's message.
+* ``bin_torch/deblur`` and ``bin_torch/upsample`` (``bin/``'s arguments) run
+  in a subprocess on a folder of 2 measurement PNGs with a tiny SwinIR and
+  write the same ``estimates/`` as ``cli.test.main``, byte for byte.
 """
 
 import os
 import re
 import runpy
+import subprocess
 import sys
 import types
 
@@ -425,3 +429,33 @@ def test_ct_like_noise2inverse_eval_matches_eval_apply(run, ct_run, capsys):
                                              image_seed(0, gt.unique_id(i))), apply=apply)[:2]
             for i in (0, 1)]
     assert list(zip(result.psnr, result.ssim)) == want
+
+
+@pytest.mark.parametrize("wrapper,lead,task", [
+    ("deblur", [], ["--task", "deblurring"]),
+    ("upsample", ["2"], ["--task", "sr", "--sr_factor", "2"])])
+def test_bin_torch_wrapper_writes_what_cli_test_writes(tmp_path, wrapper, lead, task):
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        write_image(str(tmp_path / "in" / f"m{i}.png"), rng.random((3, 40, 48)))
+    extra = ["--device", "cpu", *TINY]
+    parser = config.DefaultArgParser()
+    config.add_test_args(parser)
+    _, _, model, _ = cli_test.build(parser.parse_args([*task, "--dataset", str(tmp_path / "in"),
+                                                       *extra]))
+    weights = tmp_path / "weights.pt"
+    torch.save(model.module.state_dict(), weights)
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep + os.environ["PATH"],
+               OMP_NUM_THREADS=str(torch.get_num_threads()))
+    subprocess.run(["bash", os.path.join(REPO, "bin_torch", wrapper), *lead, str(weights),
+                    str(tmp_path / "in"), str(tmp_path / "wrapper"), *extra],
+                   check=True, env=env, timeout=600)
+    cli_test.main([*task, "--model_kind", "Proposed", "--weights", str(weights), "--dataset",
+                   str(tmp_path / "in"), "--out_dir", str(tmp_path / "main"), "--save_images",
+                   *extra])
+    names = sorted(os.listdir(tmp_path / "main" / "estimates"))
+    assert names == ["m0.png", "m1.png"]
+    assert sorted(os.listdir(tmp_path / "wrapper" / "estimates")) == names
+    for name in names:
+        got = (tmp_path / "wrapper" / "estimates" / name).read_bytes()
+        assert got == (tmp_path / "main" / "estimates" / name).read_bytes()

@@ -8,7 +8,8 @@ subprocess, called through its C entry point ``sei_gemm_bias_epilogue``
 on seeded inputs, and its outputs are held against the plain version
 ``_torch_gemm_bias_epilogue`` at 1e-4 (abs and rel, as ``chip_smoke.py``).
 
-The cases cover every epilogue (gelu_pair's f32 gelu' included), ragged M,
+The cases cover every epilogue (gelu_pair's f32 gelu' included; the GELU
+epilogues in both forms, exact and the polynomial of ``SEI_FAST_GELU``), ragged M,
 K and N (tails of the block tile and of the 20-deep slice), odd widths and a
 view at an odd offset (the one-element path), and the window store with and
 without shift; the library is built at the shipped tile and at other tiles
@@ -37,7 +38,7 @@ RUNNER = textwrap.dedent(r"""
     lib = ctypes.CDLL(sys.argv[1])
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.sei_gemm_bias_epilogue
-    fn.argtypes = [I, I, P, P, P, P, P, I, P, P, *[I] * 10, P]
+    fn.argtypes = [I, I, P, P, P, P, P, I, P, P, *[I] * 11, P]
     fn.restype = I
     inp = np.load(sys.argv[2])
     outs = {}
@@ -52,7 +53,7 @@ RUNNER = textwrap.dedent(r"""
 
     for name in sorted({k.split("/")[0] for k in inp.files}):
         g = lambda k: inp[f"{name}/{k}"]
-        m, k, n, epi, rpi, windowed, h, w, ws, shift, offset = (int(v) for v in g("meta"))
+        m, k, n, epi, fast, rpi, windowed, h, w, ws, shift, offset = (int(v) for v in g("meta"))
         _, a = view(g("a"), offset)
         _, wt = view(g("w"), offset)
         _, out = view(np.full(m * n, np.nan, np.float32), offset)
@@ -64,7 +65,7 @@ RUNNER = textwrap.dedent(r"""
             _, gp = view(np.full(m * n, np.nan, np.float32), offset)
         bias = np.ascontiguousarray(g("b"))
         code = fn(0, 0, p(a), p(wt), p(bias), p(out), p(gp), 0, p(res), p(dpm), m, k, n, epi,
-                  rpi, windowed, h, w, ws, shift, None)
+                  fast, rpi, windowed, h, w, ws, shift, None)
         if code:
             sys.exit(f"{name}: sei_gemm_bias_epilogue returned {code}")
         outs[f"{name}/out"] = out.copy()
@@ -73,8 +74,10 @@ RUNNER = textwrap.dedent(r"""
     np.savez(sys.argv[3], **outs)
 """)
 
-# (name, M, K, N, epilogue, window (H, W, ws, shift) or None, element offset)
-CASES = [
+# (name, M, K, N, epilogue, window (H, W, ws, shift) or None, element offset);
+# each GELU case runs in both forms: the name as it is the exact GELU (the
+# f32 default), with "_fast" appended the polynomial
+_BASE_CASES = [
     ("aligned_none", 130, 24, 100, "none", None, 0),
     ("aligned_gelu", 130, 24, 100, "gelu", None, 0),
     ("aligned_gelu_pair", 130, 24, 100, "gelu_pair", None, 0),
@@ -93,18 +96,21 @@ CASES = [
     ("window_shift2", 192, 24, 20, "residual", (8, 12, 4, 2), 0),
     ("window_shift2_odd", 192, 13, 17, "residual", (8, 12, 4, 2), 0),
 ]
+CASES = [(*c, False) for c in _BASE_CASES] + [
+    (c[0] + "_fast", *c[1:], True) for c in _BASE_CASES if c[4].startswith("gelu")]
 # the shipped tile gets every case; the other tiles of the sweep one aligned,
 # one ragged and one windowed case each
 TILES = {"128x96x20": [c[0] for c in CASES],
          "128x96x12": ["k_tail_none", "width180_residual", "odd_gelu", "window_shift2"],
          "64x96x12": ["aligned_residual", "odd_gelu_pair", "window_shift2"],
          "128x192x12": ["width180_residual", "odd_gelu_pair", "window_shift2"],
-         "64x192x12": ["width180_gelu", "k_tail_gelu_pair", "window_shift2_odd"]}
+         "64x192x12": ["width180_gelu", "k_tail_gelu_pair", "window_shift2_odd",
+                       "odd_gelu_pair_fast"]}
 
 
 def _inputs(case):
-    name, m, k, n, epi, win, offset = case
-    rng = np.random.default_rng(sum(map(ord, name)))
+    name, m, k, n, epi, win, offset, fast = case
+    rng = np.random.default_rng(sum(map(ord, name.removesuffix("_fast"))))
     f = np.float32
     arrs = {"a": rng.standard_normal((m, k)).astype(f),
             "w": (rng.standard_normal((k, n)) * 0.3).astype(f),
@@ -118,20 +124,21 @@ def _inputs(case):
     h, w, ws, shift = win or (0, 0, 0, 0)
     if win:
         assert m == b_img * h * w
-    arrs["meta"] = np.array([m, k, n, EPILOGUES[epi], rpi, int(win is not None), h, w, ws,
-                             shift, offset], np.int64)
+    arrs["meta"] = np.array([m, k, n, EPILOGUES[epi], int(fast), rpi, int(win is not None), h,
+                             w, ws, shift, offset], np.int64)
     return arrs
 
 
 def _plain(case, arrs):
-    name, m, k, n, epi, win, _ = case
+    name, m, k, n, epi, win, _, fast = case
     t = {key: torch.from_numpy(v) for key, v in arrs.items() if key != "meta"}
     wm = st.WindowMap(*win) if win else None
     res = t.get("res")
     if res is not None and wm is not None:
         res = res.view(-1, wm.h, wm.w, n)
     gp = torch.empty(m, n) if epi == "gelu_pair" else None
-    out = st._torch_gemm_bias_epilogue(t["a"], t["w"], t["b"], epi, res, t.get("dpm"), wm, gp)
+    out = st._torch_gemm_bias_epilogue(t["a"], t["w"], t["b"], epi, res, t.get("dpm"), wm, gp,
+                                       fast)
     return out.reshape(m, n).numpy(), None if gp is None else gp.numpy()
 
 

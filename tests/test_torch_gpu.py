@@ -50,9 +50,15 @@ ragged and unaligned operands, and repeat bit for bit); on a two-block bf16 trun
 gradients within 3e-2 of each tensor's largest entry (the JAX trunk test's
 bound for its bf16 kernel against autograd of its reference).
 
-The launch-overhead probes (K8 ``copy_probe`` at every block count, K9
-``trunk_skeleton`` in each variant) equal their plain versions exactly (an
-f32 add and one rounding).  A tiny SwinIR ``Trainer`` captured as a CUDA
+The GELU epilogues in the form that is not their dtype's default
+(``SEI_FAST_GELU``: f32 with the polynomial, bf16 with the exact erf, gp
+in bf16 or f32) are held at the same gates, on ragged, odd and unaligned
+operands, differ from the default form and repeat bit for bit; without
+the env ``fast_gelu=None`` is the dtype's form bit for bit.
+The launch-overhead probes (K8 ``copy_probe`` at every block count, and
+in 16-byte accesses at each element offset, ragged counts and 1 or 132
+blocks; K9 ``trunk_skeleton`` in each variant) equal their plain versions
+exactly (an f32 add and one rounding).  A tiny SwinIR ``Trainer`` captured as a CUDA
 graph (``scan_steps`` 1 and 2, f32 and bf16; the bf16 module path; the
 global-norm clip) equals the eager trainer bit for bit over two steps
 (losses, parameters, Adam state): the same kernels run in the same order on
@@ -767,6 +773,59 @@ def test_gemm_residual_window_store_bf16(gpu, shift):
     _close_bf16(got, st._torch_gemm_bias_epilogue(a, w, b, "residual", res, dpm, wm))
 
 
+# the GELU epilogues in the form that is not their dtype's default
+# (SEI_FAST_GELU): f32 with the polynomial, bf16 with the exact erf; the
+# step's and the eval's widths, ragged and odd shapes, unaligned views
+_OTHER_FORM_SHAPES = [(100, 20, 33), (4608, 180, 360), (1037, 360, 180), (65, 17, 36),
+                      (300, 180, 180, 1)]
+
+
+@pytest.mark.parametrize("shape", _OTHER_FORM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype,epilogue", [
+    (F32, "gelu"), (F32, "gelu_pair"), (BF16, "gelu"), (BF16, "gelu_pair"),
+    (BF16, "gelu_pair_f32")])
+def test_gemm_bias_epilogue_other_gelu_form(gpu, shape, dtype, epilogue):
+    m, k, n, offset = (*shape, 0)[:4]
+    fast = dtype == F32
+    args, kw, gp_p = _gemm_case(gpu, m, k, n, epilogue, offset=offset, dtype=dtype)
+    before = dict(st.gemm_bias_epilogue.gelu_launches)
+    got = st.gemm_bias_epilogue(*args, **kw, fast_gelu=fast)
+    form = "fast" if fast else "exact"
+    assert st.gemm_bias_epilogue.gelu_launches[form] == before[form] + 1
+    want = st._torch_gemm_bias_epilogue(*args, kw["res"], kw["dpm"], None, gp_p, fast)
+    check = (lambda g, w_: _close(g, w_, 1e-4)) if dtype == F32 else _close_bf16
+    check(got, want)
+    gp = kw["gp"]
+    gp_got = None if gp is None else gp.clone()
+    if gp is not None:
+        check(gp_got, gp_p)
+    # the form reached the kernel: f32 values move (a bf16 output only where
+    # a rounding flips, so at the large shape), and the repeat is bit for bit
+    default = st.gemm_bias_epilogue(*args, **kw)
+    torch.cuda.synchronize()
+    if dtype == F32 or m * n > 10 ** 6:
+        assert not torch.equal(got, default)
+    if gp is not None and gp.dtype == F32:
+        assert not torch.equal(gp_got, gp)
+    again = st.gemm_bias_epilogue(*args, **kw, fast_gelu=fast)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and (gp is None or torch.equal(gp, gp_got))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("epilogue", ["gelu", "gelu_pair"])
+def test_gemm_bias_epilogue_default_form_is_the_dtypes(gpu, dtype, epilogue, monkeypatch):
+    """Without SEI_FAST_GELU, fast_gelu=None is the dtype's form (exact in
+    f32, the polynomial in bf16), bit for bit; the env switches it."""
+    monkeypatch.delenv("SEI_FAST_GELU", raising=False)
+    args, kw, _ = _gemm_case(gpu, 4608, 180, 360, epilogue, dtype=dtype)
+    default = st.gemm_bias_epilogue(*args, **kw).clone()
+    assert torch.equal(default, st.gemm_bias_epilogue(*args, **kw, fast_gelu=dtype == BF16))
+    monkeypatch.setenv("SEI_FAST_GELU", "0" if dtype == BF16 else "1")
+    assert torch.equal(st.gemm_bias_epilogue(*args, **kw),
+                       st.gemm_bias_epilogue(*args, **kw, fast_gelu=dtype != BF16))
+
+
 @pytest.mark.parametrize("n,hd", [(16, 8), (64, 30)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attn_fwd_bf16_p_store(gpu, n, hd, masked):
@@ -1320,6 +1379,23 @@ def test_copy_probe(gpu, dtype, blocks, shape):
     for add in (True, False):
         got = lp.copy_probe(x, blocks=blocks, add=add)
         torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, lp._torch_copy_probe(x, add))
+
+
+# 16-byte accesses: x at each element offset from a 16-byte boundary (the
+# scalar head), counts that leave a tail, fewer elements than one pack
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("blocks", [1, 132])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 5, 7])
+@pytest.mark.parametrize("n", [1, 6, 9, 1001, 40963])
+def test_copy_probe_offsets_and_ragged_counts(gpu, dtype, blocks, offset, n):
+    buf = (_rnd(gpu, n + 16) * 8).to(dtype)
+    x = buf[offset:offset + n]
+    assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
+    for add in (True, False):
+        got = lp.copy_probe(x, blocks=blocks, add=add)
+        torch.cuda.synchronize()
+        assert got.data_ptr() % 16 == x.data_ptr() % 16
         assert got.dtype == dtype and torch.equal(got, lp._torch_copy_probe(x, add))
 
 

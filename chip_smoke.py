@@ -30,10 +30,11 @@
    output into the (B_, N, nh, hd) att buffer, do from the datt buffer, dq,
    dk, dv into a second (T, 540) buffer), and the backward's dv from its
    recompute form must equal its dv from the forward's p_out bit for bit
-   (both kernels take p from one softmax).  The bf16 LN backward's calls
-   (LN2 and LN1 at both graphs) also print their device time apart: the
-   LN kernel's and the dgamma/dbeta sums' (torch.profiler), beside the
-   wrapper's queued time; its completion ticket must be back at 0.  Then
+   (both kernels take p from one softmax).  The LN backward's calls (f32
+   and bf16, LN2 and LN1 at both graphs) also print their device time
+   apart: the LN kernel's and the dgamma/dbeta sums' (torch.profiler),
+   beside the wrapper's queued time; its completion ticket must be back at
+   0 after each dtype's calls.  Then
    SHA-256 digests of the attention backward's outputs, the f32 forward's
    and the LN backward's (f32 and bf16, both forms) on seeded inputs
    (``--bits DIR`` prints them alone for the port in DIR, so two trees can
@@ -197,8 +198,9 @@
    Each kernel entry names its ``design`` (``mma.sync`` tensor cores for
    the bf16 ``gemm_wgrad``, ``gemm_bias_epilogue``, ``gemm_dgrad``,
    ``window_attn_bwd`` and ``window_attn_fwd``, CUDA-core FMAs for the
-   rest; the bf16 ``ln_rows_bwd`` in 4-channel accesses with a cp.async
-   ring of rows per warp; the f32
+   rest; the ``ln_rows_bwd`` (f32 and bf16) in 4-channel accesses with a
+   cp.async ring of rows per warp, the bf16 ``ln_rows`` in 4-channel
+   8-byte accesses, a row to a group of lanes; the f32
    ``gemm_bias_epilogue`` in 8x6
    register tiles fed by ``cp.async``, the f32 ``gemm_dgrad`` in 8x6
    register tiles fed through registers, the f32 ``gemm_wgrad`` in 8x6
@@ -211,7 +213,9 @@
    library call carries
    ``library_queued_ms``, the same for it.  A line before the kernel line
    gives the replaced versions' earlier times, marked as not measured in
-   this run; each profiled step prints its device time by kernel.
+   this run; each profiled step prints its device time by kernel and
+   PyTorch's ``reduce_kernel`` launches by the wrapper that made them, and
+   fails if one follows an LN backward kernel (its sums are the kernel's).
 
 Imports nothing of JAX and nothing of ``sei_tpu``.
 """
@@ -762,13 +766,19 @@ def check_train_kernels(timed: bool) -> dict:
                            st.ln_rows_bwd(x, gamma, dz, window=wmap, dres=dres),
                            st._torch_ln_rows_bwd(x, gamma, dz, wmap, dres),
                            [(1e-5, 1e-5), (1e-3, 1e-4), (1e-3, 1e-4)])
-            record("ln_rows_bwd", f"{variant} T={t}", errs,
-                   lambda: st.ln_rows_bwd(x, gamma, dz, window=wmap, dres=dres),
+
+            def call(x=x, dz=dz, wmap=wmap, dres=dres):
+                return st.ln_rows_bwd(x, gamma, dz, window=wmap, dres=dres)
+
+            record("ln_rows_bwd", f"{variant} T={t}", errs, call,
                    lambda: st._torch_ln_rows_bwd(x, gamma, dz, wmap, dres),
                    lambda: torch.ops.aten.native_layer_norm_backward(
                        dz, x2d, [C], mean, rstd, gamma, None, [True, True, False]),
                    12.0 * t * C, 4.0 * (4 * t * C + 3 * C), main)
+            if timed:
+                ln_bwd_apart(rows["ln_rows_bwd"][-1], f"ln_rows_bwd[{variant} T={t}]", call)
             del dz, dres
+    ln_bwd_ticket_gate("ln_rows_bwd[f32]")
     return rows
 
 
@@ -1033,44 +1043,64 @@ def check_bf16_kernels(timed: bool) -> dict:
                    lambda: torch.ops.aten.native_layer_norm_backward(
                        dzb, x2d, [C], mean, rstd, gb, None, [True, True, False]),
                    12.0 * t * C, nb(x, dz, dres, outs[0], gamma) + 8.0 * C, 1 if main else 0)
-            if timed:  # the call's device time apart: the LN kernel, and the dgamma/dbeta sums
-                r = rows["ln_rows_bwd"][-1]
-                split = device_ms_by_name(call)
-                r["kernel_ms"] = sum(ms for k, ms in split.items() if "ln_rows_bwd" in k
-                                     and "ln_rows_bwd_sum" not in k)
-                r["sums_ms"] = sum(ms for k, ms in split.items() if "reduce_kernel" in k
-                                   or "ln_rows_bwd_sum" in k)
-                print(f"    ln_rows_bwd[bf16 {variant} T={t}] apart: LN kernel {r['kernel_ms']:.4f} "
-                      f"ms, dgamma/dbeta sums {r['sums_ms']:.4f} ms (profiler, per call), "
-                      f"the wrapper queued {r['queued_ms']:.4f} ms; by name {json.dumps(split)}")
+            if timed:
+                ln_bwd_apart(rows["ln_rows_bwd"][-1], f"ln_rows_bwd[bf16 {variant} T={t}]", call)
             del dz, dres, outs
-    ticket = ln_bwd_ticket()
-    print(f"  ln_rows_bwd[bf16] completion ticket after every call: {ticket} -> "
-          f"{'ok' if ticket in (0, None) else 'FAIL'}")
-    if ticket not in (0, None):
-        fail("the bf16 LN backward's ticket is not back at 0")
+    ln_bwd_ticket_gate("ln_rows_bwd[bf16]")
     return rows
 
 
-def ln_bwd_config(built) -> str:
-    """The bf16 LN backward's build switches in the library ``built``, and
-    the blocks per SM of its occupancy in the bf16 step's two forms (C = 180)."""
+def ln_bwd_apart(r: dict, label: str, call) -> None:
+    """The LN backward call's device time apart (torch.profiler, per call):
+    the LN kernel's (``kernel_ms``) and the dgamma/dbeta sums' (``sums_ms``:
+    PyTorch reductions or the sum kernel), into the variant's row ``r``."""
+    split = device_ms_by_name(call)
+    r["kernel_ms"] = sum(ms for k, ms in split.items() if "ln_rows_bwd" in k
+                         and "ln_rows_bwd_sum" not in k)
+    r["sums_ms"] = sum(ms for k, ms in split.items() if "reduce_kernel" in k
+                       or "ln_rows_bwd_sum" in k)
+    print(f"    {label} apart: LN kernel {r['kernel_ms']:.4f} ms, dgamma/dbeta sums "
+          f"{r['sums_ms']:.4f} ms (profiler, per call), the wrapper queued "
+          f"{r['queued_ms']:.4f} ms; by name {json.dumps(split)}")
+
+
+def ln_bwd_ticket_gate(label: str) -> None:
+    ticket = ln_bwd_ticket()
+    print(f"  {label} completion ticket after every call: {ticket} -> "
+          f"{'ok' if ticket in (0, None) else 'FAIL'}")
+    if ticket not in (0, None):
+        fail(f"the LN backward's ticket is not back at 0 ({label})")
+
+
+def ln_configs(built) -> str:
+    """The vector LN kernels' build switches in the library ``built`` and
+    their blocks per SM at C = 180: the backward with bf16 x (the bf16
+    step's LN2 and LN1 forms) and with f32 x, and the bf16 forward."""
     import torch
 
-    if not hasattr(built.lib, "sei_ln_rows_bwd_bf16_config"):
+    lib, dev = built.lib, torch.cuda.current_device()
+    if not hasattr(lib, "sei_ln_rows_bwd_f32_config"):
         return "not in this library (an earlier tree's)"
-    cfg = [built.lib.sei_ln_rows_bwd_bf16_config(i) for i in range(5)]
-    per_sm = [built.lib.sei_ln_rows_bwd_bf16_blocks_per_sm(torch.cuda.current_device(), *f, C)
-              for f in ((0, 1, 0), (1, 0, 1))]
-    return (f"{cfg[0]} lanes per row ({32 // cfg[0]} rows per warp), a cp.async ring of up to "
-            f"{cfg[1]} stages per warp, {cfg[2]} warps per block, registers capped for {cfg[3]} "
-            f"block(s) per SM, "
-            f"occupancy {per_sm[0]} (LN2) / {per_sm[1]} (LN1) blocks per SM, partials summed by "
-            + ("the last block" if cfg[4] else "a second kernel"))
+    out = []
+    for dtype, forms in (("bf16", ((0, 1, 0), (1, 0, 1))), ("f32", ((0, 0, 0),))):
+        cfg = [getattr(lib, f"sei_ln_rows_bwd_{dtype}_config")(i) for i in range(5)]
+        per_sm = [getattr(lib, f"sei_ln_rows_bwd_{dtype}_blocks_per_sm")(dev, *f, C)
+                  for f in forms]
+        out.append(f"{dtype} LN backward: {cfg[0]} lanes per row ({32 // cfg[0]} rows per warp), "
+                   f"a cp.async ring of up to {cfg[1]} stages per warp, {cfg[2]} warps per block, "
+                   f"registers capped for {cfg[3]} block(s) per SM, occupancy "
+                   f"{' / '.join(map(str, per_sm))} blocks per SM, partials summed by "
+                   + ("the last block" if cfg[4] else "a second kernel"))
+    cfg = [lib.sei_ln_rows_bf16_config(i) for i in range(4)]
+    out.append(f"bf16 LN forward: {cfg[0]} lanes per row, {cfg[1]} steps per warp "
+               f"({cfg[1] - 1} loaded ahead) in registers, {cfg[2]} warps per block, "
+               f"registers capped for {cfg[3]} block(s) per SM, "
+               f"occupancy {lib.sei_ln_rows_bf16_blocks_per_sm(dev, C)} blocks per SM")
+    return "; ".join(out)
 
 
 def ln_bwd_ticket():
-    """The bf16 LN backward's completion ticket on the current device (0
+    """The LN backward's completion ticket on the current device (0
     between calls); None for a library without one (an earlier tree's, when
     this script measures it)."""
     import ctypes
@@ -1080,11 +1110,13 @@ def ln_bwd_ticket():
     from sei_tpu_torch.ops import _build
 
     lib = _build.library().lib
-    if not hasattr(lib, "sei_ln_rows_bwd_bf16_ticket"):
+    name = next((n for n in ("sei_ln_rows_bwd_ticket", "sei_ln_rows_bwd_bf16_ticket")
+                 if hasattr(lib, n)), None)
+    if name is None:
         return None
     value = ctypes.c_uint(1)
-    code = lib.sei_ln_rows_bwd_bf16_ticket(torch.cuda.current_device(), ctypes.addressof(value))
-    _build.check(code, "sei_ln_rows_bwd_bf16_ticket")
+    code = getattr(lib, name)(torch.cuda.current_device(), ctypes.addressof(value))
+    _build.check(code, name)
     return value.value
 
 
@@ -1373,9 +1405,10 @@ PORT_KERNELS = ("ln_rows", "gemm_bias_epilogue", "window_attn_fwd", "gemm_dgrad"
 # a port kernel's CUDA function name, ``<kernel>_<form>kernel``: the form's
 # label in a profile split
 KERNEL_FORMS = {"": "", "f32_": "", "mma_": "[mma]", "vec_": "[vec]", "sum_": "[sum]"}
-# the kernels whose wrappers sum their partials with two torch reductions
-# (name fragment -> wrapper): every weight grad, and the f32 LN backward
-REDUCE_CALLERS = {"gemm_wgrad_": "gemm_wgrad", "ln_rows_bwd_kernel": "ln_rows_bwd"}
+# the kernels whose wrappers summed their partials with two torch
+# reductions (name fragment -> wrapper): every weight grad still does; the
+# LN backward (every form) must not (its partials are summed on the device)
+REDUCE_CALLERS = {"gemm_wgrad_": "gemm_wgrad", "ln_rows_bwd_": "ln_rows_bwd"}
 
 
 def kernel_split(events) -> dict:
@@ -1404,8 +1437,10 @@ def reduce_callers(events) -> dict:
     """The profile's ``at::native::reduce_kernel`` launches by the port
     wrapper that made them: the two that follow a kernel named in
     ``REDUCE_CALLERS`` on the device (its wrapper's two torch sums of the
-    kernel's partials), ``other`` for the rest; launches and device ms."""
-    out, owner, left = {}, None, 0
+    kernel's partials), ``other`` for the rest; launches and device ms,
+    every wrapper of ``REDUCE_CALLERS`` listed."""
+    out = {w: {"launches": 0, "ms": 0.0} for w in REDUCE_CALLERS.values()}
+    owner, left = None, 0
     for e in sorted(events, key=lambda e: e.time_range.start):
         if "reduce_kernel" in e.name:
             r = out.setdefault(owner if left > 0 else "other", {"launches": 0, "ms": 0.0})
@@ -1457,7 +1492,10 @@ def profile_step(step_fn, label: str) -> tuple[float, float]:
     print(f"  device ms by kernel, {label}: {json.dumps(kernel_split(events))}")
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    print(f"  reduce_kernel by caller, {label}: {json.dumps(reduce_callers(kernels))}")
+    callers = reduce_callers(kernels)
+    print(f"  reduce_kernel by caller, {label}: {json.dumps(callers)}")
+    if callers["ln_rows_bwd"]["launches"]:
+        fail(f"{label}: torch reductions after an LN backward kernel")
     return wall_ms, total
 
 
@@ -3787,9 +3825,14 @@ DESIGNS = {"gemm_wgrad[bf16]": "mma.sync bf16, f32 acc",
            "ln_rows_bwd[bf16]": "cuda-core fma, 4 channels per access, a row to a group of "
                                 "lanes, a cp.async ring of rows per warp in shared memory, "
                                 "dgamma/dbeta summed on the device in block order",
+           "ln_rows[bf16]": "cuda-core fma, 4 channels per 8-byte load and store, a row to a "
+                            "group of lanes (two rows per warp), 16 warps per block, one wave",
            "gemm_bias_epilogue[bf16]": "mma.sync bf16, f32 acc",
            "gemm_dgrad[bf16]": "mma.sync bf16, f32 acc",
            "gemm_bias_epilogue": "cuda-core fma, 8x6 register tiles, cp.async",
+           "ln_rows_bwd": "cuda-core fma, 4 channels per 16-byte access, a row to a group of "
+                          "lanes, a cp.async ring of rows per warp in shared memory, "
+                          "dgamma/dbeta summed on the device in block order",
            "gemm_dgrad": "cuda-core fma, 8x6 register tiles, operands transposed through registers",
            "gemm_wgrad": "cuda-core fma, 8x6 register tiles, A by cp.async, dy gathered through "
                          "registers, splits from the kernel's occupancy",
@@ -3809,9 +3852,10 @@ DESIGNS["window_attn_fwd[bf16 module path]"] = DESIGNS["window_attn_fwd[bf16]"]
 DESIGNS["window_attn_bwd[bf16 module path]"] = DESIGNS["window_attn_bwd[bf16]"]
 DESIGN_CUDA_CORES = "cuda-core fma"
 # the times of the versions a redesign replaced, ms per SwinBlock, as an
-# earlier run of this script measured them on an NVIDIA H100 80GB HBM3 at
-# 700.00 W (PERF.md section 6 names the run); printed apart from the kernels
-# line, which holds only this run's measurements
+# earlier run of this script (the LN kernels': tools_torch/ln_times.py on the
+# parent tree) measured them on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md section 6 names the run); printed apart from the kernels line,
+# which holds only this run's measurements
 HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core fma 1.1579 ms; "
               "gemm_bias_epilogue[bf16] cuda-core fma 1.2657 ms; "
               "gemm_dgrad[bf16] cuda-core fma 0.8734 ms; "
@@ -3831,7 +3875,15 @@ HISTORICAL = ("historical, not measured in this run: gemm_wgrad[bf16] cuda-core 
               "partials summed by two torch reductions 0.2046 ms, 0.1109 queued (T=36864: ln2 "
               "0.0577, ln1_window 0.0532; T=18432: 0.0359, 0.0353); "
               "copy_probe one 2- or 4-byte element per access 0.0052 ms queued (bf16, 1056 "
-              "blocks)")
+              "blocks); "
+              "ln_rows_bwd cuda-core fma, one warp per row, scalar loads, dgamma/dbeta partials "
+              "summed by two torch reductions 0.1200 ms queued (T=36864: ln2 0.0595, ln1_window "
+              "0.0605, of which the kernel 0.0388 / 0.0395 and the sums 0.0169 / 0.0164; "
+              "T=18432: 0.0414, 0.0423); "
+              "ln_rows[bf16] cuda-core fma, one warp per row, scalar loads 0.0631 ms queued "
+              "(T=36864: ln1_shift_window 0.0199, ln2 0.0117, each twice a block; T=18432: "
+              "0.0114, 0.0071) (both LN lines: tools_torch/ln_times.py on the earlier design, "
+              "NVIDIA H100 80GB HBM3, 700.00 W, mean of two runs)")
 
 
 def kernel_entries(rows: dict, sources: dict, launches: dict, suffix: str, peak: float,
@@ -3972,11 +4024,13 @@ def main(argv: list[str]) -> int:
                           ("f32 attention forward", "window_attn_fwd_f32_kernel"),
                           ("bf16 attention backward", "window_attn_bwd_mma_kernel"),
                           ("bf16 attention forward", "window_attn_fwd_mma_kernel"),
-                          ("bf16 LN backward", "ln_rows_bwd_vec_kernel"),
-                          ("bf16 LN backward's sum", "ln_rows_bwd_sum_kernel")):
+                          ("bf16 LN forward", "ln_rows_vec_kernel"),
+                          ("f32 LN backward", "ln_rows_bwd_vec_kernel<float"),
+                          ("bf16 LN backward", "ln_rows_bwd_vec_kernel<__nv_bfloat16"),
+                          ("LN backward's sum", "ln_rows_bwd_sum_kernel")):
         print(f"ptxas, {label}: " + " | ".join(
             line.split(" ", 1)[1] for line in report if kernel in line))
-    print(f"bf16 LN backward build: {ln_bwd_config(built)}")
+    print(f"LN builds: {ln_configs(built)}")
 
     rows = check_kernels(timed=not quick)
     for name, variants in check_train_kernels(timed=not quick).items():

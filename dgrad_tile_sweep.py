@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Tile sweeps of four GEMM kernels, four attention kernels and the bf16 LN
-backward on one card.
+"""Tile sweeps of four GEMM kernels, four attention kernels, the f32 and bf16
+LN backward and the bf16 LN forward on one card.
 
     python3 dgrad_tile_sweep.py                 # bf16 gemm_dgrad, output tile width
     python3 dgrad_tile_sweep.py --fwd-f32       # f32 gemm_bias_epilogue, block tile
@@ -11,6 +11,8 @@ backward on one card.
     python3 dgrad_tile_sweep.py --attn-bwd-bf16 # bf16 window_attn_bwd, warps, stages, blocks
     python3 dgrad_tile_sweep.py --attn-fwd-bf16 # bf16 window_attn_fwd, stages, blocks, p route
     python3 dgrad_tile_sweep.py --ln-bwd-bf16   # bf16 ln_rows_bwd, lanes, stages, warps, sum route
+    python3 dgrad_tile_sweep.py --ln-bwd-f32    # f32 ln_rows_bwd, lanes, stages, warps, sum route
+    python3 dgrad_tile_sweep.py --ln-bf16       # bf16 ln_rows, lanes, steps, warps
 
 Without a flag: the bf16 ``gemm_dgrad`` tensor-core kernel.  Its output tile
 is 64 rows by ``SEI_DGRAD_TN`` columns of K
@@ -132,6 +134,22 @@ turns, on the bf16 step's four calls as the trunk makes them: LN2 (f32 dz,
 bf16 residual gradient -> f32 dx2) and LN1 (the shifted window map, bf16
 da, f32 dx2 -> bf16 dx) at both graphs; the build is chosen on the bf16
 step's sum: 36 SwinBlocks per graph, each one LN2 and one LN1 call.
+
+With ``--ln-bwd-f32``: the same kernel with f32 x (``Build<float>``, the
+f32 step's recompute backward: dz, dres and dx f32), its own switches
+(``-DSEI_LN_BWD_F32_LANES``, ``_STAGES``, ``_WARPS``, ``_MINB``,
+``_TICKET``), on the f32 step's four calls (LN2 and LN1 at both graphs, f32
+throughout, ``chip_smoke.py``'s f32 tolerances); the build is chosen on the
+f32 step's sum, as above.
+
+With ``--ln-bf16``: the bf16 ``ln_rows`` kernel
+(``sei_tpu_torch/ops/csrc/ln_rows.cu``, ``ln_rows_vec_kernel``), its lanes
+per row, the steps each warp holds (the loads of all but one issued ahead
+of the one computed, in registers), its warps per block and blocks per SM
+(``-DSEI_LN_BF16_LANES``, ``_STAGES``, ``_WARPS``, ``_MINB``), on
+the bf16 step's calls: LN1 (the shifted window map) and LN2 at both graphs,
+each run twice per SwinBlock (the forward and the backward's recompute);
+the build is chosen on the bf16 step's sum.
 """
 
 from __future__ import annotations
@@ -209,6 +227,24 @@ DEFAULT_ATTN_FWD_BF16_BLOCK = (2, 4, 1, 0)  # the library's
 LN_BWD_BF16_BUILDS = ((16, 2, 16, 1, 1), (16, 2, 16, 1, 0), (16, 3, 16, 1, 1), (16, 3, 16, 1, 0),
                       (16, 4, 16, 1, 1), (16, 2, 8, 2, 1), (16, 3, 8, 2, 1), (32, 2, 16, 1, 1))
 DEFAULT_LN_BWD_BF16_BUILD = (16, 2, 16, 1, 1)
+# the same switches with f32 x: a step of a warp's ring is twice the bf16
+# LN2 one (4.5 KB at C = 180 and 16 lanes: two rows per warp; 3 KB at 32
+# lanes: one row, 2 quads a lane), so 16 warps hold two stages (147 KB or
+# 98 KB, one block per SM) and, at 32 lanes, three or four (147, 196 KB);
+# 32 lanes, two stages, 16 warps, the last block summing is the library's;
+# each lane count with a second kernel summing; 8 warps (two blocks per
+# SM); 8 lanes (four rows per warp, 6 quads a lane)
+LN_BWD_F32_BUILDS = ((32, 2, 16, 1, 1), (16, 2, 16, 1, 1), (16, 2, 16, 1, 0), (32, 3, 16, 1, 1),
+                     (32, 4, 16, 1, 1), (32, 2, 16, 1, 0), (32, 2, 8, 2, 1), (16, 2, 8, 2, 1),
+                     (16, 4, 8, 1, 1), (8, 2, 8, 2, 1))
+DEFAULT_LN_BWD_F32_BUILD = (32, 2, 16, 1, 1)
+# (lanes per row, steps a warp holds, warps per block, blocks per SM the
+# registers are capped for): 16 lanes holding one step (no load ahead) in
+# blocks of 16 warps, two per SM (the library's), of 8 warps at 4 and 6 per
+# SM, of 4 warps at 8; two and three steps; 8 and 32 lanes
+LN_BF16_BUILDS = ((16, 1, 16, 2), (16, 1, 8, 4), (16, 1, 8, 6), (16, 1, 4, 8), (16, 2, 8, 4),
+                  (16, 3, 8, 4), (8, 1, 8, 4), (32, 1, 8, 4))
+DEFAULT_LN_BF16_BUILD = (16, 1, 16, 2)
 
 
 def main(argv: list[str]) -> int:
@@ -239,6 +275,10 @@ def main(argv: list[str]) -> int:
         return sweep_attn_fwd_bf16(smi)
     if "--ln-bwd-bf16" in argv:
         return sweep_ln_bwd_bf16(smi)
+    if "--ln-bwd-f32" in argv:
+        return sweep_ln_bwd_f32(smi)
+    if "--ln-bf16" in argv:
+        return sweep_ln_bf16(smi)
     return sweep_dgrad_bf16(smi)
 
 
@@ -718,53 +758,115 @@ def sweep_attn_fwd_bf16(smi: str) -> int:
     return 0
 
 
-def sweep_ln_bwd_bf16(smi: str) -> int:
+def sweep_ln(smi: str, label: str, macro: str, builds: tuple, default: tuple, names: tuple,
+             kernel: str, calls: dict, check, per_block: dict) -> int:
+    """One LN kernel's sweep: each build of ``builds`` (``-D{macro}_{name}``
+    per switch; ``default`` is the library's), its ptxas lines for
+    ``kernel``, ``calls`` checked by ``check`` and timed queued in turns;
+    per SwinBlock the sum of ``per_block`` (variant -> runs per block) at
+    each training graph, per step over BLOCKS blocks of both graphs."""
+    variants = {}
+    for b in builds:
+        tag = "_".join(f"{n.lower()}{v}" for n, v in zip(names, b))
+        variants[tag] = () if b == default else tuple(
+            f"{macro}_{n}={v}" for n, v in zip(names, b))
+    result = {}
+    for build, per_call in check_and_time(build_all(variants, kernel), calls, check).items():
+        graphs = {f"T={b * cs.CROP * cs.CROP}": sum(
+            reps * per_call[f"{v} T={b * cs.CROP * cs.CROP}"] for v, reps in per_block.items())
+            for b in cs.TRAIN_GRAPHS}
+        step = cs.BLOCKS * sum(graphs.values())
+        result[build] = {"per_call_queued_ms": per_call, "per_block_queued_ms": graphs,
+                         "step_queued_ms": step}
+        print(f"build {build}: per SwinBlock ({' + '.join(per_block)}) "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in graphs.items())
+              + f"; per step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
+    print(json.dumps({label: result, "gpu": smi}))
+    return 0
+
+
+LN_BWD_SWITCHES = ("LANES", "STAGES", "WARPS", "MINB", "TICKET")
+
+
+def ln_bwd_calls(seed: int, dtype):
+    """The step's LN backward calls as the trunk makes them (``dtype``'s
+    step: bf16 LN2 f32 dz + bf16 dres -> f32 dx2, LN1 bf16 da + f32 dx2 ->
+    bf16 dx; f32 all f32) at both graphs: variant -> (call, plain outputs)."""
     import torch
 
     from sei_tpu_torch.ops import swin_trunk as st
 
-    default = DEFAULT_LN_BWD_BF16_BUILD
-    builds = build_all({"l{}_s{}_w{}_b{}_".format(*b[:4]) + ("last" if b[4] else "sumk"):
-                        () if b == default else tuple(
-                            f"SEI_LN_BWD_BF16_{k}={v}"
-                            for k, v in zip(("LANES", "STAGES", "WARPS", "MINB", "TICKET"), b))
-                        for b in LN_BWD_BF16_BUILDS}, "ln_rows_bwd_")
-    g = torch.Generator(device="cuda").manual_seed(9)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     bf, f32, c = torch.bfloat16, torch.float32, cs.C
-
-    # the bf16 step's two calls per graph, as the trunk makes them
+    forms = ((("ln2", False, f32, bf, f32), ("ln1_window", True, bf, f32, bf)) if dtype == bf
+             else (("ln2", False, f32, f32, f32), ("ln1_window", True, f32, f32, f32)))
     calls = {}
     for b in cs.TRAIN_GRAPHS:
         t = b * cs.CROP * cs.CROP
         wm = st.WindowMap(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)
-        x = torch.randn((b, cs.CROP, cs.CROP, c), generator=g, device="cuda").to(bf)
+        x = torch.randn((b, cs.CROP, cs.CROP, c), generator=g, device="cuda").to(dtype)
         gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
-        for variant, xx, wmap, dz_dtype, res_dtype, out_dtype in (
-                ("ln2", x.view(t, c), None, f32, bf, f32), ("ln1_window", x, wm, bf, f32, bf)):
+        for variant, windowed, dz_dtype, res_dtype, out_dtype in forms:
+            xx, wmap = (x, wm) if windowed else (x.view(t, c), None)
             dz = torch.randn((t, c), generator=g, device="cuda").to(dz_dtype)
             dres = torch.randn(xx.shape, generator=g, device="cuda").to(res_dtype)
             calls[f"{variant} T={t}"] = (
                 lambda xx=xx, gm=gamma, dz=dz, wmap=wmap, dres=dres, o=out_dtype: st.ln_rows_bwd(
                     xx, gm, dz, window=wmap, dres=dres, out_dtype=o),
                 st._torch_ln_rows_bwd(xx, gamma, dz, wmap, dres, out_dtype))
+    return calls
+
+
+def sweep_ln_bwd_bf16(smi: str) -> int:
+    import torch
 
     def check(build, variant, call):
         for i, (x, y) in enumerate(zip(call[0](), call[1])):
             cs.compare_bf16(f"ln_rows_bwd[bf16 build {build} {variant}][{i}]", x, y, (1e-3, 1e-4))
 
-    result = {}
-    for build, per_call in check_and_time(builds, calls, check).items():
-        per_block = {f"T={b * cs.CROP * cs.CROP}": sum(
-            per_call[f"{v} T={b * cs.CROP * cs.CROP}"] for v in ("ln2", "ln1_window"))
-            for b in cs.TRAIN_GRAPHS}
-        step = cs.BLOCKS * sum(per_block.values())
-        result[build] = {"per_call_queued_ms": per_call, "per_block_queued_ms": per_block,
-                         "step_queued_ms": step}
-        print(f"build {build}: per SwinBlock (LN2 + LN1) "
-              + ", ".join(f"{k} {ms:.4f}" for k, ms in per_block.items())
-              + f"; per bf16 step ({cs.BLOCKS} blocks x both graphs) {step:.2f} ms queued")
-    print(json.dumps({"ln_bwd_bf16_sweep": result, "gpu": smi}))
-    return 0
+    return sweep_ln(smi, "ln_bwd_bf16_sweep", "SEI_LN_BWD_BF16", LN_BWD_BF16_BUILDS,
+                    DEFAULT_LN_BWD_BF16_BUILD, LN_BWD_SWITCHES, "ln_rows_bwd_",
+                    ln_bwd_calls(9, torch.bfloat16), check, {"ln2": 1, "ln1_window": 1})
+
+
+def sweep_ln_bwd_f32(smi: str) -> int:
+    import torch
+
+    def check(build, variant, call):
+        for i, (x, y, tol) in enumerate(zip(call[0](), call[1],
+                                            ((1e-5, 1e-5), (1e-3, 1e-4), (1e-3, 1e-4)))):
+            cs.compare(f"ln_rows_bwd[f32 build {build} {variant}][{i}]", x, y, *tol)
+
+    return sweep_ln(smi, "ln_bwd_f32_sweep", "SEI_LN_BWD_F32", LN_BWD_F32_BUILDS,
+                    DEFAULT_LN_BWD_F32_BUILD, LN_BWD_SWITCHES, "ln_rows_bwd_",
+                    ln_bwd_calls(10, torch.float32), check, {"ln2": 1, "ln1_window": 1})
+
+
+def sweep_ln_bf16(smi: str) -> int:
+    import torch
+
+    from sei_tpu_torch.ops import swin_trunk as st
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    c = cs.C
+    calls = {}
+    for b in cs.TRAIN_GRAPHS:
+        t = b * cs.CROP * cs.CROP
+        wm = st.WindowMap(cs.CROP, cs.CROP, cs.WS, cs.WS // 2)
+        x = torch.randn((b, cs.CROP, cs.CROP, c), generator=g, device="cuda").to(torch.bfloat16)
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=g, device="cuda")
+        for variant, xx, wmap in (("ln1_shift_window", x, wm), ("ln2", x.view(t, c), None)):
+            calls[f"{variant} T={t}"] = (
+                lambda xx=xx, gm=gamma, bt=beta, wmap=wmap: st.ln_rows(xx, gm, bt, window=wmap),
+                st._torch_ln_rows(xx, gamma, beta, wmap))
+
+    def check(build, variant, call):
+        cs.compare_bf16(f"ln_rows[bf16 build {build} {variant}]", call[0](), call[1], (0, 0))
+
+    return sweep_ln(smi, "ln_bf16_sweep", "SEI_LN_BF16", LN_BF16_BUILDS, DEFAULT_LN_BF16_BUILD,
+                    ("LANES", "STAGES", "WARPS", "MINB"), "ln_rows_vec_", calls, check,
+                    {"ln1_shift_window": 2, "ln2": 2})
 
 
 if __name__ == "__main__":

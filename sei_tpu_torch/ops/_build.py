@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "sei_ln_rows": [_I, _I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
+    "sei_ln_rows": [_I, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
     "sei_gemm_bias_epilogue": [_I, _I, *[_P] * 5, _I, _P, _P, *[_I] * 11, _P],
     "sei_window_attn_fwd": [_I, _I, *[_P] * 7, _L, *[_I] * 5, *[_L] * 12, _F, _P],
     "sei_window_attn_fwd_f32_blocks_per_sm": [_I],
@@ -47,13 +47,18 @@ _SIGNATURES = {
     "sei_window_attn_bwd": [_I, _I, *[_P] * 12, _L, *[_I] * 5, *[_L] * 24, _F, _P],
     "sei_window_attn_bwd_f32_blocks_per_sm": [_I, _I],
     "sei_window_attn_bwd_bf16_blocks_per_sm": [_I],
-    "sei_ln_rows_bwd": [_I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _L, _I, _F,
-                        *[_I] * 6, _P],
+    "sei_ln_rows_bf16": [_I, _P, _P, _P, _P, _L, _I, _F, _I, *[_I] * 5, _P],
+    "sei_ln_rows_bf16_blocks_per_sm": [_I, _I],
+    "sei_ln_rows_bf16_config": [_I],
     "sei_ln_rows_bwd_bf16": [_I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _L, _I, _F,
                              *[_I] * 6, _P],
+    "sei_ln_rows_bwd_f32": [_I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _L, _I, _F,
+                            *[_I] * 6, _P],
     "sei_ln_rows_bwd_bf16_blocks_per_sm": [_I] * 5,
+    "sei_ln_rows_bwd_f32_blocks_per_sm": [_I] * 5,
     "sei_ln_rows_bwd_bf16_config": [_I],
-    "sei_ln_rows_bwd_bf16_ticket": [_I, _P],
+    "sei_ln_rows_bwd_f32_config": [_I],
+    "sei_ln_rows_bwd_ticket": [_I, _P],
     "sei_gemm_dgrad": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _I, *[_I] * 9, _P],
     "sei_gemm_wgrad": [_I, _I, _P, _P, _I, _P, _P, _P, *[_I] * 11, _P],
     "sei_gemm_wgrad_f32_splits": [_I, _I, _I, _I],

@@ -226,8 +226,11 @@ def ln_rows(x, gamma, beta, window: Optional[WindowMap] = None):
     Kernel ``ln_rows`` (``csrc/ln_rows.cu``) replaces the LN stages of
     ``sei_tpu/ops/swin_trunk.py`` ``_fwd_kernel`` (``_ln_fwd`` :242, roll and
     ``_window_tokens`` :263, :432, the bf16 cast :430, :539).  Bound by bytes
-    (one read, one write of each row); one warp per row, the row in
-    registers, f32 two-pass stats.
+    (one read, one write of each row); f32 two-pass stats.  f32: one warp
+    per row, the row in registers.  bf16: 4 channels per 8-byte access, a
+    row to a group of lanes, one wave of blocks; it takes C % 4 == 0 and x
+    aligned to 4 elements, and raises otherwise (no other kernel takes such
+    a bf16 call).
     """
     c = x.shape[-1]
     if window is not None and (x.dim() != 4 or x.shape[1:3] != (window.h, window.w)):
@@ -241,16 +244,52 @@ def ln_rows(x, gamma, beta, window: Optional[WindowMap] = None):
     rows = x.numel() // c
     out = torch.empty((rows, c), device=x.device, dtype=x.dtype)
     wm = window or WindowMap(0, 0, 0, 0)
-    code = _build.library().lib.sei_ln_rows(
-        x.device.index, _is_bf16(x), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), rows, c, _EPS, int(window is not None),
-        wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(x))
+    built = _build.library()
+    if x.dtype == BF16:
+        _check_vec("ln_rows", c, x=x, out=out)
+        blocks = _one_wave_blocks(built, "sei_ln_rows_bf16", x.device.index, (), rows, c)
+        code = built.lib.sei_ln_rows_bf16(
+            x.device.index, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), rows,
+            c, _EPS, blocks, int(window is not None), wm.h, wm.w, wm.ws, wm.shift,
+            _build.stream_of(x))
+    else:
+        code = built.lib.sei_ln_rows(
+            x.device.index, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            out.data_ptr(), rows, c, _EPS, int(window is not None),
+            wm.h, wm.w, wm.ws, wm.shift, _build.stream_of(x))
     _build.check(code, "ln_rows")
     ln_rows.launches += 1
     return out
 
 
 ln_rows.launches = 0
+
+
+def _check_vec(name: str, c: int, **tensors) -> None:
+    """The vector LN kernels' contract (4 channels per access): C % 4 == 0
+    and every buffer given aligned to 4 elements; raises otherwise."""
+    if c % 4:
+        raise ValueError(f"{name}: the kernel takes C % 4 == 0; got C={c}")
+    for key, t in tensors.items():
+        if t is not None and t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"{name}: {key} is not aligned to 4 elements")
+
+
+@functools.lru_cache(maxsize=None)
+def _one_wave_blocks(built: _build.Built, kernel: str, device: int, flags: tuple, rows: int,
+                     c: int) -> int:
+    """Blocks of the vector LN kernel whose C entry is ``kernel``
+    (``sei_ln_rows_bf16``, ``sei_ln_rows_bwd_bf16``, ``sei_ln_rows_bwd_f32``)
+    for ``rows`` rows: as many as ``device`` holds at once (the kernel's
+    occupancy for the call's buffer ``flags`` and C, and its rows per block,
+    from the library ``built``: ``<kernel>_blocks_per_sm``,
+    ``<kernel>_config``), never more than there are rows for."""
+    per_sm = getattr(built.lib, f"{kernel}_blocks_per_sm")(device, *flags, c)
+    if per_sm <= 0:
+        raise RuntimeError(f"{kernel}: the kernel fits no block on an SM (C={c})")
+    config = getattr(built.lib, f"{kernel}_config")
+    rows_per_block = 32 * config(2) // config(0)  # warps per block x rows per warp
+    return _build.partial_count(max(1, -(-rows // rows_per_block)), per_sm=per_sm)
 
 
 # -- gemm_bias_epilogue --------------------------------------------------------
@@ -571,13 +610,14 @@ def ln_rows_bwd(x, gamma, dz, *, window: Optional[WindowMap] = None, dres=None,
 
     Kernel ``ln_rows_bwd`` (``csrc/ln_rows_bwd.cu``) replaces the LN
     backward of the TPU trunk's backward (``_ln_bwd``
-    ``sei_tpu/ops/swin_trunk.py:252``, called at :672 and :855-857).  Bound
-    by bytes; the statistics recomputed from x in f32.  f32: one warp per
-    row, dgamma/dbeta as one partial per block, summed here.  bf16: 4
-    channels per access, a row to a group of lanes, a cp.async ring of rows
-    per warp, dgamma/dbeta summed on the device in a fixed order (no torch
-    reduction); it takes C % 4 == 0 and every buffer aligned to 4 elements,
-    and raises otherwise (no other kernel takes such a bf16 call).
+    ``sei_tpu/ops/swin_trunk.py:252``, called at :672 and :855-857, with the
+    dgamma/dbeta sums of :670-672 and :851-857).  Bound by bytes; the
+    statistics recomputed from x in f32.  One design for both dtypes of x
+    (each with its own build): 4 channels per access, a row to a group of
+    lanes, a cp.async ring of rows per warp, one wave of blocks, dgamma and
+    dbeta summed on the device in a fixed order (no torch reduction); it
+    takes C % 4 == 0 and every buffer aligned to 4 elements, and raises
+    otherwise (no other kernel takes such a call).
     """
     c = x.shape[-1]
     if window is not None and (x.dim() != 4 or x.shape[1:3] != (window.h, window.w)):
@@ -601,60 +641,23 @@ def ln_rows_bwd(x, gamma, dz, *, window: Optional[WindowMap] = None, dres=None,
     if c > 256:
         raise ValueError(f"ln_rows_bwd: kernel takes C <= 256; got C={c}")
     dx = torch.empty(x.shape, device=x.device, dtype=out_dtype)
+    _check_vec("ln_rows_bwd", c, x=x, dz=dz, dres=dres, dx=dx)
     wm = window or WindowMap(0, 0, 0, 0)
-    if cdt == BF16:
-        dg, db = _ln_rows_bwd_bf16(x, gamma, dz, wm, int(window is not None), dres, dx, rows, c)
-    else:
-        blocks = _build.partial_count(-(-rows // 16), per_sm=3)
-        dg = torch.empty((blocks, c), device=x.device, dtype=F32)
-        db = torch.empty((blocks, c), device=x.device, dtype=F32)
-        code = _build.library().lib.sei_ln_rows_bwd(
-            x.device.index, 0, x.data_ptr(), gamma.data_ptr(), dz.data_ptr(), 0,
-            _build.ptr(dres), 0, dx.data_ptr(), 0, dg.data_ptr(), db.data_ptr(), rows, c,
-            _EPS, blocks, int(window is not None), wm.h, wm.w, wm.ws, wm.shift,
-            _build.stream_of(x))
-        _build.check(code, "ln_rows_bwd")
-        dg, db = dg.sum(0), db.sum(0)
-    ln_rows_bwd.launches += 1
-    return dx, dg, db
-
-
-def _ln_rows_bwd_bf16(x, gamma, dz, wm: WindowMap, windowed: int, dres, dx, rows: int,
-                      c: int):
-    """The bf16 kernel's launch (one wave of blocks; the last block, or a
-    second kernel, sums the blocks' partials): dgamma and dbeta."""
-    if c % 4:
-        raise ValueError(f"ln_rows_bwd: the bf16 kernel takes C % 4 == 0; got C={c}")
-    for name, t in (("x", x), ("dz", dz), ("dres", dres), ("dx", dx)):
-        if t is not None and t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"ln_rows_bwd: {name} is not aligned to 4 elements")
     built = _build.library()
+    kernel = "sei_ln_rows_bwd_bf16" if cdt == BF16 else "sei_ln_rows_bwd_f32"
     flags = (_is_bf16(dz), _is_bf16(dres), _is_bf16(dx))
-    blocks = _ln_bwd_bf16_blocks(built, x.device.index, *flags, rows, c)
+    blocks = _one_wave_blocks(built, kernel, x.device.index, flags, rows, c)
     part = torch.empty((blocks, 2 * c), device=x.device, dtype=F32)
     dg = torch.empty(c, device=x.device, dtype=F32)
     db = torch.empty(c, device=x.device, dtype=F32)
-    code = built.lib.sei_ln_rows_bwd_bf16(
+    code = getattr(built.lib, kernel)(
         x.device.index, x.data_ptr(), gamma.data_ptr(), dz.data_ptr(), flags[0],
         _build.ptr(dres), flags[1], dx.data_ptr(), flags[2], part.data_ptr(), dg.data_ptr(),
-        db.data_ptr(), rows, c, _EPS, blocks, windowed, wm.h, wm.w, wm.ws, wm.shift,
-        _build.stream_of(x))
+        db.data_ptr(), rows, c, _EPS, blocks, int(window is not None), wm.h, wm.w, wm.ws,
+        wm.shift, _build.stream_of(x))
     _build.check(code, "ln_rows_bwd")
-    return dg, db
-
-
-@functools.lru_cache(maxsize=None)
-def _ln_bwd_bf16_blocks(built: _build.Built, device: int, dz_bf16: int, dres_bf16: int,
-                        dx_bf16: int, rows: int, c: int) -> int:
-    """Blocks of the bf16 LN backward for ``rows`` rows: as many as ``device``
-    holds at once (the kernel's occupancy for these types and C, from the
-    library ``built``), never more than there are rows for."""
-    per_sm = built.lib.sei_ln_rows_bwd_bf16_blocks_per_sm(device, dz_bf16, dres_bf16, dx_bf16, c)
-    if per_sm <= 0:
-        raise RuntimeError(f"ln_rows_bwd: the bf16 kernel fits no block on an SM (C={c})")
-    rows_per_block = 32 * built.lib.sei_ln_rows_bwd_bf16_config(2) \
-        // built.lib.sei_ln_rows_bwd_bf16_config(0)
-    return _build.partial_count(max(1, -(-rows // rows_per_block)), per_sm=per_sm)
+    ln_rows_bwd.launches += 1
+    return dx, dg, db
 
 
 ln_rows_bwd.launches = 0

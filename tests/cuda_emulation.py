@@ -14,7 +14,8 @@ layouts (the mma sums exact bf16 products in f32), ``cp.async`` a
 synchronous copy (zero-filled where the kernel asks for none), the card
 has 132 SMs that hold one block of any kernel each, ``atomicInc`` is a
 locked update, ``__threadfence`` a fence, ``__ldcg`` a plain load,
-``cudaMemcpyFromSymbol`` a copy of the host variable, ``rsqrtf`` is
+``cudaMemcpyFromSymbol`` a copy of the host variable, ``cudaGetErrorString``
+a fixed text, ``rsqrtf`` is
 ``1 / sqrtf``, ``blockDim`` and ``gridDim`` are the launch's, and ``float4``,
 ``erff``, ``expf`` and ``INFINITY`` come from the host.  Without
 ``__CUDACC__`` the GEMM sources leave out their tensor-core kernels, whose
@@ -109,6 +110,7 @@ enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t e) { return e ? "error" : "no error"; }
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 template <typename F>

@@ -28,7 +28,12 @@ the bf16 attention forward (tensor cores) on the bf16 trunk's views at both
 graphs with its p store (one launch), at N 16, 36, 49, 64, hd 8, 17, 30,
 32 with p_out by each of its store routes, odd strides, window counts its
 groups do not divide, its p equal to the backward's recompute (dv bit for
-bit), and repeats bit for bit.
+bit), and repeats bit for bit.  The vector LayerNorm kernels (the bf16
+forward, the f32 and bf16 backward: 4 channels per access) at fewer rows
+than a warp holds, C = 4 to 256, both window shifts and the training
+graphs, one launch each, the backward's completion ticket back at 0; they
+repeat bit for bit and refuse C % 4 != 0 and views not aligned to 4
+elements.
 Small and ragged shapes (M, K, N not multiples of the tiles; C = 16 and 256;
 windows of 16 tokens, hd 8; window counts that are not multiples of the
 partial count) that the flagship checks in ``chip_smoke.py`` do not reach.
@@ -1250,7 +1255,7 @@ def _ln_bwd_ticket():
     from sei_tpu_torch.ops import _build
 
     value = ctypes.c_uint(1)
-    assert _build.library().lib.sei_ln_rows_bwd_bf16_ticket(
+    assert _build.library().lib.sei_ln_rows_bwd_ticket(
         torch.cuda.current_device(), ctypes.addressof(value)) == 0
     return value.value
 
@@ -1298,6 +1303,103 @@ def test_ln_rows_bwd_bf16_refuses_odd_widths_and_unaligned_views(gpu):
     shifted.copy_(x)
     with pytest.raises(ValueError, match="aligned"):
         st.ln_rows_bwd(shifted, gamma, dz, out_dtype=F32)
+
+
+def _ln_bwd_f32_case(g, b, h, w, c, shift, with_res=True):
+    x = _rnd(g, b, h, w, c)
+    wm = None if shift is None else st.WindowMap(h, w, 4, shift)
+    inp = x if wm else x.view(-1, c)
+    dres = _rnd(g, *inp.shape) if with_res else None
+    return (inp, 1 + _rnd(g, c, s=0.1), _rnd(g, b * h * w, c)), dict(window=wm, dres=dres)
+
+
+@pytest.mark.parametrize("b,h,w,c,shift", [(1, 1, 3, 180, None), (1, 4, 4, 4, 0),
+                                           (1, 4, 8, 12, 2), (2, 8, 12, 256, 2),
+                                           (3, 16, 16, 180, None), (16, 48, 48, 180, 4)])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_ln_rows_bwd_f32_edges(gpu, b, h, w, c, shift, with_res):
+    """The f32 vector kernel at fewer rows than a warp holds, C = 4, 12, 180
+    and 256, the window map at shift 0 and > 0, with and without the
+    residual gradient, and the flagship 2B graph (T = 36864); one launch
+    each, no torch reduction, and the completion ticket back at 0."""
+    args, kw = _ln_bwd_f32_case(gpu, b, h, w, c, shift, with_res)
+    before = st.ln_rows_bwd.launches
+    got = st.ln_rows_bwd(*args, **kw)
+    assert st.ln_rows_bwd.launches == before + 1
+    want = st._torch_ln_rows_bwd(*args, kw["window"], kw["dres"])
+    _close(got[0], want[0], 1e-4)
+    for a, b_ in zip(got[1:], want[1:]):  # dgamma, dbeta: sums over up to 36864 rows
+        _close(a, b_, 1e-4, 1e-3)
+    assert _ln_bwd_ticket() == 0
+
+
+@pytest.mark.parametrize("shift", [None, 4])
+def test_ln_rows_bwd_f32_repeats_bit_for_bit(gpu, shift):
+    """dgamma and dbeta are summed in a fixed order (no atomics): two calls
+    on the flagship 2B graph's inputs give the same bits."""
+    args, kw = _ln_bwd_f32_case(gpu, 16, 48, 48, 180, shift)
+    first = st.ln_rows_bwd(*args, **kw)
+    second = st.ln_rows_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ln_rows_bwd_f32_refuses_odd_widths_and_unaligned_views(gpu):
+    args, kw = _ln_bwd_f32_case(gpu, 1, 4, 4, 18, None)
+    with pytest.raises(ValueError, match="C % 4 == 0"):
+        st.ln_rows_bwd(*args, **kw)
+    x, gamma, dz = _ln_bwd_f32_case(gpu, 1, 4, 4, 16, None)[0]
+    for name in ("x", "dz", "dres"):
+        views = {"x": x, "dz": dz, "dres": x.clone()}
+        t = views[name]
+        shifted = torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+        shifted.copy_(t)
+        views[name] = shifted
+        with pytest.raises(ValueError, match=f"{name} is not aligned"):
+            st.ln_rows_bwd(views["x"], gamma, views["dz"], dres=views["dres"])
+
+
+def _ln_bf16_case(g, b, h, w, c, shift):
+    x = _bf(g, b, h, w, c)
+    wm = None if shift is None else st.WindowMap(h, w, 4, shift)
+    return (x if wm else x.view(-1, c), 1 + _rnd(g, c, s=0.1), _rnd(g, c, s=0.1)), wm
+
+
+@pytest.mark.parametrize("b,h,w,c,shift", [(1, 1, 3, 180, None), (1, 4, 4, 4, 0),
+                                           (1, 4, 8, 12, 2), (2, 8, 12, 256, 2),
+                                           (3, 16, 16, 180, None), (16, 48, 48, 180, 4),
+                                           (8, 48, 48, 180, None)])
+def test_ln_rows_bf16_edges(gpu, b, h, w, c, shift):
+    """The bf16 vector kernel at fewer rows than a warp holds, C = 4, 12,
+    180 and 256, the window map at shift 0 and > 0, and both training graphs
+    (T = 36864 windowed, 18432 in pixel order); one launch each."""
+    (x, g, b_), wm = _ln_bf16_case(gpu, b, h, w, c, shift)
+    before = st.ln_rows.launches
+    got = st.ln_rows(x, g, b_, window=wm)
+    assert st.ln_rows.launches == before + 1
+    _close_bf16(got, st._torch_ln_rows(x, g, b_, wm))
+
+
+@pytest.mark.parametrize("shift", [None, 4])
+def test_ln_rows_bf16_repeats_bit_for_bit(gpu, shift):
+    """Each row's sums run in a fixed order: two calls on the flagship 2B
+    graph's inputs give the same bits."""
+    (x, g, b), wm = _ln_bf16_case(gpu, 16, 48, 48, 180, shift)
+    first = st.ln_rows(x, g, b, window=wm)
+    second = st.ln_rows(x, g, b, window=wm)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_ln_rows_bf16_refuses_odd_widths_and_unaligned_views(gpu):
+    (x, g, b), _ = _ln_bf16_case(gpu, 1, 4, 4, 18, None)
+    with pytest.raises(ValueError, match="C % 4 == 0"):
+        st.ln_rows(x, g, b)
+    (x, g, b), _ = _ln_bf16_case(gpu, 1, 4, 4, 16, None)
+    shifted = torch.empty(x.numel() + 1, device="cuda", dtype=BF16)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="x is not aligned"):
+        st.ln_rows(shifted, g, b)
 
 
 def test_kernels_refuse_other_dtypes(gpu):

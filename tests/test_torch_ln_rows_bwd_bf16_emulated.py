@@ -69,7 +69,7 @@ RUNNER = textwrap.dedent(r"""
     fn = lib.sei_ln_rows_bwd_bf16
     fn.argtypes = [I, P, P, P, I, P, I, P, I, P, P, P, L, I, F, *[I] * 6, P]
     fn.restype = I
-    ticket = lib.sei_ln_rows_bwd_bf16_ticket
+    ticket = lib.sei_ln_rows_bwd_ticket
     ticket.argtypes = [I, P]
     ticket.restype = I
     inp = np.load(sys.argv[2])
@@ -110,7 +110,7 @@ RUNNER = textwrap.dedent(r"""
                 sys.exit(f"{name}: sei_ln_rows_bwd_bf16 returned {code}")
             t = np.zeros(1, np.uint32)
             if ticket(0, t.ctypes.data):
-                sys.exit(f"{name}: sei_ln_rows_bwd_bf16_ticket failed")
+                sys.exit(f"{name}: sei_ln_rows_bwd_ticket failed")
             outs[f"{name}/ticket{call}"] = t.copy()
             outs[f"{name}/dx{call}"] = dx[dxa:dxa + rows * c].copy()
             outs[f"{name}/dgamma{call}"] = dg[dga:dga + c].copy()

@@ -173,7 +173,15 @@
    through ``cli.test`` on seeded random weights at the published widths
    (handed over by ``SEI_DRUNET_WEIGHTS`` / ``SEI_DIFFUNET_WEIGHTS``),
    finite and of y's shape; LPIPS on a seeded random AlexNet, card equal
-   to CPU (1e-4); one JSON line.  Then ``SEI_FAST_GELU`` (``fast_gelu_phase``,
+   to CPU (1e-4); then slice 26's denoiser trainers (``denoiser_trainers``)
+   at the JAX scripts' widths: DRUNet's and DiffUNet's first step on the
+   card against the CPU's on the same draws at batch 2 (loss and gradients
+   1e-3 of each largest value), 50 steps at batch 16 of 64 px crops (ms
+   per step, peak memory, finite losses; one more profiled by kernel, its
+   busy share), ``cli.train_drunet`` /
+   ``cli.train_diffunet`` for 2 steps on 16 written PNGs and ``cli.test``
+   of PlugAndPlay / DiffPIR_DiffUNet on the saved file, finite; one JSON
+   line.  Then ``SEI_FAST_GELU`` (``fast_gelu_phase``,
    after the module path, before the loader): the f32 eval with
    ``SEI_FAST_GELU=1`` (the polynomial GELU; launches, one forward against
    ``plain=True`` at 1e-3, its max difference from the default forward,
@@ -3059,6 +3067,172 @@ def denoiser_baselines(smi: str) -> dict:
     return results
 
 
+# the denoiser trainers (slice 26), at the JAX scripts' published widths
+# (DRUNet 64-512, 4 blocks; DiffUNet 64 x (1, 2, 2, 4), attention at ds 8):
+# the card's first step against the CPU's on the same draws at batch
+# TRAINER_CHECK_BATCH (the gradient gate of PERF.md section 2, 1e-3 of each
+# gradient's largest value, that value taken no smaller than 1e-5 of the
+# network's largest gradient: a DiffUNet bias that feeds a one-channel
+# GroupNorm group has a gradient of exactly 0, left at roundoff), then
+# TRAINER_TIMED_STEPS steps at the recipes' batch 16 and 64 px crops, then
+# one step profiled by kernel (its device share of the wall time), then
+# each command line for TRAINER_CLI_STEPS steps on TRAINER_IMAGES written
+# PNGs and cli.test of one image on its file
+TRAINER_CHECK_BATCH, TRAINER_TIMED_STEPS, TRAINER_WARMUP = 2, 50, 3
+TRAINER_BATCH, TRAINER_CROP, TRAINER_IMAGES, TRAINER_CLI_STEPS = 16, 64, 16, 2
+TRAINER_FRAC, TRAINER_FLOOR = 1e-3, 1e-5
+
+
+def trainer_specs():
+    """Per trainer: (label, its command line module, a maker of the
+    network (the trainer's init when ``trained_init``, else every kernel
+    drawn, so the DiffUNet's first gradients reach every parameter), the
+    draws, the loss, the cli.test kind and its env var, the file name)."""
+    import torch
+
+    from sei_tpu_torch.cli import train_diffunet, train_drunet
+    from sei_tpu_torch.models.diffunet import DiffUNet, DiffUNetConfig
+    from sei_tpu_torch.models.drunet import DRUNet
+    from sei_tpu_torch.train import denoisers as dn
+
+    def drunet(trained_init):
+        return dn.lecun_init_(DRUNet(), torch.Generator().manual_seed(0))
+
+    def diffunet(trained_init):
+        cfg = DiffUNetConfig(model_channels=64, channel_mult=(1, 2, 2, 4), attention_ds=(8,))
+        zero = dn.diffunet_zero_init if trained_init else (lambda name: False)
+        return dn.lecun_init_(DiffUNet(cfg), torch.Generator().manual_seed(0), zero=zero)
+
+    def drunet_draws(cache, gen, batch):
+        return dn.drunet_draws(cache, gen, batch=batch, crop=TRAINER_CROP,
+                               sigma_max=55.0 / 255.0, sigma_dist="uniform")
+
+    def diffunet_draws(cache, gen, batch):
+        return (*dn.diffunet_draws(cache, gen, batch=batch, crop=TRAINER_CROP),
+                dn.ddpm_abar(cache.data.device))
+
+    return (("DRUNet", train_drunet, drunet, drunet_draws,
+             lambda net, x, s, n: dn.drunet_loss(net, x, s, n, False),
+             "PlugAndPlay", "SEI_DRUNET_WEIGHTS", "drunet.npz"),
+            ("DiffUNet", train_diffunet, diffunet, diffunet_draws, dn.diffunet_loss,
+             "DiffPIR_DiffUNet", "SEI_DIFFUNET_WEIGHTS", "diffunet.pt"))
+
+
+def trainer_first_step(label, build, draws, loss_fn, cache_cpu) -> dict:
+    """The first step's loss and gradients on the card against the CPU's,
+    the same network and draws (made on the CPU): the gate above."""
+    import copy
+
+    import torch
+
+    from sei_tpu_torch.train import denoisers as dn
+    from sei_tpu_torch.train.optim import get_optimizer
+
+    net_cpu = build(False)
+    net = copy.deepcopy(net_cpu).cuda()
+    args_cpu = draws(cache_cpu, torch.Generator().manual_seed(0), TRAINER_CHECK_BATCH)
+    args = tuple(a.cuda() for a in args_cpu)
+    t0 = time.perf_counter()
+    want = dn.train_step(net_cpu, get_optimizer(net_cpu.parameters(), lr=1e-4), loss_fn,
+                         *args_cpu)
+    cpu_s = time.perf_counter() - t0
+    got = dn.train_step(net, get_optimizer(net.parameters(), lr=1e-4), loss_fn, *args)
+    grads = {n: (p.grad.cpu(), net_cpu.get_parameter(n).grad) for n, p in net.named_parameters()}
+    floor = TRAINER_FLOOR * max(float(w.abs().max()) for _, w in grads.values())
+    worst = max(float((g - w).abs().max()) / max(float(w.abs().max()), floor)
+                for g, w in grads.values())
+    loss_err = abs(float(got) - float(want)) / abs(float(want))
+    print(f"  {label} first step at batch {TRAINER_CHECK_BATCH}, card against CPU (the CPU "
+          f"step {cpu_s:.2f} s): loss {float(got)!r} / {float(want)!r} (rel {loss_err:.2e}), "
+          f"worst gradient {worst:.2e} of its max over {len(grads)} tensors "
+          f"(gate {TRAINER_FRAC:g})")
+    if not (loss_err <= TRAINER_FRAC and worst <= TRAINER_FRAC):
+        fail(f"{label}: the card's first training step differs from the CPU's")
+    return {"loss_rel_err": loss_err, "worst_grad_frac": worst}
+
+
+def denoiser_trainers(smi: str) -> dict:
+    """Slice 26: ``sei_tpu_torch.train.denoisers`` and the two command lines
+    at the published widths: the first step against the CPU, ms per step
+    and peak memory, then ``cli.train_drunet`` / ``cli.train_diffunet`` on
+    written PNGs and ``cli.test`` of PnP / DiffPIR_DiffUNet on their files,
+    finite (constants above)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sei_tpu_torch.cli import test as cli_test
+    from sei_tpu_torch.cli import train_drunet
+    from sei_tpu_torch.data import GroundTruthDataset, write_image
+    from sei_tpu_torch.train import denoisers as dn
+    from sei_tpu_torch.train.optim import get_optimizer
+
+    images = make_images(TRAINER_IMAGES, H, W, seed=9)
+    cache_cpu, cache = dn.load_cache(images, "cpu"), dn.load_cache(images, "cuda")
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, im in enumerate(images):
+            write_image(os.path.join(tmp, "train", f"{i:04d}.png"), im)
+        write_image(os.path.join(tmp, "val", "0.png"), make_images(1, H, W, seed=7)[0])
+        real = train_drunet.GroundTruthDataset
+        for label, cli, build, draws, loss_fn, kind, env, name in trainer_specs():
+            record = trainer_first_step(label, build, draws, loss_fn, cache_cpu)
+            net = build(True).cuda()
+            opt = get_optimizer(net.parameters(), lr=1e-4)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+
+            def step():
+                return dn.train_step(net, opt, loss_fn, *draws(cache, gen, TRAINER_BATCH))
+
+            for _ in range(TRAINER_WARMUP):
+                step()
+            losses, ms, peak, base = timed_call(
+                lambda: torch.stack([step() for _ in range(TRAINER_TIMED_STEPS)]))
+            ms /= TRAINER_TIMED_STEPS
+            if not bool(torch.isfinite(losses).all()):
+                fail(f"{label}: a non-finite training loss")
+            wall_ms, device_ms = profile_step(step, f"{label} trainer step, batch {TRAINER_BATCH}")
+            record["busy_share"] = device_ms / wall_ms
+            del net, opt
+            out = os.path.join(tmp, name)
+            train_drunet.GroundTruthDataset = lambda dataset_name, datasets_dir, split: \
+                GroundTruthDataset(f"gt_folder:{os.path.join(tmp, 'train')}")
+            try:
+                _, cli_ms, _, _ = timed_call(lambda: cli.main(
+                    ["--steps", str(TRAINER_CLI_STEPS), "--out", out]))
+            finally:
+                train_drunet.GroundTruthDataset = real
+            argv = [*TASK_ARGS["deblurring"], "--noise_level", "5", "--dataset",
+                    f"gt_folder:{os.path.join(tmp, 'val')}", "--GroundTruthDataset__no_resize",
+                    "--model_kind", kind]
+            old = os.environ.get(env)
+            os.environ[env] = out
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    got, test_ms, _, _ = timed_call(lambda: cli_test.main(argv))
+            finally:
+                if old is None:
+                    os.environ.pop(env)
+                else:
+                    os.environ[env] = old
+            record.update(ms_per_step=ms, peak_gib=peak, first_loss=float(losses[0]),
+                          last_loss=float(losses[-1]), cli_ms=cli_ms, test_ms=test_ms,
+                          psnr=got.psnr[0], ssim=got.ssim[0])
+            results[label] = record
+            print(f"  {label}: {TRAINER_TIMED_STEPS} steps at batch {TRAINER_BATCH}, "
+                  f"{TRAINER_CROP} px: {ms:.2f} ms/step, peak {peak:.3f} GiB above {base:.3f}, "
+                  f"loss {float(losses[0]):.4e} -> {float(losses[-1]):.4e}; the command line "
+                  f"({TRAINER_CLI_STEPS} steps, data read and init included) {cli_ms:.0f} ms, "
+                  f"{os.path.getsize(out) / 2**20:.1f} MiB saved; cli.test --model_kind {kind} "
+                  f"on it {test_ms:.0f} ms: PSNR {got.psnr[0]!r} SSIM {got.ssim[0]!r}; {smi}")
+            if not (np.isfinite(got.psnr[0]) and np.isfinite(got.ssim[0])):
+                fail(f"{kind} on the trained {label}: the score is not finite")
+    return results
+
+
 def lpips_check(smi: str) -> float:
     """LPIPS on a seeded random AlexNet checkpoint: the card's distance of
     two seeded 256x320 images equals the CPU's to ``LPIPS_ATOL``."""
@@ -3097,6 +3271,9 @@ def baselines_phase(smi: str) -> None:
     strips_over_ranks(smi)
     record = {"functional": functional_baselines(smi), "convolutional": convolutional_phase(smi),
               "denoisers": denoiser_baselines(smi), "lpips": lpips_check(smi)}
+    t1 = time.perf_counter()
+    record["trainers"] = denoiser_trainers(smi)
+    print(f"slice 26 denoiser trainers in {time.perf_counter() - t1:.1f} s")
     print(f"slice 22 baselines phase in {time.perf_counter() - t0:.1f} s: {json.dumps(record)}; "
           f"{smi}")
 

@@ -25,11 +25,29 @@
 # TV and DeepImagePrior (its default 4000 iterations) on val images 0-4 and
 # BM3D on 0-1, as the JAX package scored them (experiments/evidence/
 # eval_{invfilter,tv,dip}_5imgs.log, eval_bm3d_2imgs.log), then compare.txt.
+# With FULL_RUN_TASK=denoisers, after step 1: the JAX package's denoiser
+# priors trained by the port at the JAX scripts' defaults
+# (experiments/train_drunet.py, 6000 steps, blind sigma ~ U(0, 55/255);
+# experiments/train_diffunet.py, 6000 DDPM steps; their JAX logs
+# experiments/evidence/drunet_training_r5.log and diffunet_training.log)
+# through python -m sei_tpu_torch.cli.train_drunet / .cli.train_diffunet,
+# then cli.test of PlugAndPlay, DiffPIR_DRUNet, DPS and DiffPIR_DiffUNet on
+# val images 0-4 at deblurring Gaussian_R2 noise 5 with SEI_DRUNET_WEIGHTS /
+# SEI_DIFFUNET_WEIGHTS on the new files, as
+# experiments/eval_denoiser_baselines.sh ran them (JAX evidence:
+# experiments/evidence/eval_pnp_r3.log, eval_dps_diffpir_r3_prefix.log,
+# eval_dps_fixed.log, eval_diffpir_diffunet.log), then compare.txt with the
+# training loss lines side by side.  The weights stay under $FULL_RUN_DIR;
+# $FULL_RUN_DRUNET_ARGS / $FULL_RUN_DIFFUNET_ARGS add trainer flags (a CPU
+# rehearsal: "--device cpu --steps 2 --channels 8 16 32 64 --nb 1" and
+# "--device cpu --steps 2 --model_channels 32 --channel_mult 1 2
+# --attention_ds 2").
 # Every time is printed beside the card's name and power limit.
 #
 #   bash full_run_torch.sh                  # on one GPU, about 40 minutes
 #   FULL_RUN_TASK=sr bash full_run_torch.sh # SR x2, about 40 minutes
 #   FULL_RUN_TASK=baselines bash full_run_torch.sh  # evidence_torch/baselines/
+#   FULL_RUN_TASK=denoisers bash full_run_torch.sh  # evidence_torch/denoisers/
 #
 # The data and the run (checkpoints, weights.pt) go under $FULL_RUN_DIR
 # (default _full_run/, gitignored); the small text outputs (training.csv,
@@ -59,8 +77,12 @@ elif [ "$TASK" = deblurring ]; then
 elif [ "$TASK" = baselines ]; then
   EV=${FULL_RUN_EVIDENCE:-evidence_torch/baselines}
   G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
+elif [ "$TASK" = denoisers ]; then
+  EV=${FULL_RUN_EVIDENCE:-evidence_torch/denoisers}
+  RUN=$RUN_ROOT/denoisers
+  G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
 else
-  echo "FULL_RUN_TASK: deblurring, sr or baselines, got $TASK" >&2
+  echo "FULL_RUN_TASK: deblurring, sr, baselines or denoisers, got $TASK" >&2
   exit 2
 fi
 mkdir -p "$EV" "$RUN_ROOT"
@@ -102,6 +124,60 @@ for tag in ("invfilter_5imgs", "tv_5imgs", "dip_5imgs", "bm3d_2imgs"):
     ok = abs(got["PSNR"] - want["PSNR"]) <= 0.5 and abs(got["SSIM"] - want["SSIM"]) <= 0.01
     print(f"{tag}: port {got['PSNR']:.2f} / {got['SSIM']:.4f}, JAX {want['PSNR']:.2f} / "
           f"{want['SSIM']:.4f}; target within 0.5 dB and 0.01: {'met' if ok else 'MISSED'}")
+EOF
+  exit 0
+fi
+
+if [ "$TASK" = denoisers ]; then
+  mkdir -p "$RUN"
+  read -r -a DRUNET_ARGS <<< "${FULL_RUN_DRUNET_ARGS:-}"
+  read -r -a DIFFUNET_ARGS <<< "${FULL_RUN_DIFFUNET_ARGS:-}"
+  t0=$(now)
+  python -m sei_tpu_torch.cli.train_drunet --datasets_dir "$DATA" --out "$RUN/drunet.npz" \
+    "${DRUNET_ARGS[@]}" 2>&1 | tee "$EV/drunet_training.log"
+  stamp "cli.train_drunet (data read and init included)" "$t0"
+  t0=$(now)
+  python -m sei_tpu_torch.cli.train_diffunet --datasets_dir "$DATA" --out "$RUN/diffunet.pt" \
+    "${DIFFUNET_ARGS[@]}" 2>&1 | tee "$EV/diffunet_training.log"
+  stamp "cli.train_diffunet (data read and init included)" "$t0"
+  for spec in "PlugAndPlay pnp_5imgs" "DiffPIR_DRUNet diffpir_drunet_5imgs" "DPS dps_5imgs" \
+              "DiffPIR_DiffUNet diffpir_diffunet_5imgs"; do
+    read -r kind tag <<< "$spec"
+    t0=$(now)
+    SEI_DRUNET_WEIGHTS="$RUN/drunet.npz" SEI_DIFFUNET_WEIGHTS="$RUN/diffunet.pt" \
+      python -m sei_tpu_torch.cli.test "${G2[@]}" "${DD[@]}" --model_kind "$kind" \
+      --indices 0,1,2,3,4 --print_all_metrics "${EXTRA[@]}" 2>&1 | tee "$EV/eval_$tag.log"
+    stamp "cli.test $kind, val images 0,1,2,3,4 (reads and model build included)" "$t0"
+    smi >> "$EV/eval_$tag.log"
+  done
+  python - "$EV" <<'EOF' | tee "$EV/compare.txt"
+# The port's denoiser-prior scores beside the JAX package's, to 0.5 dB / 0.01,
+# and the two trainings' loss lines side by side.
+import re, sys
+ev, jax_ev = sys.argv[1], "experiments/evidence"
+def summary(path, section=None):
+    text = open(path).read()
+    if section is not None:  # one kind's block of a log that holds several
+        text = text[text.index(f"=== eval {section} "):]
+    return {k: float(re.search(rf"^{k}: ([-0-9.]+)$", text, re.M).group(1)) for k in ("PSNR", "SSIM")}
+def losses(path):
+    return {int(m.group(1)): m.group(2) for m in re.finditer(
+        r"^step (\d+)/\d+ loss ([-+.0-9e]+)", open(path).read(), re.M)}
+rows = (("PlugAndPlay", "pnp_5imgs", "eval_pnp_r3.log", None),
+        ("DiffPIR_DRUNet", "diffpir_drunet_5imgs", "eval_dps_diffpir_r3_prefix.log", "DiffPIR_DRUNet"),
+        ("DPS", "dps_5imgs", "eval_dps_fixed.log", None),
+        ("DiffPIR_DiffUNet", "diffpir_diffunet_5imgs", "eval_diffpir_diffunet.log", None))
+for kind, tag, ref, section in rows:
+    got, want = summary(f"{ev}/eval_{tag}.log"), summary(f"{jax_ev}/{ref}", section)
+    ok = abs(got["PSNR"] - want["PSNR"]) <= 0.5 and abs(got["SSIM"] - want["SSIM"]) <= 0.01
+    print(f"{kind} (val images 0-4): port {got['PSNR']:.2f} / {got['SSIM']:.4f}, JAX "
+          f"{want['PSNR']:.2f} / {want['SSIM']:.4f} ({ref}); target within 0.5 dB and 0.01: "
+          f"{'met' if ok else 'MISSED'}")
+for name, ref in (("drunet", "drunet_training_r5.log"), ("diffunet", "diffunet_training.log")):
+    port, jax = losses(f"{ev}/{name}_training.log"), losses(f"{jax_ev}/{ref}")
+    print(f"{name} training loss, step: port, JAX ({ref})")
+    for step in sorted(set(port) | set(jax)):
+        print(f"  {step}: {port.get(step, '-')}, {jax.get(step, '-')}")
 EOF
   exit 0
 fi

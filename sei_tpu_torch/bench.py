@@ -23,7 +23,8 @@ import time
 BATCH, IMAGES, SIZE, ITERS = 8, 64, 256, 20
 
 
-def _nvidia_smi() -> str:
+def nvidia_smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
@@ -68,7 +69,7 @@ def main(argv=None) -> dict:
     line = {"metric": "train_images_per_sec", "unit": "images/sec",
             **{label: BATCH * 1e3 / v for label, v in ms.items()},
             "ms_per_step": ms, "batch": BATCH, "steps_timed": ITERS,
-            "device": torch.cuda.get_device_name(0), "nvidia_smi": _nvidia_smi()}
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}
     print(json.dumps(line))
     return line
 

@@ -15,7 +15,8 @@ resolutions, nearest-neighbour upsampling.
 images to the diffusion's [-1, 1], sigma to the nearest DDPM timestep by
 sqrt(1 - abar_t) / sqrt(abar_t) (linear betas 1e-4..0.02, T = 1000), the
 epsilon prediction to the x0 estimate; the input edge-padded to the UNet's
-multiple 2^(levels-1) and the estimate cropped back.
+multiple 2^(levels-1) and the estimate cropped back.  :func:`save_diffunet`
+writes a checkpoint in that layout (the trainer's output).
 """
 
 from __future__ import annotations
@@ -240,6 +241,14 @@ def diffunet_config_from_state_dict(sd) -> DiffUNetConfig:
                           model_channels=ch0, num_res_blocks=res_per_level,
                           channel_mult=tuple(mults), attention_ds=tuple(sorted(attention_ds)),
                           num_head_channels=64, use_scale_shift_norm=emb_out == 2 * res_out)
+
+
+def save_diffunet(path: str, net: DiffUNet) -> None:
+    """Write ``net``'s state_dict, f32 CPU tensors under the guided-diffusion
+    names: what :func:`load_diffunet` and the JAX package's
+    ``torch_diffunet_to_flax`` / ``diffunet_config_from_state_dict`` read."""
+    torch.save({k: v.detach().to("cpu", torch.float32) for k, v in net.state_dict().items()},
+               path)
 
 
 def load_diffunet(path: str) -> DiffUNet:

@@ -15,7 +15,9 @@ a block's convs ``res.0`` and ``res.2``), so such a file loads with
 ``load_state_dict``.  :func:`load_drunet_native` reads the JAX package's
 own ``.npz`` (``save_drunet_native``: flax tree paths ``head``,
 ``down{i}_res{j}/conv1``, ``down{i}_conv``, ``up{i}_conv``, ... joined by
-``/``, plus ``__channels`` and ``__nb``) with numpy alone.
+``/``, plus ``__channels`` and ``__nb``) with numpy alone, and
+:func:`save_drunet_native` writes that file from a port DRUNet, so the JAX
+package's ``load_drunet_native`` reads what the port trains.
 """
 
 from __future__ import annotations
@@ -45,9 +47,10 @@ class DRUNet(nn.Module):
     def __init__(self, in_chans: int = 3, out_chans: int = 3,
                  channels: Sequence[int] = (64, 128, 256, 512), nb: int = 4):
         super().__init__()
-        c = tuple(channels)
+        c = tuple(int(ch) for ch in channels)
         if len(c) != 4:
             raise ValueError(f"DRUNet has four scales, got channels {c}")
+        self.channels, self.nb = c, nb
         self.m_head = _conv3(in_chans + 1, c[0])
         for i in range(3):
             setattr(self, f"m_down{i + 1}", nn.Sequential(
@@ -60,10 +63,13 @@ class DRUNet(nn.Module):
         self.m_tail = _conv3(c[0], out_chans)
 
     def forward(self, x: torch.Tensor, sigma) -> torch.Tensor:
-        """x: (B, C, H, W) in [0, 1]; sigma: the noise level in [0, 1]."""
+        """x: (B, C, H, W) in [0, 1]; sigma: the noise level in [0, 1], a
+        Python float or a 0-d tensor (a trainer's draw on the device: the
+        noise map is broadcast from it, nothing is read on the host)."""
         h, w = x.shape[-2:]
         x = F.pad(x, (0, (-w) % 8, 0, (-h) % 8), mode="replicate")
-        x = torch.cat([x, torch.full_like(x[:, :1], float(sigma))], 1)
+        sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
+        x = torch.cat([x, sigma.expand_as(x[:, :1])], 1)
         x1 = self.m_head(x)
         x2 = self.m_down1(x1)
         x3 = self.m_down2(x2)
@@ -94,6 +100,21 @@ def _native_name(path: str, nb: int) -> str:
     return f"m_{name}{stage}.{j}.res.{0 if parts[1] == 'conv1' else 2}.weight"
 
 
+def _flax_path(name: str, nb: int) -> str:
+    """A published name -> the flax tree path of its kernel (the inverse of
+    :func:`_native_name`, ``/kernel`` appended)."""
+    if name in ("m_head.weight", "m_tail.weight"):
+        return f"{name[2:6]}/kernel"
+    parts = name.split(".")
+    conv = f"conv{1 if parts[-2] == '0' else 2}" if parts[-3:-2] == ["res"] else None
+    if parts[0] == "m_body":  # m_body.{j}.res.{0,2}.weight
+        return f"body_res{parts[1]}/{conv}/kernel"
+    kind, stage, j = parts[0][2:-1], int(parts[0][-1]) - 1, int(parts[1])
+    if conv is None:  # the downsample (index nb) or the transposed conv (index 0)
+        return f"{kind}{stage}_conv/kernel"
+    return f"{kind}{stage}_res{j - (1 if kind == 'up' else 0)}/{conv}/kernel"
+
+
 def native_to_state_dict(flat: Dict[str, np.ndarray], nb: int) -> Dict[str, torch.Tensor]:
     """The flax kernels of a native file as the published state_dict: conv
     HWIO -> OIHW; a flax ``ConvTranspose`` kernel (H, W, in, out), which
@@ -107,6 +128,29 @@ def native_to_state_dict(flat: Dict[str, np.ndarray], nb: int) -> Dict[str, torc
             v = v.transpose(3, 2, 0, 1)
         out[_native_name(key.rsplit("/", 1)[0], nb)] = torch.from_numpy(np.ascontiguousarray(v))
     return out
+
+
+def state_dict_to_native(sd: Dict[str, torch.Tensor], nb: int) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`native_to_state_dict`: OIHW -> HWIO; a
+    transposed conv's (in, out, H, W) -> flax's (H, W, in, out), unflipped."""
+    out = {}
+    for name, v in sd.items():
+        v = v.detach().to("cpu", torch.float32).numpy()
+        path = _flax_path(name, nb)
+        if path.startswith("up") and path.split("/")[0].endswith("_conv"):
+            v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+        else:
+            v = v.transpose(2, 3, 1, 0)
+        out[path] = np.ascontiguousarray(v)
+    return out
+
+
+def save_drunet_native(path: str, net: DRUNet) -> None:
+    """Write ``net`` as the JAX package's native ``.npz``
+    (``sei_tpu/models/drunet.py`` ``save_drunet_native``: the flax tree
+    paths joined by ``/``, ``__channels`` and ``__nb`` as int64 arrays)."""
+    flat = state_dict_to_native(net.state_dict(), net.nb)
+    np.savez(path, __channels=np.asarray(net.channels), __nb=np.asarray(net.nb), **flat)
 
 
 def load_drunet_native(path: str) -> DRUNet:

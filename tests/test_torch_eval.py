@@ -129,7 +129,9 @@ def test_port_imports_no_jax():
         "        'sei_tpu_torch.models.bm3d', 'sei_tpu_torch.models.convolutional',\n"
         "        'sei_tpu_torch.models.drunet', 'sei_tpu_torch.models.diffunet',\n"
         "        'sei_tpu_torch.models.denoiser_solvers', 'sei_tpu_torch.models.pnp',\n"
-        "        'sei_tpu_torch.metrics.lpips', 'sei_tpu_torch.parallel.tiling'} <= new, new\n"
+        "        'sei_tpu_torch.metrics.lpips', 'sei_tpu_torch.parallel.tiling',\n"
+        "        'sei_tpu_torch.train.denoisers', 'sei_tpu_torch.cli.train_drunet',\n"
+        "        'sei_tpu_torch.cli.train_diffunet'} <= new, new\n"
         "print('ok', len(new))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -2755,6 +2755,11 @@ DIP_SMOKE_ITERATIONS = 100
 # that largest reading, on all
 BASELINE_FRAC = 1e-4
 BM3D_SHARE, BM3D_MAX_FRAC = 1e-3, 4e-3
+# In f64 the card and the CPU make BM3D's choices alike: on image seeds 6-8
+# they agreed to 1.2e-15 of the largest value on the H100
+# (evidence_torch/baselines/bm3d_roundoff.log), so the f64 gate holds every
+# pixel of every image to BM3D_F64_FRAC.
+BM3D_F64_SEEDS, BM3D_F64_FRAC = (6, 7, 8), 1e-12
 LPIPS_ATOL = 1e-4
 DENOISER_KINDS = ("PlugAndPlay", "DiffPIR_DRUNet", "DPS", "DiffPIR_DiffUNet")
 
@@ -2862,6 +2867,39 @@ def functional_baselines(smi: str) -> dict:
                 print(f"  {line}; {smi}")
                 fail(f"{label}: the card's result differs from the CPU's")
         print(f"  {line}; {smi}")
+    return results
+
+
+def bm3d_f64_gate(smi: str) -> dict:
+    """BM3D in f64 on the card against the port on the CPU, on the seeded
+    256x320 deblurring measurement of each of ``BM3D_F64_SEEDS``: the largest
+    difference, as a fraction of the CPU output's largest value, is held to
+    ``BM3D_F64_FRAC`` on every image."""
+    import torch
+
+    from sei_tpu_torch.evaluate import degraded_pair
+    from sei_tpu_torch.models.bm3d import bm3d_deblur
+    from sei_tpu_torch.physics import get_physics
+
+    physics = get_physics(task="deblurring", kernel="Gaussian_R2", noise_level=5)
+    kernel, kernel_cpu = physics.kernel.double(), physics.kernel.cpu().double()
+    results = {}
+    for seed in BM3D_F64_SEEDS:
+        image = make_images(1, H, W, seed=seed)[0]
+        _, y = degraded_pair(physics, torch.as_tensor(image, device=physics.device), 0)
+        y = y[None].double()
+        out, ms, _, _ = timed_call(lambda: bm3d_deblur(y, kernel, 5 / 255.0))
+        cpu = bm3d_deblur(y.cpu(), kernel_cpu, 5 / 255.0)
+        if out.shape != (1, 3, H, W) or not torch.isfinite(out).all():
+            fail(f"BM3D f64, image seed {seed}: output {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
+        frac = float((out.cpu() - cpu).abs().max() / cpu.abs().max())
+        results[seed] = {"ms": ms, "err_frac_of_cpu_max": frac}
+        print(f"  BM3D f64, image seed {seed}: {ms:.2f} ms on the card; against the port on the "
+              f"CPU {frac:.3e} of its largest value (gate {BM3D_F64_FRAC:g}); {smi}")
+        if frac > BM3D_F64_FRAC:
+            fail(f"BM3D f64, image seed {seed}: the card's result differs from the CPU's by "
+                 f"{frac:.3e} of its largest value")
     return results
 
 
@@ -3269,7 +3307,8 @@ def baselines_phase(smi: str) -> None:
     their numbers)."""
     t0 = time.perf_counter()
     strips_over_ranks(smi)
-    record = {"functional": functional_baselines(smi), "convolutional": convolutional_phase(smi),
+    record = {"functional": functional_baselines(smi), "bm3d_f64": bm3d_f64_gate(smi),
+              "convolutional": convolutional_phase(smi),
               "denoisers": denoiser_baselines(smi), "lpips": lpips_check(smi)}
     t1 = time.perf_counter()
     record["trainers"] = denoiser_trainers(smi)

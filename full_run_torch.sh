@@ -42,12 +42,30 @@
 # rehearsal: "--device cpu --steps 2 --channels 8 16 32 64 --nb 1" and
 # "--device cpu --steps 2 --model_channels 32 --channel_mult 1 2
 # --attention_ds 2").
+# With FULL_RUN_TASK=methods, after step 1: the rows of the paper's method
+# comparison named in $FULL_RUN_METHODS (default "css sup eirot eishift",
+# cheapest first; "sure" and "eirs" are known too), each trained by
+# cli.train with its JAX recipe's flags at --scan_steps 1 and no validation,
+# as the JAX runs had none: eirot, --method ei-rotate r2r, f32, 100 epochs
+# (experiments/queue_r3q.sh:70-75); eishift, --ProposedLoss__transforms
+# Shifts r2r, f32, 100 epochs (experiments/queue_r3v.sh:36-40); css, --bf16,
+# 100 epochs (queue_r3q.sh:64-68); sup, --bf16, 300 epochs
+# (experiments/queue_r3m_regen.sh:41-46), scored at ckp_101, ckp_201 and
+# weights.pt; sure, f32, 100 epochs, scored at ckp_051 and weights.pt
+# (queue_r3q.sh:77-85); eirs, --ProposedLoss__transforms Rotations+Shifts
+# r2r (experiments/queue_r3af.sh:35-40).  Each row runs under
+# $FULL_RUN_DIR/methods/<row>; cli.test scores it on the 100 val images
+# (eval_<row>_ep<epoch>.log), training.csv is kept as <row>_training.csv,
+# and tools_torch/methods_compare.py writes compare.txt (the scores beside
+# the JAX logs of the same names, the epoch losses beside the JAX
+# training.csv where one was kept, and the rows' PSNR ordering).
 # Every time is printed beside the card's name and power limit.
 #
 #   bash full_run_torch.sh                  # on one GPU, about 40 minutes
 #   FULL_RUN_TASK=sr bash full_run_torch.sh # SR x2, about 40 minutes
 #   FULL_RUN_TASK=baselines bash full_run_torch.sh  # evidence_torch/baselines/
 #   FULL_RUN_TASK=denoisers bash full_run_torch.sh  # evidence_torch/denoisers/
+#   FULL_RUN_TASK=methods bash full_run_torch.sh    # evidence_torch/methods/, ~95 minutes
 #
 # The data and the run (checkpoints, weights.pt) go under $FULL_RUN_DIR
 # (default _full_run/, gitignored); the small text outputs (training.csv,
@@ -81,8 +99,12 @@ elif [ "$TASK" = denoisers ]; then
   EV=${FULL_RUN_EVIDENCE:-evidence_torch/denoisers}
   RUN=$RUN_ROOT/denoisers
   G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
+elif [ "$TASK" = methods ]; then
+  EV=${FULL_RUN_EVIDENCE:-evidence_torch/methods}
+  RUN=$RUN_ROOT/methods
+  G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
 else
-  echo "FULL_RUN_TASK: deblurring, sr, baselines or denoisers, got $TASK" >&2
+  echo "FULL_RUN_TASK: deblurring, sr, baselines, denoisers or methods, got $TASK" >&2
   exit 2
 fi
 mkdir -p "$EV" "$RUN_ROOT"
@@ -179,6 +201,41 @@ for name, ref in (("drunet", "drunet_training_r5.log"), ("diffunet", "diffunet_t
     for step in sorted(set(port) | set(jax)):
         print(f"  {step}: {port.get(step, '-')}, {jax.get(step, '-')}")
 EOF
+  exit 0
+fi
+
+if [ "$TASK" = methods ]; then
+  for row in ${FULL_RUN_METHODS:-css sup eirot eishift}; do
+    epochs=100 ckps=()
+    case $row in
+      eirot) flags=(--method ei-rotate --ProposedLoss__sure_alternative r2r) ;;
+      eishift) flags=(--method proposed --ProposedLoss__transforms Shifts
+                      --ProposedLoss__sure_alternative r2r) ;;
+      css) flags=(--method css --bf16) ;;
+      sup) flags=(--method sup --bf16) epochs=300 ckps=(101 201) ;;
+      sure) flags=(--method sure) ckps=(051) ;;
+      eirs) flags=(--method proposed --ProposedLoss__transforms Rotations+Shifts
+                   --ProposedLoss__sure_alternative r2r) ;;
+      *) echo "FULL_RUN_METHODS: css, sup, eirot, eishift, sure or eirs, got $row" >&2; exit 2 ;;
+    esac
+    epochs=${FULL_RUN_EPOCHS:-$epochs}
+    t0=$(now)
+    python -m sei_tpu_torch.cli.train "${G2[@]}" "${flags[@]}" "${DD[@]}" --epochs "$epochs" \
+      --scan_steps 1 --out_dir "$RUN/$row" "${EXTRA[@]}" 2>&1 | tee "$EV/${row}_train.log"
+    stamp "cli.train $row, $epochs epochs (data read, warm-up, capture included)" "$t0"
+    cp "$RUN/$row/training.csv" "$EV/${row}_training.csv"
+    for ckp in "${ckps[@]}" weights; do
+      if [ "$ckp" = weights ]; then w=$RUN/$row/weights.pt tag=${row}_ep$epochs
+      else w=$RUN/$row/checkpoints/ckp_$ckp.pt tag=${row}_ep$ckp; fi
+      if [ ! -f "$w" ]; then echo "no $w (a run of $epochs epochs): $tag not scored"; continue; fi
+      t0=$(now)
+      python -m sei_tpu_torch.cli.test "${G2[@]}" "${DD[@]}" --weights "$w" "${EXTRA[@]}" \
+        2>&1 | tail -8 | tee "$EV/eval_$tag.log"
+      stamp "cli.test $tag, 100 val images (reads and model build included)" "$t0"
+      smi >> "$EV/eval_$tag.log"
+    done
+  done
+  python tools_torch/methods_compare.py "$EV" | tee "$EV/compare.txt"
   exit 0
 fi
 

@@ -18,13 +18,22 @@ Tolerances, each stated where it is checked:
   value, ``diffunet_denoise`` at 13x19 (edge pad to 2) to 1e-4.
 * The solvers with the narrow DRUNet on a 2-image 24x32 batch (deblurring
   Gaussian_R2; DPIR also SR x2, the CG prox): ``dpir_hqs`` (3 iterations),
-  ``diffpir`` (4 steps) and ``dps`` (3 steps) with the JAX package's
-  ``PRNGKey(0)`` draws handed to the port: 1e-4 of the output's largest
-  value.
+  ``diffpir`` (4 steps) and ``dps`` (3 steps), and on one 24x32 image at
+  their default lengths (DPIR's 8 iterations, DiffPIR's and DPS's 100
+  steps), with the JAX package's ``PRNGKey(0)`` draws handed to the port:
+  1e-4 of the output's largest value.  DPS at 100 steps runs in f64 on
+  both sides (JAX under ``enable_x64``, the port's DRUNet in double), to
+  1e-12: with random weights nearly every x0 value lies beyond the [-1, 1]
+  clip, so the likelihood gradient flows through a few pixels only, and in
+  f32 one of them crossing the clip by roundoff parts the port's own f32
+  and f64 runs by 5% of the output's largest value, as much as the port
+  and JAX part; in f64 the two agree to 3.0e-15.
 * ``get_denoiser_model`` raises ``NotImplementedError`` with the JAX
   package's message without its env var; ``cli.test`` runs every one of
   the 11 kinds on a 40x48 image and prints a finite PSNR.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -157,37 +166,60 @@ def _solver_setup(task):
     return jphys, phys, y
 
 
-def _jax_normals(n, shape):
+def _jax_normals(n, shape, dtype=jnp.float32):
     """The JAX solvers' draws: k0 from PRNGKey(0)'s first split, then one
     split per step."""
     k0, key = jax.random.split(jax.random.PRNGKey(0))
-    out = [jax.random.normal(k0, shape)]
+    out = [jax.random.normal(k0, shape, dtype)]
     for _ in range(n - 1):
         key, kn = jax.random.split(key)
-        out.append(jax.random.normal(kn, shape))
+        out.append(jax.random.normal(kn, shape, dtype))
     return [torch.from_numpy(np.asarray(v)) for v in out]
 
 
-@pytest.mark.parametrize("solver,task", [("dpir", "deblurring"), ("dpir", "sr"),
-                                         ("diffpir", "deblurring"), ("dps", "deblurring")])
-def test_solvers_match_jax(drunet, solver, task):
+# (solver, task, count): count None runs the solver at its default length,
+# DPIR's 8 iterations and DiffPIR's and DPS's 100 steps (the length the evals
+# run), on one image; the short cases run the 2-image batch.
+@pytest.mark.parametrize("solver,task,count", [
+    pytest.param("dpir", "deblurring", 3, id="dpir-deblurring"),
+    pytest.param("dpir", "sr", 3, id="dpir-sr"),
+    pytest.param("diffpir", "deblurring", 4, id="diffpir-deblurring"),
+    pytest.param("dps", "deblurring", 3, id="dps-deblurring"),
+    pytest.param("dpir", "deblurring", None, id="dpir-deblurring-default-iters"),
+    pytest.param("diffpir", "deblurring", None, id="diffpir-deblurring-100-steps"),
+    pytest.param("dps", "deblurring", None, id="dps-deblurring-100-steps"),
+])
+def test_solvers_match_jax(drunet, solver, task, count):
     jfn, _, _, net = drunet
     jphys, phys, y = _solver_setup(task)
+    if count is None:
+        y = y[:1]
     yt, yj = torch.from_numpy(y), jnp.asarray(y)
     sigma = 5 / 255
-    shape = (2, 3, 24, 32)
+    shape = (len(y), 3, 24, 32)
+    n = {} if count is None else {"iters" if solver == "dpir" else "steps": count}
+    draws = 100 if count is None else count
     if solver == "dpir":
-        want = jax_dpir(yj, jphys, jfn, noise_level_img=sigma, iters=3)
+        want = jax_dpir(yj, jphys, jfn, noise_level_img=sigma, **n)
         with torch.no_grad():
-            got = dpir_hqs(yt, phys, net, noise_level_img=sigma, iters=3)
+            got = dpir_hqs(yt, phys, net, noise_level_img=sigma, **n)
     elif solver == "diffpir":
-        want = jax_diffpir(yj, jphys, jfn, noise_level_img=sigma, steps=4)
+        want = jax_diffpir(yj, jphys, jfn, noise_level_img=sigma, **n)
         with torch.no_grad():
-            got = diffpir(yt, phys, net, noise_level_img=sigma, steps=4,
-                          normals=_jax_normals(4, shape))
-    else:
-        want = jax_dps(yj, jphys, jfn, steps=3)
-        got = dps(yt, phys, net, steps=3, normals=_jax_normals(3, shape))
+            got = diffpir(yt, phys, net, noise_level_img=sigma,
+                          normals=_jax_normals(draws, shape), **n)
+    elif count is not None:
+        want = jax_dps(yj, jphys, jfn, **n)
+        got = dps(yt, phys, net, normals=_jax_normals(draws, shape), **n)
+    else:  # f64 on both sides: in f32 a clip flip parts even the port from itself
+        with jax.enable_x64(True):
+            want = np.asarray(jax_dps(yj.astype(jnp.float64), jphys, jfn))
+            normals = _jax_normals(draws, shape, jnp.float64)
+        got = dps(yt.double(), phys, copy.deepcopy(net).double(), normals=normals)
+        assert got.dtype == torch.float64 and want.dtype == np.float64
+        assert got.shape == want.shape == shape
+        _close(got.detach().numpy(), want, 1e-12)
+        return
     assert got.shape == want.shape == shape
     _close(got.detach().numpy(), np.asarray(want), 1e-4)
 

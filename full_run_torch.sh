@@ -59,6 +59,26 @@
 # and tools_torch/methods_compare.py writes compare.txt (the scores beside
 # the JAX logs of the same names, the epoch losses beside the JAX
 # training.csv where one was kept, and the rows' PSNR ordering).
+# $FULL_RUN_TRAIN_SEED passes --seed to cli.train alone (cli.test scores the
+# same 100 val degradations at every training seed) and suffixes the row's
+# run, logs and tags with _s<seed> (eishift_s1, eval_eishift_s1_ep100.log,
+# eishift_s1_training.csv), which methods_compare.py puts beside the JAX row
+# of the seed-less name.
+# With FULL_RUN_TASK=ct, after step 1: the CT-like task (--task
+# invert_a_tomography_like_filter --noise_level 5, the separable ramp filter)
+# as experiments/queue_r3r.sh and queue_r3t.sh ran it, the rows named in
+# $FULL_RUN_CT_ROWS (default "identity invfilter sup n2i r2r", cheapest
+# first): identity and invfilter, cli.test --model_kind Identity /
+# InverseFilter (queue_r3r.sh:39-40); sup, --method sup --bf16
+# (queue_r3r.sh:30-31); n2i, --method noise2inverse --bf16, scored by
+# cli.test --noise2inverse, 4 forwards an image (queue_r3t.sh:21-28); r2r,
+# --method proposed --ProposedLoss__sure_alternative r2r in f32
+# (queue_r3r.sh:34-36); each trained 100 epochs at --scan_steps 1 with no
+# validation under $FULL_RUN_DIR/ct/<row>, its training.csv kept as
+# ct_<row>_training.csv, every row scored on the 100 val images
+# (eval_ct_<row>.log, eval_ct_<row>_ep100.log), then compare.txt through
+# tools_torch/methods_compare.py --task ct (the scores beside the JAX logs of
+# the same names and the ordering; the JAX CT runs kept no training.csv).
 # Every time is printed beside the card's name and power limit.
 #
 #   bash full_run_torch.sh                  # on one GPU, about 40 minutes
@@ -66,6 +86,9 @@
 #   FULL_RUN_TASK=baselines bash full_run_torch.sh  # evidence_torch/baselines/
 #   FULL_RUN_TASK=denoisers bash full_run_torch.sh  # evidence_torch/denoisers/
 #   FULL_RUN_TASK=methods bash full_run_torch.sh    # evidence_torch/methods/, ~95 minutes
+#   FULL_RUN_TASK=methods FULL_RUN_METHODS=eishift FULL_RUN_TRAIN_SEED=1 \
+#     bash full_run_torch.sh                        # EI-shift at seed 1, ~35 minutes
+#   FULL_RUN_TASK=ct bash full_run_torch.sh         # evidence_torch/ct/, ~50 minutes
 #
 # The data and the run (checkpoints, weights.pt) go under $FULL_RUN_DIR
 # (default _full_run/, gitignored); the small text outputs (training.csv,
@@ -103,8 +126,12 @@ elif [ "$TASK" = methods ]; then
   EV=${FULL_RUN_EVIDENCE:-evidence_torch/methods}
   RUN=$RUN_ROOT/methods
   G2=(--task deblurring --kernel Gaussian_R2 --noise_level 5)
+elif [ "$TASK" = ct ]; then
+  EV=${FULL_RUN_EVIDENCE:-evidence_torch/ct}
+  RUN=$RUN_ROOT/ct
+  G2=(--task invert_a_tomography_like_filter --noise_level 5)
 else
-  echo "FULL_RUN_TASK: deblurring, sr, baselines, denoisers or methods, got $TASK" >&2
+  echo "FULL_RUN_TASK: deblurring, sr, baselines, denoisers, methods or ct, got $TASK" >&2
   exit 2
 fi
 mkdir -p "$EV" "$RUN_ROOT"
@@ -205,9 +232,11 @@ EOF
 fi
 
 if [ "$TASK" = methods ]; then
-  for row in ${FULL_RUN_METHODS:-css sup eirot eishift}; do
+  SEED=(${FULL_RUN_TRAIN_SEED:+--seed "$FULL_RUN_TRAIN_SEED"})
+  for method in ${FULL_RUN_METHODS:-css sup eirot eishift}; do
+    row=$method${FULL_RUN_TRAIN_SEED:+_s$FULL_RUN_TRAIN_SEED}
     epochs=100 ckps=()
-    case $row in
+    case $method in
       eirot) flags=(--method ei-rotate --ProposedLoss__sure_alternative r2r) ;;
       eishift) flags=(--method proposed --ProposedLoss__transforms Shifts
                       --ProposedLoss__sure_alternative r2r) ;;
@@ -216,12 +245,13 @@ if [ "$TASK" = methods ]; then
       sure) flags=(--method sure) ckps=(051) ;;
       eirs) flags=(--method proposed --ProposedLoss__transforms Rotations+Shifts
                    --ProposedLoss__sure_alternative r2r) ;;
-      *) echo "FULL_RUN_METHODS: css, sup, eirot, eishift, sure or eirs, got $row" >&2; exit 2 ;;
+      *) echo "FULL_RUN_METHODS: css, sup, eirot, eishift, sure or eirs, got $method" >&2; exit 2 ;;
     esac
     epochs=${FULL_RUN_EPOCHS:-$epochs}
     t0=$(now)
     python -m sei_tpu_torch.cli.train "${G2[@]}" "${flags[@]}" "${DD[@]}" --epochs "$epochs" \
-      --scan_steps 1 --out_dir "$RUN/$row" "${EXTRA[@]}" 2>&1 | tee "$EV/${row}_train.log"
+      --scan_steps 1 --out_dir "$RUN/$row" "${SEED[@]}" "${EXTRA[@]}" 2>&1 \
+      | tee "$EV/${row}_train.log"
     stamp "cli.train $row, $epochs epochs (data read, warm-up, capture included)" "$t0"
     cp "$RUN/$row/training.csv" "$EV/${row}_training.csv"
     for ckp in "${ckps[@]}" weights; do
@@ -236,6 +266,37 @@ if [ "$TASK" = methods ]; then
     done
   done
   python tools_torch/methods_compare.py "$EV" | tee "$EV/compare.txt"
+  exit 0
+fi
+
+if [ "$TASK" = ct ]; then
+  for row in ${FULL_RUN_CT_ROWS:-identity invfilter sup n2i r2r}; do
+    kind= test_flags=()
+    case $row in
+      identity) kind=Identity ;;
+      invfilter) kind=InverseFilter ;;
+      sup) flags=(--method sup --bf16) ;;
+      n2i) flags=(--method noise2inverse --bf16) test_flags=(--noise2inverse) ;;
+      r2r) flags=(--method proposed --ProposedLoss__sure_alternative r2r) ;;
+      *) echo "FULL_RUN_CT_ROWS: identity, invfilter, sup, n2i or r2r, got $row" >&2; exit 2 ;;
+    esac
+    if [ -n "$kind" ]; then
+      test_flags=(--model_kind "$kind") tag=ct_$row
+    else
+      t0=$(now)
+      python -m sei_tpu_torch.cli.train "${G2[@]}" "${flags[@]}" "${DD[@]}" --epochs "$EPOCHS" \
+        --scan_steps 1 --out_dir "$RUN/$row" "${EXTRA[@]}" 2>&1 | tee "$EV/ct_${row}_train.log"
+      stamp "cli.train ct_$row, $EPOCHS epochs (data read, warm-up, capture included)" "$t0"
+      cp "$RUN/$row/training.csv" "$EV/ct_${row}_training.csv"
+      test_flags+=(--weights "$RUN/$row/weights.pt") tag=ct_${row}_ep$EPOCHS
+    fi
+    t0=$(now)
+    python -m sei_tpu_torch.cli.test "${G2[@]}" "${DD[@]}" "${test_flags[@]}" "${EXTRA[@]}" \
+      2>&1 | tail -8 | tee "$EV/eval_$tag.log"
+    stamp "cli.test $tag, 100 val images (reads and model build included)" "$t0"
+    smi >> "$EV/eval_$tag.log"
+  done
+  python tools_torch/methods_compare.py --task ct "$EV" | tee "$EV/compare.txt"
   exit 0
 fi
 
